@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of ``comfyui_parallelanything_tpu`` for NVIDIA Hopper GPUs.
+
+The JAX package is the reference; this package mirrors its layout (``devices/``,
+``ops/``, ``models/``, ``parallel/``, ``sampling/``) and keeps its public tensor
+layouts (NHWC latents, BSHD attention). Its hand-written CUDA kernels live in
+``csrc/`` and build at first use (``ops/kernels/build.py``). Entry points run on
+``cuda:0`` unless the caller passes a CPU device.
+"""
+
+from .devices.discovery import available_devices, default_device, get_device
+from .parallel.chain import DeviceChain, DeviceLink
+from .parallel.orchestrator import ParallelConfig, ParallelModel, parallelize
+
+__all__ = [
+    "DeviceChain",
+    "DeviceLink",
+    "ParallelConfig",
+    "ParallelModel",
+    "available_devices",
+    "default_device",
+    "get_device",
+    "parallelize",
+]
