@@ -11,9 +11,11 @@ the error.
 1. device — the card, and ``nvidia-smi``'s name and power limit line.
 2. build — every CUDA kernel under ``csrc/``, one ``nvcc`` per source, in parallel.
 3. kernel — K1 (flash attention) against its plain version at the FLUX-dev shape,
-   a ragged Sq≠Sk shape, head dims 64 and 40, and f32; timed at the FLUX-dev
-   shape beside the plain version, ``F.scaled_dot_product_attention`` (timed
-   here only, never called by the port) and the card's bound.
+   a ragged Sq≠Sk shape, head dims 64 and 40, f16 and f32, within limits set from
+   the kernel's measured error; two planted tail bugs (the last key block's
+   padding left unmasked, the last key dropped) must fail the same check. Timed at
+   the FLUX-dev shape beside the plain version, ``F.scaled_dot_product_attention``
+   (timed here only, never called by the port) and the card's bound.
 4. main_path — FLUX-dev at full width and depth (19 double + 38 single blocks,
    3072 wide, 24×128 heads) in bf16 with random weights from a seeded generator
    on the card, wrapped by ``parallelize`` over ``[("cuda:0", 100)]``, sampled by
@@ -37,20 +39,70 @@ H100_HBM_BYTES_S = 3.35e12
 
 STEPS = 4
 FLUX_SHAPE = (1, 4608, 24, 128)  # 4096 image + 512 text tokens at 1024²
-KERNEL_CASES = [  # name, q shape, k/v shape, dtype name, rtol = atol
-    ("flux_dev_1024", FLUX_SHAPE, FLUX_SHAPE, "bfloat16", 2e-2),
-    ("ragged_300x513", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16", 2e-2),
-    ("d64", (2, 300, 4, 64), (2, 513, 4, 64), "bfloat16", 2e-2),
-    ("d40", (2, 300, 4, 40), (2, 513, 4, 40), "bfloat16", 2e-2),
-    ("f32", (2, 300, 4, 128), (2, 513, 4, 128), "float32", 2e-4),
+KERNEL_CASES = [  # name, q shape, k/v shape, dtype name
+    ("flux_dev_1024", FLUX_SHAPE, FLUX_SHAPE, "bfloat16"),
+    ("ragged_300x513", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16"),
+    ("d64", (2, 300, 4, 64), (2, 513, 4, 64), "bfloat16"),
+    ("d40", (2, 300, 4, 40), (2, 513, 4, 40), "bfloat16"),
+    ("f16", (2, 300, 4, 128), (2, 513, 4, 128), "float16"),
+    ("f32", (2, 300, 4, 128), (2, 513, 4, 128), "float32"),
 ]
-# bf16: P is rounded to bf16 before P·V and the output is bf16 (~3 digits).
-# f32: the f32 kernel differs from the plain version only in summation order.
+# Limits on the kernel's error against the plain version computed in f32 on the
+# same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
+# and the relative L2 error over the whole output. P is rounded to the input type
+# before P·V, and the output is rounded too: each costs at most half an ulp (2^-9
+# relative in bf16, 2^-11 in f16) of P·|V|, which bounds |P·V|; rtol allows four.
+# With randn inputs the outputs are about sqrt(e / Sk) in size (0.024 at the FLUX
+# shape, 0.07 at Sk = 513), and the kernel's relative L2 error about 2e-3 in bf16.
+# Leaving the 63 padded keys of a 513-key tail unmasked shrinks the output by about
+# 7 %, and dropping the last key moves it by a few per cent: both must fail.
+KERNEL_LIMITS = {  # dtype: (atol, rtol, relative L2)
+    "bfloat16": (1e-4, 2**-7, 5e-3),
+    "float16": (1e-5, 2**-9, 1e-3),
+    "float32": (1e-6, 1e-5, 1e-5),  # only the summation order differs
+}
 MAIN_PATH_REL_TOL = 5e-2  # bf16 FLUX-dev forward, kernel vs plain attention
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def kernel_error(got, q, k, v, scale=None) -> dict:
+    """K1's output ``got`` for q/k/v against the plain version on the same inputs,
+    upcast exactly to f32 and without the final cast: max abs and relative L2 error,
+    and whether both are inside ``KERNEL_LIMITS`` for q's dtype."""
+    from comfyui_parallelanything_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_plain,
+    )
+
+    atol, rtol, rel_l2_limit = KERNEL_LIMITS[str(q.dtype).removeprefix("torch.")]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = flash_attention_plain(qf, kf, vf, scale)
+    mag = flash_attention_plain(qf, kf, vf.abs(), scale)  # P·|V|
+    diff = (got.float() - want).abs()
+    rel_l2 = (diff.norm() / want.norm()).item()
+    ok = bool((diff <= atol + rtol * mag).all().item()) and rel_l2 <= rel_l2_limit
+    return {"max_abs_err": diff.max().item(), "rel_l2_err": rel_l2, "ok": ok}
+
+
+def tail_bugs(q, k, v) -> dict:
+    """Outputs of two wrong kernels, in q's dtype: the last 64-key block's padding
+    left unmasked (logit 0 against zero values), and the last key dropped. The
+    kernel check must reject both."""
+    import torch.nn.functional as F
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_plain,
+    )
+
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = q.shape[-1] ** -0.5
+    pad = (0, 0, 0, 0, 0, -k.shape[1] % 64)
+    return {
+        "tail_unmasked": flash_attention_plain(qf, F.pad(kf, pad), F.pad(vf, pad), scale),
+        "last_key_dropped": flash_attention_plain(qf, kf[:, :-1], vf[:, :-1], scale),
+    }
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -118,7 +170,8 @@ def phase_kernel() -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
     flux = None
-    for name, qshape, kshape, dtype_name, tol in KERNEL_CASES:
+    controls = {}
+    for name, qshape, kshape, dtype_name in KERNEL_CASES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn(qshape, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(kshape, generator=gen, device=dev).to(dtype) for _ in range(2))
@@ -127,17 +180,20 @@ def phase_kernel() -> dict:
         torch.cuda.synchronize()
         if fa.launches != before + 1:
             raise RuntimeError(f"{name}: the wrapper did not launch the kernel")
-        want = fa.flash_attention_plain(q, k, v)
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        ok = bool((diff <= tol + tol * want.float().abs()).all().item())
+        res = kernel_error(got, q, k, v)
         cases.append({"case": name, "q": list(qshape), "k": list(kshape), "dtype": dtype_name,
-                      "max_abs_err": err, "tol": tol, "ok": ok})
-        if not ok:
+                      **res, "limits": KERNEL_LIMITS[dtype_name]})
+        if not res["ok"]:
             emit({"phase": "kernel", "cases": cases})
             raise RuntimeError(f"flash_attention disagrees with its plain version at {name}")
+        if name == "ragged_300x513":
+            controls = {bug: kernel_error(out.to(dtype), q, k, v)
+                        for bug, out in tail_bugs(q, k, v).items()}
         if name == "flux_dev_1024":
-            flux = (q, k, v, err)
+            flux = (q, k, v, res["max_abs_err"])
+    if not controls or any(c["ok"] for c in controls.values()):
+        emit({"phase": "kernel", "cases": cases, "controls": controls})
+        raise RuntimeError(f"the kernel check accepts a planted tail bug: {controls}")
     q, k, v, err = flux
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=20)
@@ -147,7 +203,7 @@ def phase_kernel() -> dict:
     row = {"name": "flash_attention", "shape": list(FLUX_SHAPE), "dtype": "bfloat16",
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
-    emit({"phase": "kernel", "cases": cases, "kernels": [row]})
+    emit({"phase": "kernel", "cases": cases, "controls": controls, "kernels": [row]})
     return row
 
 

@@ -11,7 +11,7 @@
 // q/k/v/o (0.034 ms at 3.35 TB/s), so the call is bound by tensor-core operations.
 // The design keeps the S×S logits out of device memory (the O(S·D) traffic above is
 // all that reaches HBM) and runs both products on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate):
+// mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate):
 //   - one CTA of 4 warps per (batch·head, 64-query tile); each warp owns 16 rows;
 //   - the TPU grid's sequential key-block axis is a loop inside the CTA; each 64-key
 //     K/V tile is staged in shared memory (rows padded by 8 elements so every
@@ -20,10 +20,14 @@
 //     re-packed in registers as the A operand of P·V (no shared-memory round trip);
 //   - the ragged seq_k tail is masked in the loop, the seq_q tail on store, and the
 //     head dim is padded to 64/128/256 by zero-filling shared memory.
-// float32 inputs take a scalar-FMA kernel with the same tiling in full f32 (they are
-// not on the bf16 main path). wgmma, TMA and warp specialisation are not used yet.
+// float16 inputs take the same tensor-core kernel with f16 mma and packing. float32
+// inputs take a scalar-FMA kernel with the same tiling in full f32 (they are not on
+// the bf16 main path). wgmma, TMA and warp specialisation are not used yet.
+// Grids cover at most 65535 batch·head slices (gridDim.y), so larger batches are
+// launched in chunks of whole batch rows.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -33,7 +37,7 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kBlockQ = 64;    // 16 query rows per warp
 constexpr int kBlockK = 64;
-constexpr int kSmemPad = 8;    // bf16 elements of padding per shared-memory row
+constexpr int kSmemPad = 8;    // 16-bit elements of padding per shared-memory row
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -51,13 +55,13 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel
+// bf16 / f16 tensor-core kernel
 // ---------------------------------------------------------------------------
 
 // Stage rows [row0, row0 + 64) of one (batch, head) slice into shared memory as a
-// 64 × D_PAD bf16 tile; rows past `n_rows` and columns past `head_dim` are zero.
+// 64 × D_PAD tile of 16-bit elements; rows past `n_rows` and columns past `head_dim` are zero.
 template <int D_PAD>
-__device__ __forceinline__ void load_tile_bf16(uint16_t* dst, const uint16_t* src,
+__device__ __forceinline__ void load_tile_16bit(uint16_t* dst, const uint16_t* src,
                                                long long row_stride, int row0,
                                                int n_rows, int head_dim, bool vec_ok) {
   constexpr int LD = D_PAD + kSmemPad;
@@ -83,26 +87,50 @@ __device__ __forceinline__ void load_tile_bf16(uint16_t* dst, const uint16_t* sr
   }
 }
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// What differs between the bf16 and f16 kernels: the mma's input type, packing two
+// floats into one register (the lower column in the low half), and the store.
+template <typename T>
+struct Elem;
 
-// Two floats as one bf16x2 register, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 cvt(float x) { return __float2bfloat16(x); }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ __half cvt(float x) { return __float2half_rn(x); }
+};
 
 __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int D_PAD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
+template <int D_PAD, typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_mma(Params p) {
+  using E = Elem<T>;
   constexpr int LD = D_PAD + kSmemPad;
   constexpr int kNTiles = kBlockK / 8;  // 8-key column tiles of the logits
   constexpr int kDTiles = D_PAD / 8;    // 8-wide column tiles of the output
@@ -119,7 +147,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   const uint16_t* kb = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
   const uint16_t* vb = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_tile_bf16<D_PAD>(q_s, qb, p.q_ss, q0, p.seq_q, p.head_dim, p.vec_ok);
+  load_tile_16bit<D_PAD>(q_s, qb, p.q_ss, q0, p.seq_q, p.head_dim, p.vec_ok);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -138,8 +166,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   const int n_kblocks = (p.seq_k + kBlockK - 1) / kBlockK;
   for (int j = 0; j < n_kblocks; ++j) {
     __syncthreads();  // the previous tile is no longer read
-    load_tile_bf16<D_PAD>(k_s, kb, p.k_ss, j * kBlockK, p.seq_k, p.head_dim, p.vec_ok);
-    load_tile_bf16<D_PAD>(v_s, vb, p.v_ss, j * kBlockK, p.seq_k, p.head_dim, p.vec_ok);
+    load_tile_16bit<D_PAD>(k_s, kb, p.k_ss, j * kBlockK, p.seq_k, p.head_dim, p.vec_ok);
+    load_tile_16bit<D_PAD>(v_s, vb, p.v_ss, j * kBlockK, p.seq_k, p.head_dim, p.vec_ok);
     __syncthreads();
 
     // S = Q · Kᵀ for this warp's 16 rows × 64 keys.
@@ -154,7 +182,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
       for (int nt = 0; nt < kNTiles; ++nt) {
         const uint16_t* kr = k_s + (nt * 8 + g) * LD + ks * 16 + tig * 2;
         const uint32_t bf[2] = {ld32(kr), ld32(kr + 8)};
-        mma_16816(s[nt], a, bf);
+        E::mma(s[nt], a, bf);
       }
     }
 
@@ -204,17 +232,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     // O += P · V. The two logits tiles of a 16-key step are exactly the A fragment.
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t a[4] = {E::pack(s[2 * kk][0], s[2 * kk][1]),
+                             E::pack(s[2 * kk][2], s[2 * kk][3]),
+                             E::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             E::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dn = 0; dn < kDTiles; ++dn) {
         // B(key, d) = V[key][d]: keys kk·16 + 2·tig (+1, +8, +9), column dn·8 + g.
         const uint16_t* vp = v_s + (kk * 16 + tig * 2) * LD + dn * 8 + g;
         const uint32_t bf[2] = {vp[0] | ((uint32_t)vp[LD] << 16),
                                 vp[8 * LD] | ((uint32_t)vp[9 * LD] << 16)};
-        mma_16816(acc[dn], a, bf);
+        E::mma(acc[dn], a, bf);
       }
     }
   }
@@ -226,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     inv[r] = 1.f / l_r[r];
   }
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int row0 = q0 + wrow + g;
   const int row1 = row0 + 8;
 #pragma unroll
@@ -235,8 +263,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     for (int e = 0; e < 2; ++e) {
       const int d = dn * 8 + tig * 2 + e;
       if (d < p.head_dim) {
-        if (row0 < p.seq_q) ob[(long long)row0 * p.o_ss + d] = __float2bfloat16(acc[dn][e] * inv[0]);
-        if (row1 < p.seq_q) ob[(long long)row1 * p.o_ss + d] = __float2bfloat16(acc[dn][2 + e] * inv[1]);
+        if (row0 < p.seq_q) ob[(long long)row0 * p.o_ss + d] = E::cvt(acc[dn][e] * inv[0]);
+        if (row1 < p.seq_q) ob[(long long)row1 * p.o_ss + d] = E::cvt(acc[dn][2 + e] * inv[1]);
       }
     }
   }
@@ -356,10 +384,11 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, c
 
 template <int D_PAD>
 cudaError_t dispatch(int dtype, int batch, cudaStream_t stream, const Params& p) {
-  if (dtype == 0) {
+  if (dtype != 1) {
     const size_t smem = (size_t)(kBlockQ + 2 * kBlockK) * (D_PAD + kSmemPad) * sizeof(uint16_t);
     const dim3 grid((p.seq_q + kBlockQ - 1) / kBlockQ, batch * p.heads);
-    return launch(flash_fwd_bf16<D_PAD>, grid, smem, stream, p);
+    return dtype == 0 ? launch(flash_fwd_mma<D_PAD, __nv_bfloat16>, grid, smem, stream, p)
+                      : launch(flash_fwd_mma<D_PAD, __half>, grid, smem, stream, p);
   }
   const size_t smem = (size_t)(2 * kF32Block * (D_PAD + 1) + kF32Block * D_PAD +
                                kF32Block * (kF32Block + 1) + kF32Block) * sizeof(float);
@@ -369,25 +398,34 @@ cudaError_t dispatch(int dtype, int batch, cudaStream_t stream, const Params& p)
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. Strides are in elements; the head dim is
-// contiguous. Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16. Strides are in elements; the head
+// dim is contiguous. Launches on `stream`, which must belong to the current device.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                      int dtype, int device, int batch, int heads, int seq_q,
-                                      int seq_k, int head_dim, long long q_sb, long long q_ss,
+                                      int dtype, int batch, int heads, int seq_q, int seq_k,
+                                      int head_dim, long long q_sb, long long q_ss,
                                       long long q_sh, long long k_sb, long long k_ss,
                                       long long k_sh, long long v_sb, long long v_ss,
                                       long long v_sh, long long o_sb, long long o_ss,
                                       long long o_sh, float scale, int vec_ok, void* stream) {
-  if ((dtype != 0 && dtype != 1) || head_dim < 1 || head_dim > 256 || seq_q < 1 || seq_k < 1)
+  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > 256 || seq_q < 1 || seq_k < 1 ||
+      batch < 1 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  Params p{q,    k,    v,    o,    q_sb, q_ss,  q_sh,  k_sb,     k_ss,
-           k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,  o_sh,  heads,    seq_q,
-           seq_k, head_dim, scale * kLog2e, vec_ok};
+  const long long esize = dtype == 1 ? 4 : 2;
+  const int max_batch = 65535 / heads;  // gridDim.y limit on batch·head slices
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim <= 64) err = dispatch<64>(dtype, batch, s, p);
-  else if (head_dim <= 128) err = dispatch<128>(dtype, batch, s, p);
-  else err = dispatch<256>(dtype, batch, s, p);
+  cudaError_t err = cudaSuccess;
+  for (int b0 = 0; b0 < batch && err == cudaSuccess; b0 += max_batch) {
+    const int nb = batch - b0 < max_batch ? batch - b0 : max_batch;
+    Params p{static_cast<const char*>(q) + b0 * q_sb * esize,
+             static_cast<const char*>(k) + b0 * k_sb * esize,
+             static_cast<const char*>(v) + b0 * v_sb * esize,
+             static_cast<char*>(o) + b0 * o_sb * esize,
+             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+             heads, seq_q, seq_k, head_dim, scale * kLog2e, vec_ok};
+    if (head_dim <= 64) err = dispatch<64>(dtype, nb, s, p);
+    else if (head_dim <= 128) err = dispatch<128>(dtype, nb, s, p);
+    else err = dispatch<256>(dtype, nb, s, p);
+  }
   return (int)err;
 }

@@ -10,7 +10,9 @@ q/k/v ("BSHD") and return (B, S, H, D).
   (``ops/kernels/flash_attention.py``; the name matches the JAX package's so
   ``resolved_backends()`` reads the same on both sides).
 - ``"auto"`` — a CUDA tensor goes to the kernel, a CPU tensor to the xla family.
-  There is no measured table yet that could send a CUDA shape elsewhere.
+  There is no measured table yet that could send a CUDA shape elsewhere, so a CUDA
+  call the kernel does not take (head dim above 256, float64) raises; select
+  ``"xla"`` for those.
 """
 
 from __future__ import annotations

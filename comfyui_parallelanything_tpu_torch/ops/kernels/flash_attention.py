@@ -9,12 +9,14 @@ Bound on an H100 SXM at the FLUX-dev 1024² shape (B=1, S=4608, H=24, D=128): on
 call does 4·B·H·S²·D = 261 GFLOP (0.264 ms at 989 TFLOP/s bf16) and must move
 113 MB of q/k/v/o (0.034 ms at 3.35 TB/s), so it is bound by tensor-core
 operations. The CUDA source (``csrc/flash_attention.cu``) keeps the S×S logits
-in registers, runs both products as bf16 ``mma.sync`` with f32 accumulation,
-streams K/V tiles through shared memory in a loop inside each CTA, and reads the
-BSHD layout in place from strides (no fold/transpose/pad copies).
+in registers, runs both products as bf16 (or f16) ``mma.sync`` with f32
+accumulation, streams K/V tiles through shared memory in a loop inside each CTA,
+and reads the BSHD layout in place from strides (no fold/transpose/pad copies).
+float32 inputs take a scalar-FMA kernel in full f32.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises on what the
-kernel does not take; it computes ``flash_attention_plain`` only for CPU tensors.
+kernel does not take (head dims above 256, float64); it computes
+``flash_attention_plain`` only for CPU tensors.
 ``launches`` counts kernel launches.
 """
 
@@ -29,7 +31,7 @@ from . import build
 launches = 0
 
 MAX_HEAD_DIM = 256
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 _FN = None
 
 
@@ -61,7 +63,7 @@ def _kernel():
     if _FN is None:
         fn = build.load("flash_attention").pa_flash_attention_fwd
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
                        *([i64] * 12), ctypes.c_float, i32, ptr]
         fn.restype = i32
         _FN = fn
@@ -79,7 +81,8 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_attention kernel takes bfloat16 or float32, not {q.dtype}")
+        raise ValueError(
+            f"flash_attention kernel takes bfloat16, float16 or float32, not {q.dtype}")
     batch, seq_q, heads, head_dim = q.shape
     seq_k = k.shape[1]
     if head_dim > MAX_HEAD_DIM:
@@ -87,7 +90,7 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
             f"flash_attention kernel takes head dims up to {MAX_HEAD_DIM}, got {head_dim} "
             "(larger heads, such as the VAE's 512, are ROADMAP Queue 2 work)"
         )
-    if min(seq_q, seq_k, batch * heads) < 1 or batch * heads > 65535:
+    if min(seq_q, seq_k, batch, heads) < 1 or heads > 65535:
         raise ValueError(f"flash_attention kernel cannot take q {tuple(q.shape)}, k {tuple(k.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs a contiguous head dim (stride(-1) == 1)")
@@ -96,14 +99,17 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
     vec_ok = head_dim % 8 == 0 and all(
         t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
     )
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], q.device.index, batch, heads, seq_q, seq_k, head_dim,
-        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
-        float(scale), int(vec_ok), stream,
-    )
+    fn = _kernel()
+    # The launch needs q's device to be the current one; the context restores the
+    # caller's current device afterwards.
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], batch, heads, seq_q, seq_k, head_dim,
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
+            float(scale), int(vec_ok), torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {rc}")
     launches += 1

@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 from comfyui_parallelanything_tpu_torch import parallelize  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models import flux  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops import attention  # noqa: E402
@@ -30,47 +31,78 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _check_kernel(q, k, v, scale=None):
+    """Launch K1 once and hold it against its plain version within
+    ``chip_smoke.KERNEL_LIMITS`` (the limits the card's smoke run applies)."""
+    launches = fa.launches
+    got = fa.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.launches == launches + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    res = chip_smoke.kernel_error(got, q, k, v, scale)
+    assert res["ok"], res
+    return got
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    # The f32 reference must be computed in full f32.
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+# The smoke run's cases, plus a 256-wide head and a small f32 case with D=40.
 @pytest.mark.parametrize(
-    "qshape,kshape,dtype,tol",
-    [
-        ((1, 4608, 24, 128), (1, 4608, 24, 128), torch.bfloat16, 2e-2),
-        ((2, 300, 4, 128), (2, 513, 4, 128), torch.bfloat16, 2e-2),
-        ((2, 300, 4, 64), (2, 513, 4, 64), torch.bfloat16, 2e-2),
-        ((2, 300, 4, 40), (2, 513, 4, 40), torch.bfloat16, 2e-2),
-        ((2, 130, 3, 256), (2, 70, 3, 256), torch.bfloat16, 2e-2),
-        ((2, 300, 4, 128), (2, 513, 4, 128), torch.float32, 2e-4),
-        ((1, 100, 2, 40), (1, 77, 2, 40), torch.float32, 2e-4),
-    ],
+    "qshape,kshape,dtype_name",
+    [c[1:] for c in chip_smoke.KERNEL_CASES]
+    + [((2, 130, 3, 256), (2, 70, 3, 256), "bfloat16"),
+       ((1, 100, 2, 40), (1, 77, 2, 40), "float32")],
 )
-def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype, tol):
-    # bf16: P is rounded to bf16 before P·V and the output is bf16 (~3 digits);
-    # f32: only the summation order differs.
+def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype_name):
+    dtype = getattr(torch, dtype_name)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q = torch.randn(qshape, generator=g, device=cuda_device).to(dtype)
     k, v = (torch.randn(kshape, generator=g, device=cuda_device).to(dtype) for _ in range(2))
-    launches = fa.launches
-    got = fa.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert fa.launches == launches + 1
-    torch.testing.assert_close(got.float(), fa.flash_attention_plain(q, k, v).float(),
-                               rtol=tol, atol=tol)
+    _check_kernel(q, k, v)
 
 
 def test_flash_attention_reads_strided_inputs(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     qkv = torch.randn((2, 333, 3, 4, 128), generator=g, device=cuda_device).bfloat16()
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views, as in the model
-    got = fa.flash_attention(q, k, v, scale=0.05)
-    torch.testing.assert_close(got.float(), fa.flash_attention_plain(q, k, v, 0.05).float(),
-                               rtol=2e-2, atol=2e-2)
+    _check_kernel(q, k, v, scale=0.05)
+
+
+def test_flash_attention_takes_more_than_65535_batch_heads(cuda_device):
+    # gridDim.y holds at most 65535 (batch, head) slices: the launch is split.
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn((65600, 3, 1, 8), generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    got = _check_kernel(q, k, v)
+    tail = chip_smoke.kernel_error(got[65535:], q[65535:], k[65535:], v[65535:])
+    assert tail["ok"], tail  # the second launch's 65 rows on their own
+
+
+def test_flash_attention_keeps_the_current_device(cuda_device):
+    # On the last card while another is current: the result is right and the
+    # caller's current device is unchanged.
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((1, 100, 2, 64), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    with torch.cuda.device(0):
+        _check_kernel(q, k, v)
+        assert torch.cuda.current_device() == 0
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
     x = torch.zeros((1, 8, 1, 512), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims up to 256"):
         fa.flash_attention(x, x, x)
-    y = torch.zeros((1, 8, 2, 64), device=cuda_device, dtype=torch.float16)
-    with pytest.raises(ValueError, match="bfloat16 or float32"):
+    y = torch.zeros((1, 8, 2, 64), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         fa.flash_attention(y, y, y)
     z = torch.zeros((1, 8, 64, 2), device=cuda_device).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous head dim"):
@@ -95,3 +127,27 @@ def test_small_flux_on_the_card_matches_the_cpu(cuda_device, dtype, rel_tol):
     assert "pallas" in attention.resolved_backends()
     rel = ((got.cpu() - want).norm() / want.norm()).item()
     assert rel <= rel_tol, rel
+
+
+def test_small_flux_data_parallel_over_every_card(cuda_device):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least two CUDA devices")
+    cfg = flux.flux_dev_config(**SMALL, dtype=torch.float32)
+    cpu_model = flux.build_flux(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu_model = flux.build_flux(cfg, device=cuda_device, state_dict=cpu_model.module.state_dict())
+    g = torch.Generator().manual_seed(1)
+    batch = 2 * n - 1  # padded to 2 per card
+    x = torch.randn((batch, 32, 32, 4), generator=g)
+    ctx = torch.randn((batch, 16, 64), generator=g)
+    y = torch.randn((batch, 32), generator=g)
+    want = flow_euler_sample(cpu_model, x, ctx, steps=2, guidance=3.5, y=y)
+    pm = parallelize(gpu_model, [(f"cuda:{i}", 100 / n) for i in range(n)])
+    assert pm.n_devices == n
+    launches = fa.launches
+    got = flow_euler_sample(pm, x.to(cuda_device), ctx.to(cuda_device), steps=2, guidance=3.5,
+                            y=y.to(cuda_device))
+    assert fa.launches - launches == 2 * n * (cfg.depth + cfg.depth_single_blocks)
+    assert got.device == cuda_device and torch.cuda.current_device() == 0
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    assert rel <= 1e-4, rel

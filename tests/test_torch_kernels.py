@@ -58,6 +58,21 @@ def test_plain_bf16_keeps_dtype_and_scale_override():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_kernel_check_rejects_planted_tail_bugs(dtype):
+    # The limits the card's smoke run holds K1 to accept the plain version's own
+    # rounding to ``dtype`` and reject a kernel that leaves the padded keys of the
+    # last 64-key block unmasked or drops the last key (300 queries, 513 keys).
+    import chip_smoke
+
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(11, 1, 300, 513, 2, 128))
+    assert chip_smoke.kernel_error(fa.flash_attention_plain(q, k, v), q, k, v)["ok"]
+    bugs = chip_smoke.tail_bugs(q, k, v)
+    assert set(bugs) == {"tail_unmasked", "last_key_dropped"}
+    for bug, out in bugs.items():
+        assert not chip_smoke.kernel_error(out.to(dtype), q, k, v)["ok"], bug
+
+
 def test_wrapper_rejects_bad_inputs():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError):
