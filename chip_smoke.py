@@ -10,25 +10,32 @@ the error.
 
 1. device — the card, and ``nvidia-smi``'s name and power limit line.
 2. build — every CUDA kernel under ``csrc/``, one ``nvcc`` per source, in parallel.
-3. kernel — K1 (flash attention) against its plain version at the FLUX-dev shape,
-   a ragged Sq≠Sk shape, head dims 64 and 40, f16 and f32, within limits set from
-   the kernel's measured error; two planted tail bugs (the last key block's
-   padding left unmasked, the last key dropped) must fail the same check. Timed at
-   the FLUX-dev shape beside the plain version, ``F.scaled_dot_product_attention``
-   (timed here only, never called by the port) and the card's bound.
+3. kernel — K1 (flash attention) against its plain version at every ``KERNEL_CASES``
+   row (the FLUX-dev shape, contiguous and with the single block's strided v, a
+   ragged Sq≠Sk shape, head dims 64, 40 and 256, f16, f32, an unaligned view, and more
+   than 65535 batch·heads), each through the variant the wrapper's
+   ``kernel_variant`` picks, which must be the row's; within limits set from the
+   kernel's measured error. Two planted tail bugs (the last key block's padding left
+   unmasked, the last key dropped) must fail the same check. Timed at the FLUX-dev
+   shape: the ``sm90`` variant, the ``mma`` variant (forced), the plain version,
+   ``F.scaled_dot_product_attention`` (timed here only, never called by the port) and
+   the card's bound.
 4. main_path — FLUX-dev at full width and depth (19 double + 38 single blocks,
    3072 wide, 24×128 heads) in bf16 with random weights from a seeded generator
    on the card, wrapped by ``parallelize`` over ``[("cuda:0", 100)]``, sampled by
    ``flow_euler_sample`` at 1024² (latent 128×128×16, 512 text tokens,
-   guidance 3.5) for 4 steps: K1 must serve every attention call (57 per step)
-   and the latent must be finite. One forward is then held against the same
-   model on the plain attention path, and one step runs at batch 2.
+   guidance 3.5) for 4 steps: K1's ``sm90`` variant must serve every attention call
+   (57 per step) and the latent must be finite. One forward is then held against
+   the same model on the plain attention path, one step runs at batch 2, and one
+   step runs under ``torch.profiler``: the top 10 CUDA kernels by total time, K1's
+   share and the device's busy share.
 Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -39,13 +46,22 @@ H100_HBM_BYTES_S = 3.35e12
 
 STEPS = 4
 FLUX_SHAPE = (1, 4608, 24, 128)  # 4096 image + 512 text tokens at 1024²
-KERNEL_CASES = [  # name, q shape, k/v shape, dtype name
-    ("flux_dev_1024", FLUX_SHAPE, FLUX_SHAPE, "bfloat16"),
-    ("ragged_300x513", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16"),
-    ("d64", (2, 300, 4, 64), (2, 513, 4, 64), "bfloat16"),
-    ("d40", (2, 300, 4, 40), (2, 513, 4, 40), "bfloat16"),
-    ("f16", (2, 300, 4, 128), (2, 513, 4, 128), "float16"),
-    ("f32", (2, 300, 4, 128), (2, 513, 4, 128), "float32"),
+# name, q shape, k/v shape, dtype name, layout, the variant that must serve it.
+# Layouts: "contiguous"; "single_block_v", v a strided view of a fused projection
+# as in the FLUX single block (q and k contiguous); "unaligned", every input a
+# view one element into its storage (2-byte aligned).
+KERNEL_CASES = [
+    ("flux_dev_1024", FLUX_SHAPE, FLUX_SHAPE, "bfloat16", "contiguous", "sm90"),
+    ("flux_dev_1024_single_block_v", FLUX_SHAPE, FLUX_SHAPE, "bfloat16", "single_block_v",
+     "sm90"),
+    ("ragged_300x513", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16", "contiguous", "sm90"),
+    ("d64", (2, 300, 4, 64), (2, 513, 4, 64), "bfloat16", "contiguous", "sm90"),
+    ("d40", (2, 300, 4, 40), (2, 513, 4, 40), "bfloat16", "contiguous", "sm90"),
+    ("f16", (2, 300, 4, 128), (2, 513, 4, 128), "float16", "contiguous", "sm90"),
+    ("f32", (2, 300, 4, 128), (2, 513, 4, 128), "float32", "contiguous", "f32"),
+    ("d256", (2, 300, 4, 256), (2, 513, 4, 256), "bfloat16", "contiguous", "mma"),
+    ("unaligned", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16", "unaligned", "mma"),
+    ("batch_heads_65600", (65600, 3, 1, 8), (65600, 3, 1, 8), "bfloat16", "contiguous", "sm90"),
 ]
 # Limits on the kernel's error against the plain version computed in f32 on the
 # same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
@@ -66,6 +82,31 @@ MAIN_PATH_REL_TOL = 5e-2  # bf16 FLUX-dev forward, kernel vs plain attention
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def make_case(qshape, kshape, dtype_name, layout, gen, device):
+    """q, k, v for one ``KERNEL_CASES`` row: standard normal values from ``gen``,
+    laid out as ``layout`` says."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    if layout == "contiguous":
+        return randn(qshape), randn(kshape), randn(kshape)
+    if layout == "single_block_v":
+        b, s, h, d = kshape
+        fused = randn((b, s, 7 * h * d))  # qkv (3·H·D) then the MLP input (4·H·D)
+        v = fused[..., : 3 * h * d].reshape(b, s, 3, h, d)[:, :, 2]
+        return randn(qshape), randn(kshape), v
+    if layout == "unaligned":
+        def shifted(shape):
+            return randn((math.prod(shape) + 1,))[1:].view(shape)
+
+        return shifted(qshape), shifted(kshape), shifted(kshape)
+    raise ValueError(f"unknown layout {layout!r}")
 
 
 def kernel_error(got, q, k, v, scale=None) -> dict:
@@ -171,43 +212,54 @@ def phase_kernel() -> dict:
     cases = []
     flux = None
     controls = {}
-    for name, qshape, kshape, dtype_name in KERNEL_CASES:
-        dtype = getattr(torch, dtype_name)
-        q = torch.randn(qshape, generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn(kshape, generator=gen, device=dev).to(dtype) for _ in range(2))
-        before = fa.launches
+    for name, qshape, kshape, dtype_name, layout, want_variant in KERNEL_CASES:
+        q, k, v = make_case(qshape, kshape, dtype_name, layout, gen, dev)
+        variant = fa.kernel_variant(q, k, v)
+        before = dict(fa.launches_by_variant)
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        if fa.launches != before + 1:
-            raise RuntimeError(f"{name}: the wrapper did not launch the kernel")
+        launched = {n: c - before[n] for n, c in fa.launches_by_variant.items() if c != before[n]}
         res = kernel_error(got, q, k, v)
         cases.append({"case": name, "q": list(qshape), "k": list(kshape), "dtype": dtype_name,
-                      **res, "limits": KERNEL_LIMITS[dtype_name]})
+                      "layout": layout, "variant": variant, **res,
+                      "limits": KERNEL_LIMITS[dtype_name]})
+        if variant != want_variant or launched != {want_variant: 1}:
+            emit({"phase": "kernel", "cases": cases})
+            raise RuntimeError(f"{name}: variant {variant} launched {launched}, "
+                               f"want one {want_variant} launch")
         if not res["ok"]:
             emit({"phase": "kernel", "cases": cases})
             raise RuntimeError(f"flash_attention disagrees with its plain version at {name}")
         if name == "ragged_300x513":
-            controls = {bug: kernel_error(out.to(dtype), q, k, v)
+            controls = {bug: kernel_error(out.to(q.dtype), q, k, v)
                         for bug, out in tail_bugs(q, k, v).items()}
         if name == "flux_dev_1024":
-            flux = (q, k, v, res["max_abs_err"])
+            mma = kernel_error(fa._launch(q, k, v, FLUX_SHAPE[-1] ** -0.5, "mma"), q, k, v)
+            if not mma["ok"]:
+                raise RuntimeError(f"the mma variant disagrees at {name}: {mma}")
+            flux = (q, k, v, res["max_abs_err"], mma["max_abs_err"])
+        del q, k, v, got
     if not controls or any(c["ok"] for c in controls.values()):
         emit({"phase": "kernel", "cases": cases, "controls": controls})
         raise RuntimeError(f"the kernel check accepts a planted tail bug: {controls}")
-    q, k, v, err = flux
+    q, k, v, err, mma_err = flux
+    scale = FLUX_SHAPE[-1] ** -0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=20)
+    sm90_ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=20)
+    mma_ms = time_ms(lambda: fa._launch(q, k, v, scale, "mma"), iters=20)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=5)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20)
     bound_ms, bound_by = attention_bound_ms(FLUX_SHAPE, FLUX_SHAPE, 2, H100_BF16_FLOPS)
     row = {"name": "flash_attention", "shape": list(FLUX_SHAPE), "dtype": "bfloat16",
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+           "kernel_ms": sm90_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+           "variants": {"sm90": {"ms": sm90_ms, "max_abs_err": err},
+                        "mma": {"ms": mma_ms, "max_abs_err": mma_err}}}
     emit({"phase": "kernel", "cases": cases, "controls": controls, "kernels": [row]})
     return row
 
 
-def phase_main_path() -> int:
+def phase_main_path() -> tuple[int, dict]:
     import torch
 
     from comfyui_parallelanything_tpu_torch import parallelize
@@ -242,13 +294,14 @@ def phase_main_path() -> int:
         stamps.append(time.perf_counter())
 
     torch.cuda.reset_peak_memory_stats(dev)
-    fa.launches = 0
+    fa.reset_launches()
     attention._RESOLVED.clear()
     torch.cuda.synchronize()
     start = time.perf_counter()
     latent = flow_euler_sample(pm, x, ctx, steps=STEPS, guidance=3.5, y=y, callback=on_step)
     torch.cuda.synchronize()
     launches = fa.launches
+    by_variant = dict(fa.launches_by_variant)
     resolved = attention.resolved_backends()
     step_s = [b - a for a, b in zip([start] + stamps[:-1], stamps)]
     finite = bool(torch.isfinite(latent).all().item())
@@ -260,11 +313,12 @@ def phase_main_path() -> int:
         "s_per_it": sum(step_s) / len(step_s), "step_s": step_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
         "resolved_backends": list(resolved), "k1_launches": launches,
+        "k1_launches_by_variant": by_variant,
         "k1_launches_expected": per_step * STEPS, "finite": finite,
     }
     emit(result)
     if resolved != ("pallas",) or launches != per_step * STEPS or not finite \
-            or tuple(latent.shape) != tuple(x.shape):
+            or by_variant["sm90"] != launches or tuple(latent.shape) != tuple(x.shape):
         raise RuntimeError(f"main path check failed: {result}")
 
     # The same forward on the plain attention path (chunked math, f32 softmax).
@@ -283,17 +337,69 @@ def phase_main_path() -> int:
         raise RuntimeError(f"FLUX-dev forward through K1 disagrees with plain attention: {rel}")
 
     x2, ctx2, y2 = inputs(2)
-    before = fa.launches
+    before = fa.launches_by_variant["sm90"]
     t0 = time.perf_counter()
     out2 = flow_euler_sample(pm, x2, ctx2, steps=1, guidance=3.5, y=y2)
     torch.cuda.synchronize()
     b2 = {"phase": "main_path_batch2", "s_per_it": time.perf_counter() - t0,
-          "latent": list(out2.shape), "k1_launches": fa.launches - before,
+          "latent": list(out2.shape), "k1_sm90_launches": fa.launches_by_variant["sm90"] - before,
           "finite": bool(torch.isfinite(out2).all().item())}
     emit(b2)
-    if not b2["finite"] or b2["k1_launches"] != per_step or tuple(out2.shape) != tuple(x2.shape):
+    if not b2["finite"] or b2["k1_sm90_launches"] != per_step \
+            or tuple(out2.shape) != tuple(x2.shape):
         raise RuntimeError(f"batch-2 step check failed: {b2}")
-    return launches
+    phase_profile(pm, x, ctx, y)
+    return launches, by_variant
+
+
+def phase_profile(pm, x, ctx, y) -> None:
+    """One FLUX-dev step under ``torch.profiler``: the top 10 CUDA kernels by total
+    device time, K1's share of all kernel time and of the step, and the device's busy
+    share (kernel time over the step's wall time, one stream, so kernels do not
+    overlap). Kernel times come from the profiler's trace (its ``kernel`` events)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        flow_euler_sample(pm, x, ctx, steps=1, guidance=3.5, y=y)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    totals: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            tot = totals.setdefault(e["name"], [0.0, 0])
+            tot[0] += e["dur"] / 1e3  # µs -> ms
+            tot[1] += 1
+    kernel_ms = sum(t[0] for t in totals.values())
+    k1_ms = sum(t[0] for n, t in totals.items() if "flash_fwd" in n)
+    k1_calls = sum(t[1] for n, t in totals.items() if "flash_fwd" in n)
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:10]
+    result = {
+        "phase": "profile", "step_wall_s": wall_s, "kernel_ms": kernel_ms,
+        "busy_share": kernel_ms / (wall_s * 1e3), "k1_ms": k1_ms, "k1_calls": k1_calls,
+        "k1_share_of_kernels": k1_ms / kernel_ms if kernel_ms else None,
+        "k1_share_of_step": k1_ms / (wall_s * 1e3),
+        "top10": [{"kernel": n[:160], "ms": t[0], "calls": t[1],
+                   "share_of_kernels": t[0] / kernel_ms} for n, t in top],
+    }
+    emit(result)
+    if not kernel_ms or k1_calls == 0:
+        raise RuntimeError(f"the profiled step shows no K1 kernel: {result}")
 
 
 def main() -> int:
@@ -307,13 +413,19 @@ def main() -> int:
     phase_device()
     phase_build()
     row = phase_kernel()
-    launches = phase_main_path()
+    launches, by_variant = phase_main_path()
     emit({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "comfyui_parallelanything_tpu_torch/csrc/flash_attention.cu",
         "replaces": "comfyui_parallelanything_tpu/ops/pallas/flash_attention.py:95",
         "launches": launches,
+        "variants": {
+            name: {"ms": row["variants"][name]["ms"], "launches": by_variant[name],
+                   "source": f"comfyui_parallelanything_tpu_torch/csrc/{src}"}
+            for name, src in (("sm90", "flash_attention_sm90.cuh"),
+                              ("mma", "flash_attention.cu"))
+        },
         "max_abs_err": row["max_abs_err"],
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],

@@ -9,20 +9,25 @@
 // Bound on an H100 SXM at the FLUX-dev 1024² shape (B=1, S=4608, H=24, D=128):
 // 4·B·H·S²·D = 261 GFLOP per call (0.264 ms at 989 TFLOP/s bf16) against 113 MB of
 // q/k/v/o (0.034 ms at 3.35 TB/s), so the call is bound by tensor-core operations.
-// The design keeps the S×S logits out of device memory (the O(S·D) traffic above is
-// all that reaches HBM) and runs both products on the tensor cores with
-// mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate):
-//   - one CTA of 4 warps per (batch·head, 64-query tile); each warp owns 16 rows;
-//   - the TPU grid's sequential key-block axis is a loop inside the CTA; each 64-key
-//     K/V tile is staged in shared memory (rows padded by 8 elements so every
-//     fragment load is bank-conflict free);
-//   - running max, sum and accumulator live in f32 registers; the logits fragment is
-//     re-packed in registers as the A operand of P·V (no shared-memory round trip);
-//   - the ragged seq_k tail is masked in the loop, the seq_q tail on store, and the
-//     head dim is padded to 64/128/256 by zero-filling shared memory.
-// float16 inputs take the same tensor-core kernel with f16 mma and packing. float32
-// inputs take a scalar-FMA kernel with the same tiling in full f32 (they are not on
-// the bf16 main path). wgmma, TMA and warp specialisation are not used yet.
+// Every variant keeps the S×S logits out of device memory. Three variants; the
+// caller names one and exactly that one is launched (see `kernel_variant` in
+// ops/kernels/flash_attention.py for the rule):
+//   - `sm90` (flash_attention_sm90.cuh): bf16/f16, head_dim ≤ 128 and a multiple of
+//     8, 16-byte aligned data and strides, a positive scale: TMA loads, a
+//     warp-specialised producer and two wgmma consumer warpgroups. It serves the
+//     FLUX-dev main path.
+//   - `mma` (below): the other bf16/f16 calls (head_dim in (128, 256], unaligned
+//     views, a scale ≤ 0), on mma.sync m16n8k16 with f32 accumulation:
+//       - one CTA of 4 warps per (batch·head, 64-query tile); each warp owns 16 rows;
+//       - the TPU grid's sequential key-block axis is a loop inside the CTA; each
+//         64-key K/V tile is staged in shared memory (rows padded by 8 elements so
+//         every fragment load is bank-conflict free);
+//       - running max, sum and accumulator live in f32 registers; the logits fragment
+//         is re-packed in registers as the A operand of P·V;
+//       - the ragged seq_k tail is masked in the loop, the seq_q tail on store, and the
+//         head dim is padded to 64/128/256 by zero-filling shared memory.
+//   - `f32` (below): float32 inputs, a scalar-FMA kernel with the same tiling in
+//     full f32 (not on the bf16 main path).
 // Grids cover at most 65535 batch·head slices (gridDim.y), so larger batches are
 // launched in chunks of whole batch rows.
 
@@ -31,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -398,12 +405,14 @@ cudaError_t dispatch(int dtype, int batch, cudaStream_t stream, const Params& p)
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32, 2 = float16. Strides are in elements; the head
-// dim is contiguous. Launches on `stream`, which must belong to the current device.
-// Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16. variant: 0 = mma, 1 = f32, 2 = sm90;
+// a variant that cannot take the call is refused, never replaced by another.
+// Strides are in elements; the head dim is contiguous. Launches on `stream`, which
+// must belong to the current device. Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                      int dtype, int batch, int heads, int seq_q, int seq_k,
-                                      int head_dim, long long q_sb, long long q_ss,
+                                      int dtype, int variant, int batch, int heads, int seq_q,
+                                      int seq_k, int head_dim, long long q_sb, long long q_ss,
                                       long long q_sh, long long k_sb, long long k_ss,
                                       long long k_sh, long long v_sb, long long v_ss,
                                       long long v_sh, long long o_sb, long long o_ss,
@@ -411,9 +420,23 @@ extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* 
   if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > 256 || seq_q < 1 || seq_k < 1 ||
       batch < 1 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
+  if ((variant == 1) != (dtype == 1) || variant < 0 || variant > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 2) {
+    const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                 v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+    bool ok = head_dim <= 128 && head_dim % 8 == 0 && scale > 0.f;
+    for (long long st : strides) ok = ok && st > 0 && st % 8 == 0;
+    const void* ptrs[] = {q, k, v, o};
+    for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    return (int)pa_sm90::launch(q, k, v, o, dtype, batch, heads, seq_q, seq_k, head_dim, q_sb,
+                                q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                                scale * kLog2e, s);
+  }
   const long long esize = dtype == 1 ? 4 : 2;
   const int max_batch = 65535 / heads;  // gridDim.y limit on batch·head slices
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   for (int b0 = 0; b0 < batch && err == cudaSuccess; b0 += max_batch) {
     const int nb = batch - b0 < max_batch ? batch - b0 : max_batch;

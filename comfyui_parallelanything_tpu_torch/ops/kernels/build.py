@@ -3,7 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a ``.so`` with a plain C
 entry point, loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 Libraries land in ``build/kernels/`` at the repository root, named by a hash of
-their source, so an edited source never loads a stale library. Nothing is built
+everything that goes into them (the source, every ``csrc/`` header it includes,
+directly or not, and the compile and link flags), so an edited source or header
+never loads a stale library. Nothing is built
 when a module is imported: the first CUDA launch of a kernel builds it, or
 ``build_all`` builds every kernel at once, one ``nvcc`` process per source, all
 started together.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,10 +29,14 @@ BUILD_DIR = _PACKAGE_DIR.parent / "build" / "kernels"
 # Kernel name -> source file under csrc/.
 SOURCES = {"flash_attention": "flash_attention.cu"}
 
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -46,11 +53,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def sources_of(name: str) -> list[Path]:
+    """The source of kernel ``name`` and every header under ``csrc/`` it includes
+    with ``#include "..."``, directly or through another header, in include order."""
+    seen: list[Path] = []
+    todo = [CSRC_DIR / SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = path.parent / inc
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where kernel ``name`` is built: named by a hash of its source and flags."""
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where kernel ``name`` is built: named by a hash of its source, its headers and
+    the compile and link flags."""
+    h = hashlib.sha256()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, dict]:

@@ -9,15 +9,23 @@ Bound on an H100 SXM at the FLUX-dev 1024² shape (B=1, S=4608, H=24, D=128): on
 call does 4·B·H·S²·D = 261 GFLOP (0.264 ms at 989 TFLOP/s bf16) and must move
 113 MB of q/k/v/o (0.034 ms at 3.35 TB/s), so it is bound by tensor-core
 operations. The CUDA source (``csrc/flash_attention.cu``) keeps the S×S logits
-in registers, runs both products as bf16 (or f16) ``mma.sync`` with f32
-accumulation, streams K/V tiles through shared memory in a loop inside each CTA,
-and reads the BSHD layout in place from strides (no fold/transpose/pad copies).
-float32 inputs take a scalar-FMA kernel in full f32.
+out of device memory and reads the BSHD layout in place from strides (no
+fold/transpose/pad copies). It has three variants, and ``kernel_variant`` picks
+one from dtype, shape, strides and alignment before the launch:
 
-``flash_attention`` launches the kernel for CUDA tensors and raises on what the
-kernel does not take (head dims above 256, float64); it computes
-``flash_attention_plain`` only for CPU tensors.
-``launches`` counts kernel launches.
+- ``sm90`` (``csrc/flash_attention_sm90.cuh``): bf16 or f16, head dim ≤ 128 and a
+  multiple of 8, every ``data_ptr`` 16-byte aligned, strides of dims 0–2 positive
+  multiples of 8 elements (TMA's 16-byte rule), a positive scale (the kernel takes
+  the softmax max on unscaled logits). TMA loads feed two ``wgmma`` consumer
+  warpgroups from a warp-specialised producer. Every FLUX-dev call.
+- ``mma``: the other bf16/f16 calls (head dim in (128, 256], unaligned views, a
+  scale ≤ 0), ``mma.sync`` with K/V tiles staged through shared memory.
+- ``f32``: float32, a scalar-FMA kernel in full f32.
+
+``flash_attention`` launches the chosen variant for CUDA tensors and raises on what
+no variant takes (head dims above 256, float64); it computes
+``flash_attention_plain`` only for CPU tensors. ``launches`` counts kernel
+launches, ``launches_by_variant`` the same per variant.
 """
 
 from __future__ import annotations
@@ -28,11 +36,40 @@ import torch
 
 from . import build
 
+VARIANTS = ("sm90", "mma", "f32")
 launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 MAX_HEAD_DIM = 256
+SM90_MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+_VARIANT_CODES = {"mma": 0, "f32": 1, "sm90": 2}
 _FN = None
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every count of ``launches_by_variant`` to 0."""
+    global launches
+    launches = 0
+    for name in VARIANTS:
+        launches_by_variant[name] = 0
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
+
+
+def kernel_variant(q, k, v, scale: float | None = None) -> str:
+    """The variant of K1 that serves a call on these tensors: ``sm90``, ``mma`` or
+    ``f32``. Pure Python on dtype, shape, strides, ``data_ptr`` alignment and the
+    scale (``None``: the default ``D**-0.5``), so it answers for CPU tensors too."""
+    if q.dtype == torch.float32:
+        return "f32"
+    d = q.shape[-1]
+    if (d <= SM90_MAX_HEAD_DIM and d % 8 == 0 and (scale is None or scale > 0)
+            and all(_tma_ready(t) for t in (q, k, v))):
+        return "sm90"
+    return "mma"
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None) -> torch.Tensor:
@@ -63,7 +100,7 @@ def _kernel():
     if _FN is None:
         fn = build.load("flash_attention").pa_flash_attention_fwd
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
                        *([i64] * 12), ctypes.c_float, i32, ptr]
         fn.restype = i32
         _FN = fn
@@ -72,12 +109,21 @@ def _kernel():
 
 def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
     """Flash attention on (B, S, H, D) q/k/v; returns (B, S_q, H, D) in q's dtype."""
-    global launches
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
+    return _launch(q, k, v, scale, kernel_variant(q, k, v, scale))
+
+
+def _launch(q, k, v, scale: float, variant: str) -> torch.Tensor:
+    """Launch exactly ``variant`` of K1 on CUDA tensors. ``flash_attention`` calls it
+    with ``kernel_variant``'s choice; a caller that names another variant (the
+    card's smoke run and tests time and check ``mma`` on inputs ``sm90`` takes) gets
+    that one, or a ``ValueError`` if it cannot take the call."""
+    global launches
+    _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     if q.dtype not in _DTYPE_CODES:
@@ -94,8 +140,14 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
         raise ValueError(f"flash_attention kernel cannot take q {tuple(q.shape)}, k {tuple(k.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs a contiguous head dim (stride(-1) == 1)")
+    if (variant == "f32") != (q.dtype == torch.float32) or variant not in _VARIANT_CODES:
+        raise ValueError(f"variant {variant!r} cannot take {q.dtype} inputs")
+    if variant == "sm90" and kernel_variant(q, k, v, scale) != "sm90":
+        raise ValueError("the sm90 variant needs head_dim <= 128 and a multiple of 8, "
+                         "16-byte aligned data, strides that are multiples of 8 and a "
+                         "positive scale")
     out = torch.empty((batch, seq_q, heads, head_dim), dtype=q.dtype, device=q.device)
-    # 16-byte row loads need 8-element-aligned rows in every input.
+    # The mma variant's 16-byte row loads need 8-element-aligned rows in every input.
     vec_ok = head_dim % 8 == 0 and all(
         t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
     )
@@ -105,12 +157,14 @@ def flash_attention(q, k, v, scale: float | None = None) -> torch.Tensor:
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], batch, heads, seq_q, seq_k, head_dim,
-            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1), out.stride(2),
-            float(scale), int(vec_ok), torch.cuda.current_stream(q.device).cuda_stream,
+            _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant], batch, heads, seq_q, seq_k,
+            head_dim, q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
+            out.stride(2), float(scale), int(vec_ok),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed with CUDA error {rc}")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

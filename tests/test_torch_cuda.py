@@ -31,13 +31,18 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _check_kernel(q, k, v, scale=None):
+def _check_kernel(q, k, v, scale=None, variant=None):
     """Launch K1 once and hold it against its plain version within
-    ``chip_smoke.KERNEL_LIMITS`` (the limits the card's smoke run applies)."""
+    ``chip_smoke.KERNEL_LIMITS`` (the limits the card's smoke run applies). With
+    ``variant`` given, the wrapper must have chosen that variant."""
     launches = fa.launches
+    before = dict(fa.launches_by_variant)
+    chosen = fa.kernel_variant(q, k, v, scale)
     got = fa.flash_attention(q, k, v, scale=scale)
     torch.cuda.synchronize()
     assert fa.launches == launches + 1
+    assert fa.launches_by_variant[chosen] == before[chosen] + 1
+    assert variant is None or chosen == variant
     assert got.shape == q.shape and got.dtype == q.dtype
     res = chip_smoke.kernel_error(got, q, k, v, scale)
     assert res["ok"], res
@@ -55,24 +60,59 @@ def _no_tf32():
 
 # The smoke run's cases, plus a 256-wide head and a small f32 case with D=40.
 @pytest.mark.parametrize(
-    "qshape,kshape,dtype_name",
+    "qshape,kshape,dtype_name,layout,variant",
     [c[1:] for c in chip_smoke.KERNEL_CASES]
-    + [((2, 130, 3, 256), (2, 70, 3, 256), "bfloat16"),
-       ((1, 100, 2, 40), (1, 77, 2, 40), "float32")],
+    + [((2, 130, 3, 256), (2, 70, 3, 256), "bfloat16", "contiguous", "mma"),
+       ((1, 100, 2, 40), (1, 77, 2, 40), "float32", "contiguous", "f32")],
 )
-def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype_name):
-    dtype = getattr(torch, dtype_name)
+def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype_name, layout,
+                                              variant):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn(qshape, generator=g, device=cuda_device).to(dtype)
-    k, v = (torch.randn(kshape, generator=g, device=cuda_device).to(dtype) for _ in range(2))
-    _check_kernel(q, k, v)
+    q, k, v = chip_smoke.make_case(qshape, kshape, dtype_name, layout, g, cuda_device)
+    _check_kernel(q, k, v, variant=variant)
+
+
+@pytest.mark.parametrize("qshape,kshape", [((2, 300, 4, 128), (2, 513, 4, 128)),
+                                           ((2, 300, 4, 40), (2, 513, 4, 40))])
+def test_mma_variant_forced_on_aligned_inputs_matches_plain(cuda_device, qshape, kshape):
+    # Inputs the sm90 variant would take, launched through the mma variant.
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = chip_smoke.make_case(qshape, kshape, "bfloat16", "contiguous", g, cuda_device)
+    assert fa.kernel_variant(q, k, v) == "sm90"
+    before = fa.launches_by_variant["mma"]
+    got = fa._launch(q, k, v, qshape[-1] ** -0.5, "mma")
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant["mma"] == before + 1
+    res = chip_smoke.kernel_error(got, q, k, v)
+    assert res["ok"], res
+
+
+def test_sm90_variant_refuses_what_it_cannot_take(cuda_device):
+    x = torch.zeros((1, 8, 1, 256), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sm90"):
+        fa._launch(x, x, x, 0.1, "sm90")
+    y = torch.zeros((1, 8, 1, 128), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="positive scale"):
+        fa._launch(y, y, y, -0.1, "sm90")
+
+
+def test_negative_scale_takes_the_mma_variant(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = chip_smoke.make_case((1, 200, 2, 64), (1, 333, 2, 64), "bfloat16", "contiguous",
+                                   g, cuda_device)
+    before = fa.launches_by_variant["mma"]
+    got = fa.flash_attention(q, k, v, scale=-0.125)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant["mma"] == before + 1
+    res = chip_smoke.kernel_error(got, q, k, v, -0.125)
+    assert res["ok"], res
 
 
 def test_flash_attention_reads_strided_inputs(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     qkv = torch.randn((2, 333, 3, 4, 128), generator=g, device=cuda_device).bfloat16()
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views, as in the model
-    _check_kernel(q, k, v, scale=0.05)
+    _check_kernel(q, k, v, scale=0.05, variant="sm90")
 
 
 def test_flash_attention_takes_more_than_65535_batch_heads(cuda_device):
@@ -80,7 +120,7 @@ def test_flash_attention_takes_more_than_65535_batch_heads(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     q, k, v = (torch.randn((65600, 3, 1, 8), generator=g, device=cuda_device).bfloat16()
                for _ in range(3))
-    got = _check_kernel(q, k, v)
+    got = _check_kernel(q, k, v, variant="sm90")
     tail = chip_smoke.kernel_error(got[65535:], q[65535:], k[65535:], v[65535:])
     assert tail["ok"], tail  # the second launch's 65 rows on their own
 

@@ -6,6 +6,8 @@ tests (rtol/atol 2e-4 in f32). The CUDA kernel itself is held against the plain
 version in ``tests/test_torch_cuda.py``.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 
@@ -90,3 +92,86 @@ def test_build_is_keyed_by_source_and_outside_the_package():
     assert path.parent == build.BUILD_DIR and path.name.startswith("libflash_attention-")
     assert (build.CSRC_DIR / build.SOURCES["flash_attention"]).exists()
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+def _flux_single_block_v(seq, dtype=torch.bfloat16, heads=24, head_dim=128):
+    # As in models/flux.py's SingleBlock: linear1's fused output, split into qkv and
+    # the MLP input, qkv reshaped to (B, S, 3, H, D); v is the third slice.
+    hidden = heads * head_dim
+    fused = torch.empty((1, seq, 3 * hidden + 4 * hidden), dtype=dtype)
+    qkv = fused[..., : 3 * hidden]
+    return qkv.reshape(1, seq, 3, heads, head_dim)[:, :, 2]
+
+
+def _unaligned(shape, dtype=torch.bfloat16):
+    n = int(np.prod(shape))
+    return torch.empty(n + 1, dtype=dtype)[1:].view(shape)  # 2 bytes past an aligned start
+
+
+@pytest.mark.parametrize(
+    "case,want",
+    [
+        ("flux_bf16", "sm90"),
+        ("flux_f16", "sm90"),
+        ("single_block_strided_v", "sm90"),
+        ("d40", "sm90"),
+        ("d64", "sm90"),
+        ("d8", "sm90"),
+        ("d256", "mma"),
+        ("unaligned_offset", "mma"),
+        ("negative_scale", "mma"),
+        ("f32", "f32"),
+    ],
+)
+def test_kernel_variant_rule(case, want):
+    flux = (1, 4608, 24, 128)
+    scale = None
+    if case in ("flux_bf16", "flux_f16"):
+        dtype = torch.bfloat16 if case == "flux_bf16" else torch.float16
+        q = k = v = torch.empty(flux, dtype=dtype)
+    elif case == "single_block_strided_v":
+        v = _flux_single_block_v(16)
+        assert v.stride(1) == 21504 and v.storage_offset() == 6144
+        q = k = torch.empty((1, 16, 24, 128), dtype=torch.bfloat16)
+    elif case.startswith("d"):
+        d = int(case[1:])
+        q = k = v = torch.empty((2, 30, 4, d), dtype=torch.bfloat16)
+    elif case == "unaligned_offset":
+        q = k = torch.empty((2, 30, 4, 128), dtype=torch.bfloat16)
+        v = _unaligned((2, 30, 4, 128))
+        assert v.data_ptr() % 16 != 0
+    elif case == "negative_scale":
+        q = k = v = torch.empty((2, 30, 4, 128), dtype=torch.bfloat16)
+        assert fa.kernel_variant(q, k, v, 0.1) == "sm90"
+        assert fa.kernel_variant(q, k, v, 0.0) == "mma"
+        scale = -0.1
+    else:
+        q = k = v = torch.empty((2, 30, 4, 128), dtype=torch.float32)
+    assert fa.kernel_variant(q, k, v, scale) == want
+
+
+def test_variant_counts_reset_and_cpu_path_launches_nothing():
+    fa.reset_launches()
+    assert fa.launches == 0 and fa.launches_by_variant == dict.fromkeys(fa.VARIANTS, 0)
+    q = torch.zeros(1, 8, 2, 16)
+    fa.flash_attention(q, q, q)
+    assert fa.launches == 0 and sum(fa.launches_by_variant.values()) == 0
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fa._launch(q.to("meta"), q.to("meta"), q.to("meta"), 0.25, "sm90")
+
+
+def test_build_key_covers_headers_and_link_flags(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    names = [p.name for p in build.sources_of("flash_attention")]
+    assert names[0] == "flash_attention.cu"
+    assert {"flash_attention_sm90.cuh", "hopper.cuh"} <= set(names)
+    before = build.library_path("flash_attention")
+    # hopper.cuh is included only through flash_attention_sm90.cuh.
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = build.library_path("flash_attention")
+    assert edited != before
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.COMPILE_FLAGS + ("-shared", "-lm"))
+    assert build.library_path("flash_attention") not in (before, edited)
