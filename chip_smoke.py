@@ -12,14 +12,17 @@ the error.
 2. build — every CUDA kernel under ``csrc/``, one ``nvcc`` per source, in parallel.
 3. kernel — K1 (flash attention) against its plain version at every ``KERNEL_CASES``
    row (the FLUX-dev shape, contiguous and with the single block's strided v, a
-   ragged Sq≠Sk shape, head dims 64, 40 and 256, f16, f32, an unaligned view, and more
-   than 65535 batch·heads), each through the variant the wrapper's
+   ragged Sq≠Sk shape, head dims 64, 40 and 256, f16, f32, an unaligned view, more
+   than 65535 batch·heads, the FLUX VAE's 512-wide head at 1024², and ragged,
+   320-wide, f16 and f32 cases at D=512), each through the variant the wrapper's
    ``kernel_variant`` picks, which must be the row's; within limits set from the
    kernel's measured error. Two planted tail bugs (the last key block's padding left
-   unmasked, the last key dropped) must fail the same check. Timed at the FLUX-dev
-   shape: the ``sm90`` variant, the ``mma`` variant (forced), the plain version,
-   ``F.scaled_dot_product_attention`` (timed here only, never called by the port) and
-   the card's bound.
+   unmasked, the last key dropped) must fail the same check at D=128 and D=512.
+   Each variant is then timed (``TIMED``) beside its plain version,
+   ``F.scaled_dot_product_attention`` (timed here only, never called by the port;
+   the backend it took is recorded) and the card's bound: ``sm90`` and ``mma`` at
+   the FLUX-dev shape, ``d512`` at the VAE shape, ``f32`` at the FLUX-dev shape in
+   float32 against the card's f32 rate.
 4. main_path — FLUX-dev at full width and depth (19 double + 38 single blocks,
    3072 wide, 24×128 heads) in bf16 with random weights from a seeded generator
    on the card, wrapped by ``parallelize`` over ``[("cuda:0", 100)]``, sampled by
@@ -29,6 +32,14 @@ the error.
    the same model on the plain attention path, one step runs at batch 2, and one
    step runs under ``torch.profiler``: the top 10 CUDA kernels by total time, K1's
    share and the device's busy share.
+5. pipeline — ``FluxPipeline`` from a prompt to a 1024² image: the main path's
+   FLUX-dev with CLIP-L, T5-XXL (512 tokens) and the FLUX VAE at full width, random
+   weights from a seeded generator, a tokenizer built here over a synthetic vocab;
+   4 steps, guidance 3.5, then an img2img call (denoise 0.5, 2 steps) on its
+   image. Times encode, denoise and decode; K1 must serve the DiT (``sm90``) and
+   the VAE's mid-block attention (``d512``, once per encode or decode); the image
+   must be finite, (1, 1024, 1024, 3) and in [0, 1]; a decode through K1 must
+   agree with the same decode on the plain attention path.
 Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -42,10 +53,12 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, same data sheet
 H100_HBM_BYTES_S = 3.35e12
 
 STEPS = 4
 FLUX_SHAPE = (1, 4608, 24, 128)  # 4096 image + 512 text tokens at 1024²
+VAE_SHAPE = (1, 16384, 1, 512)  # the FLUX VAE's mid-block attention at 1024² (128² latent)
 # name, q shape, k/v shape, dtype name, layout, the variant that must serve it.
 # Layouts: "contiguous"; "single_block_v", v a strided view of a fused projection
 # as in the FLUX single block (q and k contiguous); "unaligned", every input a
@@ -62,6 +75,11 @@ KERNEL_CASES = [
     ("d256", (2, 300, 4, 256), (2, 513, 4, 256), "bfloat16", "contiguous", "mma"),
     ("unaligned", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16", "unaligned", "mma"),
     ("batch_heads_65600", (65600, 3, 1, 8), (65600, 3, 1, 8), "bfloat16", "contiguous", "sm90"),
+    ("vae_1024_d512", VAE_SHAPE, VAE_SHAPE, "bfloat16", "contiguous", "d512"),
+    ("d512_ragged_300x513", (2, 300, 2, 512), (2, 513, 2, 512), "bfloat16", "contiguous", "d512"),
+    ("d320", (2, 300, 2, 320), (2, 513, 2, 320), "bfloat16", "contiguous", "d512"),
+    ("d512_f16", (2, 300, 2, 512), (2, 513, 2, 512), "float16", "contiguous", "d512"),
+    ("d512_f32", (1, 300, 2, 512), (1, 513, 2, 512), "float32", "contiguous", "f32"),
 ]
 # Limits on the kernel's error against the plain version computed in f32 on the
 # same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
@@ -199,9 +217,54 @@ def phase_build():
                       for n, r in results.items()}})
 
 
-def phase_kernel() -> dict:
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for (B, H, S, D) inputs."""
     import torch
+
+    try:
+        choice = torch._fused_sdp_choice(q, k, v)
+        return torch.nn.attention.SDPBackend(choice).name
+    except Exception as e:  # noqa: BLE001 - a private API; report, do not fail
+        return f"unknown ({type(e).__name__})"
+
+
+def time_variant(fa, variant, q, k, v, iters, plain_iters, peak_flops) -> dict:
+    """One timing row: K1's ``variant`` forced on q/k/v, its plain version,
+    ``F.scaled_dot_product_attention`` on the same inputs (and the backend it
+    took), and the card's bound for the call."""
     import torch.nn.functional as F
+
+    scale = q.shape[-1] ** -0.5
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bound_ms, bound_by = attention_bound_ms(tuple(q.shape), tuple(k.shape), q.element_size(),
+                                            peak_flops)
+    return {
+        "variant": variant, "shape": list(q.shape), "k_shape": list(k.shape),
+        "dtype": str(q.dtype).removeprefix("torch."),
+        "ms": time_ms(lambda: fa._launch(q, k, v, scale, variant), iters=iters),
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=plain_iters,
+                            warmup=1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters),
+        "library_backend": sdpa_backend(qt, kt, vt),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+# The cases whose inputs the kernel phase times, by variant: (case, iterations,
+# iterations of the plain version, peak rate of the bound). f32 is timed at the
+# FLUX-dev shape in float32, against the card's f32 rate.
+TIMED = {"sm90": ("flux_dev_1024", 20, 5, H100_BF16_FLOPS),
+         "mma": ("flux_dev_1024", 20, 5, H100_BF16_FLOPS),
+         "d512": ("vae_1024_d512", 10, 3, H100_BF16_FLOPS),
+         "f32": ("flux_dev_1024", 5, 3, H100_F32_FLOPS)}
+# Cases whose inputs must make the planted tail bugs fail the check.
+TAIL_BUG_CASES = ("ragged_300x513", "d512_ragged_300x513")
+
+
+def phase_kernel() -> dict:
+    """Check every ``KERNEL_CASES`` row and the planted tail bugs, then time each
+    variant (``TIMED``). Returns ``{variant: timing row}``."""
+    import torch
 
     from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -210,8 +273,9 @@ def phase_kernel() -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
-    flux = None
     controls = {}
+    kept = {}
+    timed_cases = {c for c, *_ in TIMED.values()}
     for name, qshape, kshape, dtype_name, layout, want_variant in KERNEL_CASES:
         q, k, v = make_case(qshape, kshape, dtype_name, layout, gen, dev)
         variant = fa.kernel_variant(q, k, v)
@@ -230,36 +294,38 @@ def phase_kernel() -> dict:
         if not res["ok"]:
             emit({"phase": "kernel", "cases": cases})
             raise RuntimeError(f"flash_attention disagrees with its plain version at {name}")
-        if name == "ragged_300x513":
-            controls = {bug: kernel_error(out.to(q.dtype), q, k, v)
-                        for bug, out in tail_bugs(q, k, v).items()}
-        if name == "flux_dev_1024":
-            mma = kernel_error(fa._launch(q, k, v, FLUX_SHAPE[-1] ** -0.5, "mma"), q, k, v)
-            if not mma["ok"]:
-                raise RuntimeError(f"the mma variant disagrees at {name}: {mma}")
-            flux = (q, k, v, res["max_abs_err"], mma["max_abs_err"])
+        if name in TAIL_BUG_CASES:
+            controls[name] = {bug: kernel_error(out.to(q.dtype), q, k, v)
+                              for bug, out in tail_bugs(q, k, v).items()}
+        if name in timed_cases:
+            kept[name] = (q, k, v, res["max_abs_err"])
         del q, k, v, got
-    if not controls or any(c["ok"] for c in controls.values()):
+    if set(controls) != set(TAIL_BUG_CASES) or any(
+            c["ok"] for bugs in controls.values() for c in bugs.values()):
         emit({"phase": "kernel", "cases": cases, "controls": controls})
         raise RuntimeError(f"the kernel check accepts a planted tail bug: {controls}")
-    q, k, v, err, mma_err = flux
-    scale = FLUX_SHAPE[-1] ** -0.5
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sm90_ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=20)
-    mma_ms = time_ms(lambda: fa._launch(q, k, v, scale, "mma"), iters=20)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=5)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20)
-    bound_ms, bound_by = attention_bound_ms(FLUX_SHAPE, FLUX_SHAPE, 2, H100_BF16_FLOPS)
-    row = {"name": "flash_attention", "shape": list(FLUX_SHAPE), "dtype": "bfloat16",
-           "kernel_ms": sm90_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-           "variants": {"sm90": {"ms": sm90_ms, "max_abs_err": err},
-                        "mma": {"ms": mma_ms, "max_abs_err": mma_err}}}
-    emit({"phase": "kernel", "cases": cases, "controls": controls, "kernels": [row]})
-    return row
+    rows = {}
+    for variant, (case, iters, plain_iters, peak) in TIMED.items():
+        q, k, v, err = kept[case]
+        if variant == "f32":
+            q, k, v = q.float(), k.float(), v.float()
+            err = kernel_error(fa.flash_attention(q, k, v), q, k, v)
+            if not err["ok"]:
+                raise RuntimeError(f"the f32 variant disagrees at {case}: {err}")
+            err = err["max_abs_err"]
+        elif variant != fa.kernel_variant(q, k, v):
+            forced = kernel_error(fa._launch(q, k, v, q.shape[-1] ** -0.5, variant), q, k, v)
+            if not forced["ok"]:
+                raise RuntimeError(f"the {variant} variant disagrees at {case}: {forced}")
+            err = forced["max_abs_err"]
+        rows[variant] = {"case": case, **time_variant(fa, variant, q, k, v, iters, plain_iters,
+                                                      peak), "max_abs_err": err}
+    emit({"phase": "kernel", "cases": cases, "controls": controls, "timed": rows})
+    return rows
 
 
-def phase_main_path() -> tuple[int, dict]:
+def phase_main_path():
+    """Returns the parallelized FLUX-dev model and K1's launches by variant."""
     import torch
 
     from comfyui_parallelanything_tpu_torch import parallelize
@@ -349,7 +415,7 @@ def phase_main_path() -> tuple[int, dict]:
             or tuple(out2.shape) != tuple(x2.shape):
         raise RuntimeError(f"batch-2 step check failed: {b2}")
     phase_profile(pm, x, ctx, y)
-    return launches, by_variant
+    return pm, by_variant
 
 
 def phase_profile(pm, x, ctx, y) -> None:
@@ -402,6 +468,166 @@ def phase_profile(pm, x, ctx, y) -> None:
         raise RuntimeError(f"the profiled step shows no K1 kernel: {result}")
 
 
+PIPELINE_PROMPT = "a photograph of an astronaut riding a horse on the moon, highly detailed"
+PIPELINE_REL_TOL = 5e-2  # bf16 FLUX VAE decode, K1 vs plain attention
+
+
+def synthetic_tokenizers():
+    """A CLIP byte-BPE tokenizer over a small synthetic vocab (every byte symbol,
+    alone and with ``</w>``, and a few merges) whose BOS/EOS ids are CLIP-L's
+    49406/49407, and a T5-style tokenizer (512 tokens, EOS 1, pad 0) over the same
+    pieces: real tokenizer tables are downloads, which the run may not make."""
+    from comfyui_parallelanything_tpu_torch.utils.tokenizer import (
+        CLIPBPETokenizer,
+        JsonTokenizer,
+        _bytes_to_unicode,
+    )
+
+    symbols = list(_bytes_to_unicode().values())
+    merges = [("a", "s"), ("t", "r"), ("o", "n</w>"), ("h", "o"), ("ho", "r"),
+              ("hor", "s"), ("hors", "e</w>"), ("m", "o"), ("mo", "on</w>")]
+    vocab = {}
+    for piece in symbols + [p + "</w>" for p in symbols] + [a + b for a, b in merges]:
+        vocab.setdefault(piece, len(vocab) + 2)  # ids 0 and 1 are T5's pad and EOS
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    clip = CLIPBPETokenizer(vocab, merges, max_len=77)
+
+    class _Pieces:  # the ``tokenizers`` interface JsonTokenizer reads: encode(t).ids
+        def encode(self, text):
+            return type("Encoding", (), {"ids": clip.encode(text)})()
+
+    return clip, JsonTokenizer(_Pieces(), max_len=512, eos_id=1, pad_id=0)
+
+
+def phase_pipeline(pm) -> dict:
+    """``FluxPipeline`` at full width: the main path's FLUX-dev, CLIP-L, T5-XXL and
+    the FLUX VAE with random weights from a seeded generator, 1024², batch 1, 4
+    steps, guidance 3.5; then one img2img call (denoise 0.5, 2 steps) on its
+    output. K1 must serve every attention call of the DiT (``sm90``) and of the
+    VAE's mid blocks (``d512``); the images must be finite, (1, 1024, 1024, 3) and
+    in [0, 1]; the decode through K1 must agree with the same decode on the plain
+    attention path. Returns K1's launches by variant in each call."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.models.text_encoders import (
+        build_clip_text,
+        build_t5_encoder,
+        clip_l_config,
+        t5_xxl_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.vae import build_vae, flux_vae_config
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.pipelines import FluxPipeline
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    t0 = time.perf_counter()
+    clip = build_clip_text(clip_l_config(), device=dev, generator=gen)
+    t5 = build_t5_encoder(t5_xxl_config(), device=dev, generator=gen)
+    vae = build_vae(flux_vae_config(), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    clip_tok, t5_tok = synthetic_tokenizers()
+    pipe = FluxPipeline(dit=pm, vae=vae, clip=clip, t5=t5, tokenizer=clip_tok,
+                        t5_tokenizer=t5_tok)
+
+    def nbytes(module):
+        return sum(p.numel() * p.element_size() for p in module.parameters())
+
+    spans: dict[str, float] = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - start
+            spans[name + "_end"] = time.perf_counter()
+            return out
+
+        return run
+
+    pipe.encode_prompt = timed("encode_s", pipe.encode_prompt)
+    vae.decode = timed("decode_s", vae.decode)
+    vae.encode = timed("vae_encode_s", vae.encode)
+    stamps = []
+
+    def on_step(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    kw = dict(height=1024, width=1024, guidance=3.5)
+    # Warm-up (text encoders, VAE encoder and decoder), not counted: img2img, 1 step.
+    pipe(PIPELINE_PROMPT, steps=1, rng=torch.Generator(device=dev).manual_seed(3),
+         init_image=torch.full((1, 1024, 1024, 3), 0.5, device=dev), denoise=0.5, **kw)
+    torch.cuda.synchronize()
+
+    def run(**call):
+        spans.clear()
+        stamps.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.reset_launches()
+        attention._RESOLVED.clear()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        img = pipe(PIPELINE_PROMPT, rng=torch.Generator(device=dev).manual_seed(4),
+                   callback=on_step, **kw, **call)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+        launches = dict(fa.launches_by_variant)
+        first = spans.get("vae_encode_s_end", spans["encode_s_end"])
+        step_s = [b - a for a, b in zip([first] + stamps[:-1], stamps)]
+        return img, {
+            "total_s": total, "encode_s": spans["encode_s"],
+            "vae_encode_s": spans.get("vae_encode_s"), "decode_s": spans["decode_s"],
+            "s_per_it": sum(step_s) / len(step_s), "step_s": step_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "k1_launches_by_variant": launches,
+            "resolved_backends": list(attention.resolved_backends()),
+            "image": list(img.shape), "finite": bool(torch.isfinite(img).all().item()),
+            "min": img.min().item(), "max": img.max().item(),
+        }
+
+    def check(res, steps, d512):
+        want = {"sm90": 57 * steps, "d512": d512}
+        return (res["image"] == [1, 1024, 1024, 3] and res["finite"] and res["min"] >= 0.0
+                and res["max"] <= 1.0 and res["resolved_backends"] == ["pallas"]
+                and {n: c for n, c in res["k1_launches_by_variant"].items() if c} == want)
+
+    img, txt2img = run(steps=STEPS)
+    result = {"phase": "pipeline", "build_s": build_s,
+              "weight_bytes": {"flux": nbytes(pm._module), "clip_l": nbytes(clip.module),
+                               "t5_xxl": nbytes(t5.module),
+                               "vae": nbytes(vae.module)},
+              "steps": STEPS, "txt2img": txt2img}
+    emit(result)
+    if not check(txt2img, STEPS, 1):
+        raise RuntimeError(f"pipeline check failed: {txt2img}")
+
+    _, img2img = run(steps=2, init_image=img, denoise=0.5)
+    emit({"phase": "pipeline_img2img", "denoise": 0.5, "steps": 2, **img2img})
+    if not check(img2img, 2, 2):
+        raise RuntimeError(f"img2img check failed: {img2img}")
+
+    # The same decode through K1 and on the plain attention path.
+    z = torch.randn((1, 128, 128, 16), generator=gen, device=dev)
+    out_k = vae.decode(z).float()
+    attention.set_attention_backend("xla")
+    try:
+        out_p = vae.decode(z).float()
+    finally:
+        attention.set_attention_backend("auto")
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    emit({"phase": "vae_decode_vs_plain_attention", "rel_l2_err": rel,
+          "max_abs_err": (out_k - out_p).abs().max().item(), "tol": PIPELINE_REL_TOL})
+    if not rel <= PIPELINE_REL_TOL:
+        raise RuntimeError(f"FLUX VAE decode through K1 disagrees with plain attention: {rel}")
+    return {"txt2img": txt2img["k1_launches_by_variant"],
+            "img2img": img2img["k1_launches_by_variant"]}
+
+
 def main() -> int:
     import torch
 
@@ -412,27 +638,30 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    row = phase_kernel()
-    launches, by_variant = phase_main_path()
+    rows = phase_kernel()
+    pm, main_launches = phase_main_path()
+    pipe_launches = phase_pipeline(pm)
+    paths = {"main_path": main_launches, **pipe_launches}
+    sources = {"sm90": "flash_attention_sm90.cuh", "mma": "flash_attention.cu",
+               "d512": "flash_attention.cu", "f32": "flash_attention.cu"}
     emit({"kernels": [{
         "name": "flash_attention",
+        "variant": variant,
         "route": "cuda",
-        "source": "comfyui_parallelanything_tpu_torch/csrc/flash_attention.cu",
+        "source": f"comfyui_parallelanything_tpu_torch/csrc/{sources[variant]}",
         "replaces": "comfyui_parallelanything_tpu/ops/pallas/flash_attention.py:95",
-        "launches": launches,
-        "variants": {
-            name: {"ms": row["variants"][name]["ms"], "launches": by_variant[name],
-                   "source": f"comfyui_parallelanything_tpu_torch/csrc/{src}"}
-            for name, src in (("sm90", "flash_attention_sm90.cuh"),
-                              ("mma", "flash_attention.cu"))
-        },
+        "launches": sum(by_variant[variant] for by_variant in paths.values()),
+        "launches_by_path": {path: by_variant[variant] for path, by_variant in paths.items()},
+        "shape": row["shape"],
+        "dtype": row["dtype"],
         "max_abs_err": row["max_abs_err"],
-        "ms": row["kernel_ms"],
+        "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
-    }]})
+        "library_backend": row["library_backend"],
+    } for variant, row in rows.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -9,7 +9,7 @@
 // Bound on an H100 SXM at the FLUX-dev 1024² shape (B=1, S=4608, H=24, D=128):
 // 4·B·H·S²·D = 261 GFLOP per call (0.264 ms at 989 TFLOP/s bf16) against 113 MB of
 // q/k/v/o (0.034 ms at 3.35 TB/s), so the call is bound by tensor-core operations.
-// Every variant keeps the S×S logits out of device memory. Three variants; the
+// Every variant keeps the S×S logits out of device memory. Four variants; the
 // caller names one and exactly that one is launched (see `kernel_variant` in
 // ops/kernels/flash_attention.py for the rule):
 //   - `sm90` (flash_attention_sm90.cuh): bf16/f16, head_dim ≤ 128 and a multiple of
@@ -26,8 +26,19 @@
 //         is re-packed in registers as the A operand of P·V;
 //       - the ragged seq_k tail is masked in the loop, the seq_q tail on store, and the
 //         head dim is padded to 64/128/256 by zero-filling shared memory.
+//   - `d512` (below): bf16/f16 with head_dim in (256, 512], the VAE mid-block's
+//     one 512-wide head. Bound at the FLUX VAE's 1024² shape (B=1, S=16384, H=1,
+//     D=512) by operations: 4·S²·D = 550 GFLOP (0.556 ms at 989 TFLOP/s) against
+//     67 MB of q/k/v/o. One 64-query tile's f32 output is 128 KB, more than one
+//     warpgroup's registers hold, so the CTA has 8 warps and splits it: for
+//     S = Q·Kᵀ each warp takes 16 rows × 32 keys of a 64-key block; the scaled,
+//     masked logits go to shared memory, where 4 threads per row run the online
+//     softmax and write P (16-bit) back; for O += P·V each warp takes 16 rows ×
+//     256 output columns (128 f32 accumulators a thread). Q, K and V tiles of
+//     64 × 512 live in shared memory together (222 KB with S, P and the row
+//     state).
 //   - `f32` (below): float32 inputs, a scalar-FMA kernel with the same tiling in
-//     full f32 (not on the bf16 main path).
+//     full f32 (not on the bf16 main path), head_dim up to 512.
 // Grids cover at most 65535 batch·head slices (gridDim.y), so larger batches are
 // launched in chunks of whole batch rows.
 
@@ -67,13 +78,13 @@ struct Params {
 
 // Stage rows [row0, row0 + 64) of one (batch, head) slice into shared memory as a
 // 64 × D_PAD tile of 16-bit elements; rows past `n_rows` and columns past `head_dim` are zero.
-template <int D_PAD>
+template <int D_PAD, int NTHREADS = kThreads>
 __device__ __forceinline__ void load_tile_16bit(uint16_t* dst, const uint16_t* src,
                                                long long row_stride, int row0,
                                                int n_rows, int head_dim, bool vec_ok) {
   constexpr int LD = D_PAD + kSmemPad;
   constexpr int kChunks = D_PAD / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += NTHREADS) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
     const int row = row0 + r;
@@ -278,6 +289,174 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 / f16 tensor-core kernel for head dims in (256, 512]: the `d512` variant
+// ---------------------------------------------------------------------------
+
+constexpr int kD512Threads = 256;           // 8 warps
+constexpr int kD512 = 512;                  // padded head dim
+constexpr int kD512Cols = kD512 / 2;        // output columns per warp
+constexpr int kSLd = kBlockK + 4;           // f32 logits row stride in shared memory
+constexpr int kPLd = kBlockK + kSmemPad;    // 16-bit P row stride
+
+constexpr size_t d512_smem_bytes() {
+  return (size_t)(kBlockQ + 2 * kBlockK) * (kD512 + kSmemPad) * sizeof(uint16_t) +
+         (size_t)kBlockQ * kSLd * sizeof(float) + (size_t)kBlockQ * kPLd * sizeof(uint16_t) +
+         2 * kBlockQ * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kD512Threads, 1) flash_fwd_d512(Params p) {
+  using E = Elem<T>;
+  constexpr int LD = kD512 + kSmemPad;
+  constexpr int kOutTiles = kD512Cols / 8;  // 8-wide output tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* k_s = q_s + kBlockQ * LD;
+  uint16_t* v_s = k_s + kBlockK * LD;
+  float* s_s = reinterpret_cast<float*>(v_s + kBlockK * LD);     // logits, log2 domain
+  uint16_t* p_s = reinterpret_cast<uint16_t*>(s_s + kBlockQ * kSLd);
+  float* alpha_s = reinterpret_cast<float*>(p_s + kBlockQ * kPLd);  // per-row rescale
+  float* l_s = alpha_s + kBlockQ;                                   // per-row sum
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int q0 = blockIdx.x * kBlockQ;
+  const uint16_t* qb = static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const uint16_t* kb = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const uint16_t* vb = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  load_tile_16bit<kD512, kD512Threads>(q_s, qb, p.q_ss, q0, p.seq_q, p.head_dim, p.vec_ok);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int wrow = (warp & 3) * 16;          // the warp's 16 query rows (both products)
+  const int wkey = (warp >> 2) * 32;         // its 32 keys of the logits block
+  const int wcol = (warp >> 2) * kD512Cols;  // its 256 output columns
+  // Softmax: row srow is shared by 4 neighbouring threads, 16 columns each; the
+  // four hold the same running max and sum.
+  const int srow = threadIdx.x >> 2;
+  const int scol = (threadIdx.x & 3) * 16;
+
+  float acc[kOutTiles][4];
+#pragma unroll
+  for (int dn = 0; dn < kOutTiles; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+
+  const int n_kblocks = (p.seq_k + kBlockK - 1) / kBlockK;
+  for (int j = 0; j < n_kblocks; ++j) {
+    __syncthreads();  // the previous K/V tiles and P are no longer read
+    load_tile_16bit<kD512, kD512Threads>(k_s, kb, p.k_ss, j * kBlockK, p.seq_k, p.head_dim,
+                                         p.vec_ok);
+    load_tile_16bit<kD512, kD512Threads>(v_s, vb, p.v_ss, j * kBlockK, p.seq_k, p.head_dim,
+                                         p.vec_ok);
+    __syncthreads();
+
+    // S = Q · Kᵀ for this warp's 16 rows × 32 keys, over the whole head dim.
+    float s[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < kD512 / 16; ++ks) {
+      const uint16_t* qr = q_s + (wrow + g) * LD + ks * 16 + tig * 2;
+      const uint32_t a[4] = {ld32(qr), ld32(qr + 8 * LD), ld32(qr + 8), ld32(qr + 8 * LD + 8)};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint16_t* kr = k_s + (wkey + nt * 8 + g) * LD + ks * 16 + tig * 2;
+        const uint32_t bf[2] = {ld32(kr), ld32(kr + 8)};
+        E::mma(s[nt], a, bf);
+      }
+    }
+    // Scaled logits to shared memory; keys past seq_k are -inf.
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wkey + nt * 8 + tig * 2 + e;
+        const bool valid = j * kBlockK + col < p.seq_k;
+        s_s[(wrow + g) * kSLd + col] = valid ? s[nt][e] * p.scale_log2 : -INFINITY;
+        s_s[(wrow + g + 8) * kSLd + col] = valid ? s[nt][2 + e] * p.scale_log2 : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // Online softmax of row srow over this block; P goes back as 16-bit values.
+    float e16[16];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      e16[c] = s_s[srow * kSLd + scol + c];
+      mx = fmaxf(mx, e16[c]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // Every key block holds at least one valid key, so the new max is finite.
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = exp2f(m_run - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int c = 0; c < 16; c += 2) {
+      const float e0 = exp2f(e16[c] - m_new);
+      const float e1 = exp2f(e16[c + 1] - m_new);
+      rs += e0 + e1;
+      *reinterpret_cast<uint32_t*>(p_s + srow * kPLd + scol + c) = E::pack(e0, e1);
+    }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l_run = l_run * alpha + rs;
+    m_run = m_new;
+    if ((threadIdx.x & 3) == 0) alpha_s[srow] = alpha;
+    __syncthreads();
+
+    // O = alpha · O + P · V for this warp's 16 rows × 256 columns.
+    const float a_lo = alpha_s[wrow + g];
+    const float a_hi = alpha_s[wrow + g + 8];
+#pragma unroll
+    for (int dn = 0; dn < kOutTiles; ++dn) {
+      acc[dn][0] *= a_lo;
+      acc[dn][1] *= a_lo;
+      acc[dn][2] *= a_hi;
+      acc[dn][3] *= a_hi;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      const uint16_t* pr = p_s + (wrow + g) * kPLd + kk * 16 + tig * 2;
+      const uint32_t a[4] = {ld32(pr), ld32(pr + 8 * kPLd), ld32(pr + 8),
+                             ld32(pr + 8 * kPLd + 8)};
+#pragma unroll
+      for (int dn = 0; dn < kOutTiles; ++dn) {
+        const uint16_t* vp = v_s + (kk * 16 + tig * 2) * LD + wcol + dn * 8 + g;
+        const uint32_t bf[2] = {vp[0] | ((uint32_t)vp[LD] << 16),
+                                vp[8 * LD] | ((uint32_t)vp[9 * LD] << 16)};
+        E::mma(acc[dn], a, bf);
+      }
+    }
+  }
+
+  if ((threadIdx.x & 3) == 0) l_s[srow] = l_run;
+  __syncthreads();
+  const float inv_lo = 1.f / l_s[wrow + g];
+  const float inv_hi = 1.f / l_s[wrow + g + 8];
+  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int row0 = q0 + wrow + g;
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int dn = 0; dn < kOutTiles; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = wcol + dn * 8 + tig * 2 + e;
+      if (d < p.head_dim) {
+        if (row0 < p.seq_q) ob[(long long)row0 * p.o_ss + d] = E::cvt(acc[dn][e] * inv_lo);
+        if (row1 < p.seq_q) ob[(long long)row1 * p.o_ss + d] = E::cvt(acc[dn][2 + e] * inv_hi);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 kernel: same tiling idea, scalar FMA in full f32
 // ---------------------------------------------------------------------------
 
@@ -381,35 +560,46 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const Params& p) {
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                   const Params& p) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D_PAD>
-cudaError_t dispatch(int dtype, int batch, cudaStream_t stream, const Params& p) {
-  if (dtype != 1) {
-    const size_t smem = (size_t)(kBlockQ + 2 * kBlockK) * (D_PAD + kSmemPad) * sizeof(uint16_t);
-    const dim3 grid((p.seq_q + kBlockQ - 1) / kBlockQ, batch * p.heads);
-    return dtype == 0 ? launch(flash_fwd_mma<D_PAD, __nv_bfloat16>, grid, smem, stream, p)
-                      : launch(flash_fwd_mma<D_PAD, __half>, grid, smem, stream, p);
-  }
+cudaError_t dispatch_mma(int dtype, int batch, cudaStream_t stream, const Params& p) {
+  const size_t smem = (size_t)(kBlockQ + 2 * kBlockK) * (D_PAD + kSmemPad) * sizeof(uint16_t);
+  const dim3 grid((p.seq_q + kBlockQ - 1) / kBlockQ, batch * p.heads);
+  return dtype == 0 ? launch(flash_fwd_mma<D_PAD, __nv_bfloat16>, grid, kThreads, smem, stream, p)
+                    : launch(flash_fwd_mma<D_PAD, __half>, grid, kThreads, smem, stream, p);
+}
+
+cudaError_t dispatch_d512(int dtype, int batch, cudaStream_t stream, const Params& p) {
+  const dim3 grid((p.seq_q + kBlockQ - 1) / kBlockQ, batch * p.heads);
+  return dtype == 0
+             ? launch(flash_fwd_d512<__nv_bfloat16>, grid, kD512Threads, d512_smem_bytes(),
+                      stream, p)
+             : launch(flash_fwd_d512<__half>, grid, kD512Threads, d512_smem_bytes(), stream, p);
+}
+
+template <int D_PAD>
+cudaError_t dispatch_f32(int batch, cudaStream_t stream, const Params& p) {
   const size_t smem = (size_t)(2 * kF32Block * (D_PAD + 1) + kF32Block * D_PAD +
                                kF32Block * (kF32Block + 1) + kF32Block) * sizeof(float);
   const dim3 grid((p.seq_q + kF32Block - 1) / kF32Block, batch * p.heads);
-  return launch(flash_fwd_f32<D_PAD>, grid, smem, stream, p);
+  return launch(flash_fwd_f32<D_PAD>, grid, kThreads, smem, stream, p);
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32, 2 = float16. variant: 0 = mma, 1 = f32, 2 = sm90;
-// a variant that cannot take the call is refused, never replaced by another.
-// Strides are in elements; the head dim is contiguous. Launches on `stream`, which
-// must belong to the current device. Returns the CUDA error of the launch (0 on
-// success).
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16. variant: 0 = mma (head_dim <= 256),
+// 1 = f32, 2 = sm90, 3 = d512 (bf16/f16, head_dim <= 512); a variant that cannot take
+// the call is refused, never replaced by another. Strides are in elements; the head
+// dim is contiguous. Launches on `stream`, which must belong to the current device.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       int dtype, int variant, int batch, int heads, int seq_q,
                                       int seq_k, int head_dim, long long q_sb, long long q_ss,
@@ -417,10 +607,11 @@ extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* 
                                       long long k_sh, long long v_sb, long long v_ss,
                                       long long v_sh, long long o_sb, long long o_ss,
                                       long long o_sh, float scale, int vec_ok, void* stream) {
-  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > 256 || seq_q < 1 || seq_k < 1 ||
+  if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > kD512 || seq_q < 1 || seq_k < 1 ||
       batch < 1 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
-  if ((variant == 1) != (dtype == 1) || variant < 0 || variant > 2)
+  if ((variant == 1) != (dtype == 1) || variant < 0 || variant > 3 ||
+      (variant == 0 && head_dim > 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 2) {
@@ -446,9 +637,17 @@ extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* 
              static_cast<char*>(o) + b0 * o_sb * esize,
              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
              heads, seq_q, seq_k, head_dim, scale * kLog2e, vec_ok};
-    if (head_dim <= 64) err = dispatch<64>(dtype, nb, s, p);
-    else if (head_dim <= 128) err = dispatch<128>(dtype, nb, s, p);
-    else err = dispatch<256>(dtype, nb, s, p);
+    if (variant == 3) err = dispatch_d512(dtype, nb, s, p);
+    else if (variant == 1) {
+      if (head_dim <= 64) err = dispatch_f32<64>(nb, s, p);
+      else if (head_dim <= 128) err = dispatch_f32<128>(nb, s, p);
+      else if (head_dim <= 256) err = dispatch_f32<256>(nb, s, p);
+      else err = dispatch_f32<512>(nb, s, p);
+    } else {
+      if (head_dim <= 64) err = dispatch_mma<64>(dtype, nb, s, p);
+      else if (head_dim <= 128) err = dispatch_mma<128>(dtype, nb, s, p);
+      else err = dispatch_mma<256>(dtype, nb, s, p);
+    }
   }
   return (int)err;
 }

@@ -1,11 +1,22 @@
-"""Carry a FLUX parameter tree of the JAX package across to the port's state dict.
+"""Carry parameter trees of the JAX package across to the port's state dicts.
 
-Input: the flax parameter pytree as nested dicts of numpy arrays
-(``double_blocks_0/img_attn_qkv/kernel`` …). Output: a ``FluxModel`` state dict
-(``double_blocks.0.img_attn_qkv.weight`` …). A flax ``kernel`` is (in, out) where
-``nn.Linear.weight`` is (out, in); the double blocks' ``*_attn_qkv`` kernel is
-(hidden, 3, H, D) with q, k, v at index 0, 1, 2, which flattens to the port's
-(3·H·D) output order. The QK-norm scales keep their names.
+Input: a flax parameter pytree as nested dicts of numpy arrays. Output: the
+matching module's state dict. The port's modules keep the flax names, so the
+conversion is a rename plus layout changes:
+
+- ``from_jax_params`` — FLUX (``double_blocks_0/img_attn_qkv/kernel`` →
+  ``double_blocks.0.img_attn_qkv.weight``). A flax ``kernel`` is (in, out) where
+  ``nn.Linear.weight`` is (out, in); the double blocks' ``*_attn_qkv`` kernel is
+  (hidden, 3, H, D) with q, k, v at index 0, 1, 2, which flattens to the port's
+  (3·H·D) output order. The QK-norm scales keep their names.
+- ``from_jax_text_params`` — CLIP and T5 encoders (``layers_0/q/kernel`` →
+  ``layers.0.q.weight``, ``blocks_3/wi_0/kernel`` → ``blocks.3.wi_0.weight``):
+  Dense kernels transposed, embedding tables (``tok_emb/embedding``) and norm
+  scales renamed to ``weight``; ``pos_emb`` and the T5 bias tables (``rel_bias``,
+  ``rel_bias_{i}``) keep their names.
+- ``from_jax_vae_params`` — the image VAE (``encoder/down_0_block_0/conv1/kernel``
+  → ``encoder.down_0_block_0.conv1.weight``): Conv kernels (kh, kw, in, out) →
+  (out, in, kh, kw), GroupNorm scales renamed to ``weight``.
 """
 
 from __future__ import annotations
@@ -16,7 +27,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-_BLOCK = re.compile(r"^(double_blocks|single_blocks)_(\d+)/")
+_BLOCK = re.compile(r"(^|/)(double_blocks|single_blocks|layers|blocks)_(\d+)/")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -30,17 +41,53 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
-    """Flax FLUX parameter tree (nested dicts of numpy arrays) → port state dict."""
+def _convert(tree: Mapping, leaf_fn) -> dict[str, torch.Tensor]:
     state = {}
     for path, arr in _flatten(tree).items():
-        path = _BLOCK.sub(r"\1.\2/", path)
+        path = _BLOCK.sub(r"\1\2.\3/", path)
         module, _, leaf = path.rpartition("/")
-        if leaf == "kernel":
-            key, value = f"{module}/weight", arr.reshape(arr.shape[0], -1).T
-        elif leaf == "bias":
-            key, value = path, arr.reshape(-1)
-        else:
-            key, value = path, arr
+        name, value = leaf_fn(leaf, arr)
+        key = f"{module}/{name}" if module else name
         state[key.replace("/", ".")] = torch.from_numpy(np.array(value, copy=True))
     return state
+
+
+def _flux_leaf(leaf: str, arr: np.ndarray):
+    if leaf == "kernel":
+        return "weight", arr.reshape(arr.shape[0], -1).T
+    if leaf == "bias":
+        return leaf, arr.reshape(-1)
+    return leaf, arr
+
+
+def _renamed(leaf: str, arr: np.ndarray):
+    if leaf in ("embedding", "scale"):
+        return "weight", arr
+    return leaf, arr
+
+
+def _text_leaf(leaf: str, arr: np.ndarray):
+    if leaf == "kernel":
+        return "weight", arr.T
+    return _renamed(leaf, arr)
+
+
+def _vae_leaf(leaf: str, arr: np.ndarray):
+    if leaf == "kernel":
+        return "weight", arr.transpose(3, 2, 0, 1)
+    return _renamed(leaf, arr)
+
+
+def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax FLUX parameter tree (nested dicts of numpy arrays) → port state dict."""
+    return _convert(tree, _flux_leaf)
+
+
+def from_jax_text_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``CLIPTextModel`` or ``T5Encoder`` tree → ``text_encoders`` state dict."""
+    return _convert(tree, _text_leaf)
+
+
+def from_jax_vae_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``AutoencoderKL`` tree → ``vae.AutoencoderKL`` state dict."""
+    return _convert(tree, _vae_leaf)

@@ -11,7 +11,7 @@ q/k/v ("BSHD") and return (B, S, H, D).
   ``resolved_backends()`` reads the same on both sides).
 - ``"auto"`` — a CUDA tensor goes to the kernel, a CPU tensor to the xla family.
   There is no measured table yet that could send a CUDA shape elsewhere, so a CUDA
-  call the kernel does not take (head dim above 256, float64) raises; select
+  call the kernel does not take (head dim above 512, float64) raises; select
   ``"xla"`` for those.
 """
 

@@ -10,7 +10,7 @@ call does 4·B·H·S²·D = 261 GFLOP (0.264 ms at 989 TFLOP/s bf16) and must mo
 113 MB of q/k/v/o (0.034 ms at 3.35 TB/s), so it is bound by tensor-core
 operations. The CUDA source (``csrc/flash_attention.cu``) keeps the S×S logits
 out of device memory and reads the BSHD layout in place from strides (no
-fold/transpose/pad copies). It has three variants, and ``kernel_variant`` picks
+fold/transpose/pad copies). It has four variants, and ``kernel_variant`` picks
 one from dtype, shape, strides and alignment before the launch:
 
 - ``sm90`` (``csrc/flash_attention_sm90.cuh``): bf16 or f16, head dim ≤ 128 and a
@@ -18,12 +18,16 @@ one from dtype, shape, strides and alignment before the launch:
   multiples of 8 elements (TMA's 16-byte rule), a positive scale (the kernel takes
   the softmax max on unscaled logits). TMA loads feed two ``wgmma`` consumer
   warpgroups from a warp-specialised producer. Every FLUX-dev call.
+- ``d512``: bf16/f16 with head dim in (256, 512] (the VAE mid-block's one
+  512-wide head), ``mma.sync`` on 8 warps that split the 64 × 512 output tile,
+  with Q, K and V tiles and the block's logits in shared memory. Bound at the FLUX
+  VAE's 1024² shape (1, 16384, 1, 512) by operations: 550 GFLOP, 0.556 ms.
 - ``mma``: the other bf16/f16 calls (head dim in (128, 256], unaligned views, a
   scale ≤ 0), ``mma.sync`` with K/V tiles staged through shared memory.
-- ``f32``: float32, a scalar-FMA kernel in full f32.
+- ``f32``: float32, a scalar-FMA kernel in full f32, head dims up to 512.
 
 ``flash_attention`` launches the chosen variant for CUDA tensors and raises on what
-no variant takes (head dims above 256, float64); it computes
+no variant takes (head dims above 512, float64); it computes
 ``flash_attention_plain`` only for CPU tensors. ``launches`` counts kernel
 launches, ``launches_by_variant`` the same per variant.
 """
@@ -36,14 +40,15 @@ import torch
 
 from . import build
 
-VARIANTS = ("sm90", "mma", "f32")
+VARIANTS = ("sm90", "mma", "f32", "d512")
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 512
+MMA_MAX_HEAD_DIM = 256
 SM90_MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
-_VARIANT_CODES = {"mma": 0, "f32": 1, "sm90": 2}
+_VARIANT_CODES = {"mma": 0, "f32": 1, "sm90": 2, "d512": 3}
 _FN = None
 
 
@@ -60,16 +65,17 @@ def _tma_ready(t: torch.Tensor) -> bool:
 
 
 def kernel_variant(q, k, v, scale: float | None = None) -> str:
-    """The variant of K1 that serves a call on these tensors: ``sm90``, ``mma`` or
-    ``f32``. Pure Python on dtype, shape, strides, ``data_ptr`` alignment and the
-    scale (``None``: the default ``D**-0.5``), so it answers for CPU tensors too."""
+    """The variant of K1 that serves a call on these tensors: ``sm90``, ``mma``,
+    ``d512`` or ``f32``. Pure Python on dtype, shape, strides, ``data_ptr``
+    alignment and the scale (``None``: the default ``D**-0.5``), so it answers for
+    CPU tensors too."""
     if q.dtype == torch.float32:
         return "f32"
     d = q.shape[-1]
     if (d <= SM90_MAX_HEAD_DIM and d % 8 == 0 and (scale is None or scale > 0)
             and all(_tma_ready(t) for t in (q, k, v))):
         return "sm90"
-    return "mma"
+    return "d512" if d > MMA_MAX_HEAD_DIM else "mma"
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None) -> torch.Tensor:
@@ -133,21 +139,23 @@ def _launch(q, k, v, scale: float, variant: str) -> torch.Tensor:
     seq_k = k.shape[1]
     if head_dim > MAX_HEAD_DIM:
         raise ValueError(
-            f"flash_attention kernel takes head dims up to {MAX_HEAD_DIM}, got {head_dim} "
-            "(larger heads, such as the VAE's 512, are ROADMAP Queue 2 work)"
-        )
+            f"flash_attention kernel takes head dims up to {MAX_HEAD_DIM}, got {head_dim}")
     if min(seq_q, seq_k, batch, heads) < 1 or heads > 65535:
         raise ValueError(f"flash_attention kernel cannot take q {tuple(q.shape)}, k {tuple(k.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs a contiguous head dim (stride(-1) == 1)")
     if (variant == "f32") != (q.dtype == torch.float32) or variant not in _VARIANT_CODES:
         raise ValueError(f"variant {variant!r} cannot take {q.dtype} inputs")
+    if variant == "mma" and head_dim > MMA_MAX_HEAD_DIM:
+        raise ValueError(f"the mma variant takes head dims up to {MMA_MAX_HEAD_DIM}, "
+                         f"got {head_dim}")
     if variant == "sm90" and kernel_variant(q, k, v, scale) != "sm90":
         raise ValueError("the sm90 variant needs head_dim <= 128 and a multiple of 8, "
                          "16-byte aligned data, strides that are multiples of 8 and a "
                          "positive scale")
     out = torch.empty((batch, seq_q, heads, head_dim), dtype=q.dtype, device=q.device)
-    # The mma variant's 16-byte row loads need 8-element-aligned rows in every input.
+    # The mma and d512 variants' 16-byte row loads need 8-element-aligned rows in
+    # every input.
     vec_ok = head_dim % 8 == 0 and all(
         t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
     )

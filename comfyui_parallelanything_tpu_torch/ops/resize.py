@@ -1,0 +1,47 @@
+"""Image resizing with ``jax.image.resize`` semantics, for the masks the VAE and
+the pipelines resize (``nearest`` and ``bilinear``).
+
+``nearest`` samples input index floor((i + 0.5)·in/out) per axis. ``bilinear``
+is separable: each resized axis contracts with an (in, out) matrix of triangle
+weights centred on (i + 0.5)·in/out − 0.5, widened by in/out when downsampling
+(antialiasing), normalised per output sample, and zero for samples outside the
+input. Every other axis passes through.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _triangle_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    kernel_scale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs()
+    w = torch.clamp(1.0 - x / kernel_scale, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize(x: torch.Tensor, shape: tuple[int, ...], method: str = "bilinear") -> torch.Tensor:
+    """``x`` resized to ``shape`` (same rank) by ``nearest`` or ``bilinear``."""
+    if len(shape) != x.ndim:
+        raise ValueError(f"shape {shape} does not match rank {x.ndim}")
+    if method not in ("nearest", "bilinear"):
+        raise ValueError(f"unsupported resize method {method!r}")
+    if method != "nearest" and not x.is_floating_point():
+        x = x.float()
+    for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in == n_out:
+            continue
+        if method == "nearest":
+            idx = torch.floor((torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out)
+            x = x.index_select(d, idx.long().to(x.device))
+        else:
+            w = _triangle_weights(n_in, n_out, x.device).to(x.dtype)
+            x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
+    return x

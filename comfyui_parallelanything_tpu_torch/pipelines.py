@@ -1,0 +1,169 @@
+"""End-to-end text→image: tokenize → encode → (parallel) denoise → decode
+(counterpart of ``comfyui_parallelanything_tpu/pipelines.py``).
+
+``FluxPipeline`` is ported: T5 context + CLIP-L pooled vector, flow-matching
+sampling through ``run_sampler`` (txt2img, img2img, inpaint, true CFG), VAE decode.
+The diffusion model slot takes a bare ``DiffusionModel`` or the ``ParallelModel``
+``parallelize`` returns, so every sampler step runs over the device chain.
+``StableDiffusionPipeline``, ``Sd3Pipeline`` and ``WanVideoPipeline`` are not
+ported yet (ROADMAP Queue 1, Nodes and host).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from .models.vae import images_to_vae_input, vae_output_to_images
+from .ops.resize import resize
+from .sampling.runner import run_sampler
+
+
+def initial_noise(shape: tuple[int, ...], generator: torch.Generator | None,
+                  device) -> torch.Tensor:
+    """The sampler's starting N(0, 1) latent, f32, drawn from ``generator`` (a
+    generator seeded with 0 on ``device`` when None)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def _match_negatives(prompts: list[str], negative_prompt) -> list[str]:
+    """Broadcast a str negative to the batch; validate list lengths here (a
+    mismatch otherwise surfaces as a shape error deep inside the model)."""
+    if isinstance(negative_prompt, str):
+        return [negative_prompt] * len(prompts)
+    negatives = list(negative_prompt)
+    if len(negatives) != len(prompts):
+        raise ValueError(
+            f"negative_prompt list has {len(negatives)} entries for {len(prompts)} prompts")
+    return negatives
+
+
+def _encode_init(vae, init, denoise: float, batch: int, expect: tuple[int, ...],
+                 what: str = "init_image", allow_full_denoise: bool = False):
+    """Strength-seeded sampling entry: validate the (denoise, init) pairing, check
+    the pixel shape against ``expect`` (the dims after batch), encode, and
+    broadcast a batch-1 init to the prompt batch. ``allow_full_denoise`` lifts the
+    denoise < 1 requirement (inpainting keeps regions through the mask)."""
+    if init is None:
+        if denoise < 1.0:
+            raise ValueError(
+                f"denoise < 1 without an {what} — partial strength needs something "
+                f"to preserve; pass {what} or drop denoise")
+        return None
+    if denoise >= 1.0 and not allow_full_denoise:
+        raise ValueError(f"{what} given but denoise=1.0 — lower denoise (strength) so it "
+                         "actually seeds the sampler")
+    init = torch.as_tensor(init)
+    got = tuple(init.shape[1 : 1 + len(expect)])
+    if got != tuple(expect):
+        raise ValueError(f"{what} is {got}, pipeline is {tuple(expect)}")
+    z = vae.encode(images_to_vae_input(init))
+    if z.shape[0] == 1 and batch > 1:
+        z = z.repeat_interleave(batch, dim=0)
+    return z
+
+
+def _latent_mask_for(mask, init, f: int, height: int, width: int,
+                     what: str = "init_image") -> torch.Tensor | None:
+    """Inpainting mask (B, H, W[, 1]) → latent-resolution blend mask (1 =
+    regenerate), resized bilinearly as ``jax.image.resize`` does."""
+    if mask is None:
+        return None
+    if init is None:
+        raise ValueError(f"mask (inpainting) requires {what}")
+    m = torch.as_tensor(mask).float()
+    if m.ndim == 3:
+        m = m[..., None]
+    if m.ndim != 4:
+        raise ValueError(f"mask rank {m.ndim} does not fit an image latent")
+    return resize(m, (m.shape[0], height // f, width // f, 1), method="bilinear")
+
+
+def _model_config_of(model) -> Any:
+    """The wrapped model's own config, whether ``model`` is bare or a
+    ``ParallelModel`` (whose ``config`` is the ParallelConfig)."""
+    cfg = getattr(model, "model_config", None)
+    return cfg if cfg is not None else getattr(model, "config", None)
+
+
+@dataclasses.dataclass
+class FluxPipeline:
+    """FLUX / Z-Image flow-matching text→image: T5 context + CLIP-L pooled vec."""
+
+    dit: Any  # FLUX-class DiffusionModel or ParallelModel
+    vae: Any  # 16-channel autoencoder (models.vae.VAE)
+    clip: Any  # CLIP-L TextEncoder (pooled y)
+    t5: Any  # T5 TextEncoder (context)
+    tokenizer: Any  # CLIP tokenizer
+    t5_tokenizer: Any
+
+    def encode_prompt(self, prompts: list[str]):
+        ids, _ = self.tokenizer(prompts)
+        _, _, pooled = self.clip(ids)
+        t5_ids, t5_mask = self.t5_tokenizer(prompts)
+        context = self.t5(t5_ids, mask=t5_mask)
+        return context, pooled
+
+    def __call__(
+        self,
+        prompt: str | list[str],
+        *,
+        steps: int = 20,
+        sampler: str = "flow_euler",
+        guidance: float | None = 3.5,
+        shift: float = 1.15,
+        height: int = 1024,
+        width: int = 1024,
+        rng: torch.Generator | None = None,
+        negative_prompt: str | list[str] | None = None,
+        cfg_scale: float = 1.0,
+        callback=None,
+        init_image=None,
+        denoise: float = 1.0,
+        mask=None,
+        compile_loop: bool = False,
+    ) -> torch.Tensor:
+        """Returns float images (B, height, width, 3) in [0, 1]. ``guidance`` is the
+        dev-family distilled guidance embed (None for schnell); true CFG runs only
+        when ``negative_prompt`` + ``cfg_scale != 1`` are given. ``rng`` draws the
+        initial noise (a generator seeded with 0 when None). img2img:
+        ``init_image`` (B or 1, height, width, 3 in [0, 1]) with ``denoise < 1``;
+        inpainting: ``mask`` (B or 1, height, width[, 1]; 1 = regenerate) at any
+        denoise."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        f = self.vae.spatial_factor
+        patch = getattr(_model_config_of(self.dit), "patch_size", 2)
+        unit = f * patch  # VAE factor × DiT patchify
+        if height % unit or width % unit:
+            raise ValueError(f"height/width must be multiples of {unit}")
+        context, pooled = self.encode_prompt(prompts)
+        uncond_context = None
+        uncond_kwargs = None
+        kwargs: dict[str, Any] = {"y": pooled}
+        use_cfg = cfg_scale != 1.0 and negative_prompt is not None
+        if use_cfg:
+            negatives = _match_negatives(prompts, negative_prompt)
+            uncond_context, uncond_pooled = self.encode_prompt(negatives)
+            uncond_kwargs = {"y": uncond_pooled}
+
+        B = len(prompts)
+        device = self.vae.device
+        noise = initial_noise((B, height // f, width // f, self.vae.cfg.z_channels), rng,
+                              device)
+        latent_mask = _latent_mask_for(mask, init_image, f, height, width)
+        if latent_mask is not None:
+            latent_mask = latent_mask.to(device)
+        init_latent = _encode_init(self.vae, init_image, denoise, B, (height, width),
+                                   allow_full_denoise=mask is not None)
+        latents = run_sampler(
+            self.dit, noise, context, sampler=sampler, prediction="flow", steps=steps,
+            shift=shift, guidance=guidance, cfg_scale=cfg_scale if use_cfg else 1.0,
+            uncond_context=uncond_context, uncond_kwargs=uncond_kwargs, callback=callback,
+            compile_loop=compile_loop, init_latent=init_latent, denoise=denoise,
+            latent_mask=latent_mask, **kwargs,
+        )
+        return vae_output_to_images(self.vae.decode(latents))

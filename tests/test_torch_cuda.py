@@ -16,6 +16,8 @@ from comfyui_parallelanything_tpu_torch import parallelize  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models import flux  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops import attention  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from comfyui_parallelanything_tpu_torch.models import text_encoders, vae  # noqa: E402
+from comfyui_parallelanything_tpu_torch.pipelines import FluxPipeline  # noqa: E402
 from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -58,12 +60,17 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = before
 
 
-# The smoke run's cases, plus a 256-wide head and a small f32 case with D=40.
+# The smoke run's cases, plus a 256-wide head, a small f32 case with D=40, a
+# 264-wide head (the smallest the d512 variant serves), a single query and key at
+# D=512, and the d512 variant past 65535 batch·heads.
 @pytest.mark.parametrize(
     "qshape,kshape,dtype_name,layout,variant",
     [c[1:] for c in chip_smoke.KERNEL_CASES]
     + [((2, 130, 3, 256), (2, 70, 3, 256), "bfloat16", "contiguous", "mma"),
-       ((1, 100, 2, 40), (1, 77, 2, 40), "float32", "contiguous", "f32")],
+       ((1, 100, 2, 40), (1, 77, 2, 40), "float32", "contiguous", "f32"),
+       ((2, 65, 3, 264), (2, 129, 3, 264), "bfloat16", "contiguous", "d512"),
+       ((1, 1, 1, 512), (1, 1, 1, 512), "bfloat16", "contiguous", "d512"),
+       ((65537, 2, 1, 512), (65537, 3, 1, 512), "bfloat16", "contiguous", "d512")],
 )
 def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype_name, layout,
                                               variant):
@@ -138,9 +145,14 @@ def test_flash_attention_keeps_the_current_device(cuda_device):
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
-    x = torch.zeros((1, 8, 1, 512), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims up to 256"):
+    x = torch.zeros((1, 8, 1, 520), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims up to 512"):
         fa.flash_attention(x, x, x)
+    w = torch.zeros((1, 8, 1, 512), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="mma variant takes head dims up to 256"):
+        fa._launch(w, w, w, 0.1, "mma")
+    with pytest.raises(ValueError, match="cannot take"):
+        fa._launch(w.float(), w.float(), w.float(), 0.1, "d512")
     y = torch.zeros((1, 8, 2, 64), device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         fa.flash_attention(y, y, y)
@@ -191,3 +203,83 @@ def test_small_flux_data_parallel_over_every_card(cuda_device):
     assert got.device == cuda_device and torch.cuda.current_device() == 0
     rel = ((got.cpu() - want).norm() / want.norm()).item()
     assert rel <= 1e-4, rel
+
+
+PIPE_FLUX = dict(hidden_size=64, num_heads=2, depth=1, depth_single_blocks=1, mlp_ratio=2.0,
+                 context_in_dim=32, vec_in_dim=16, axes_dim=(8, 12, 12), in_channels=64)
+PIPE_CLIP = dict(vocab_size=600, hidden_size=48, num_layers=2, num_heads=4, max_len=16,
+                 projection_dim=16)
+PIPE_T5 = dict(vocab_size=600, d_model=32, num_layers=2, num_heads=4, d_kv=8, d_ff=64)
+
+
+def _small_pipeline(device, dtype, vae_base, vae_groups):
+    """A small FluxPipeline on ``device`` in ``dtype``, with weights made on the CPU
+    from seeded generators (the same for every device)."""
+    tok, t5_tok = chip_smoke.synthetic_tokenizers()
+    tok.max_len = PIPE_CLIP["max_len"]
+    t5_tok.max_len = 16
+    gen = torch.Generator().manual_seed(0)
+    cpu = {}
+    cpu["dit"] = flux.build_flux(flux.FluxConfig(**PIPE_FLUX, dtype=dtype), device="cpu",
+                                 generator=gen)
+    vcfg = vae.VAEConfig(z_channels=16, base_channels=vae_base, channel_mult=(1, 2),
+                         num_res_blocks=1, norm_groups=vae_groups, use_quant_conv=False,
+                         dtype=dtype)
+    cpu["vae"] = vae.build_vae(vcfg, device="cpu", generator=gen)
+    tcfg = text_encoders.T5Config(**PIPE_T5, dtype=dtype)
+    # CLIP's ids (BOS/EOS 49406/49407) need CLIP-L's table size.
+    ccfg = text_encoders.CLIPTextConfig(**{**PIPE_CLIP, "vocab_size": 49408},
+                                        eos_id=tok.eos_id, dtype=dtype)
+    cpu["clip"] = text_encoders.build_clip_text(ccfg, device="cpu", generator=gen)
+    cpu["t5"] = text_encoders.build_t5_encoder(tcfg, device="cpu", generator=gen)
+    if device.type == "cpu":
+        parts = cpu
+    else:
+        parts = {
+            "dit": flux.build_flux(cpu["dit"].config, device=device,
+                                   state_dict=cpu["dit"].module.state_dict()),
+            "vae": vae.build_vae(vcfg, device=device, state_dict=cpu["vae"].module.state_dict()),
+            "clip": text_encoders.build_clip_text(ccfg, device=device,
+                                                  state_dict=cpu["clip"].module.state_dict()),
+            "t5": text_encoders.build_t5_encoder(tcfg, device=device,
+                                                 state_dict=cpu["t5"].module.state_dict()),
+        }
+    return FluxPipeline(dit=parallelize(parts["dit"], [(str(device), 100)]), vae=parts["vae"],
+                        clip=parts["clip"], t5=parts["t5"], tokenizer=tok, t5_tokenizer=t5_tok)
+
+
+def test_small_pipeline_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    # f32 end to end (TF32 off for matmuls and convolutions): the card's run goes
+    # through K1's f32 variant for the DiT and the VAE and must match the CPU's.
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    noise = torch.randn((1, 8, 8, 16), generator=torch.Generator().manual_seed(1))
+    monkeypatch.setattr("comfyui_parallelanything_tpu_torch.pipelines.initial_noise",
+                        lambda shape, g, d: noise.to(d))
+    init = torch.rand((1, 16, 16, 3), generator=torch.Generator().manual_seed(2))
+    kw = dict(steps=2, height=16, width=16, guidance=3.5)
+    images = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        pipe = _small_pipeline(dev, torch.float32, vae_base=32, vae_groups=8)
+        fa.reset_launches()
+        images[dev.type] = (pipe("a horse on the moon", **kw).cpu(),
+                            pipe("a horse", init_image=init, denoise=0.5, **kw).cpu())
+        launched = dict(fa.launches_by_variant)
+    # txt2img: 2 steps × 2 blocks + 1 decode; img2img: 1 encode + 2 steps × 2 + 1 decode.
+    assert launched == {"sm90": 0, "mma": 0, "f32": 4 + 1 + 1 + 4 + 1, "d512": 0}
+    for got, want in zip(images["cuda"], images["cpu"]):
+        assert got.shape == (1, 16, 16, 3)
+        rel = ((got - want).norm() / want.norm()).item()
+        assert rel < 1e-4, rel
+
+
+def test_small_bf16_pipeline_takes_the_d512_variant(cuda_device):
+    # A VAE whose mid blocks are 512 channels wide, as in every kl-f8 VAE: its
+    # attention is one 512-wide head, which K1 serves with the d512 variant.
+    pipe = _small_pipeline(cuda_device, torch.bfloat16, vae_base=256, vae_groups=32)
+    fa.reset_launches()
+    img = pipe("a horse on the moon", steps=2, height=32, width=32)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant["d512"] == 1 and fa.launches_by_variant["sm90"] == 4
+    assert img.shape == (1, 32, 32, 3) and img.dtype == torch.bfloat16
+    assert torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1
+

@@ -60,14 +60,16 @@ def test_plain_bf16_keeps_dtype_and_scale_override():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("head_dim", [128, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-def test_kernel_check_rejects_planted_tail_bugs(dtype):
+def test_kernel_check_rejects_planted_tail_bugs(dtype, head_dim):
     # The limits the card's smoke run holds K1 to accept the plain version's own
     # rounding to ``dtype`` and reject a kernel that leaves the padded keys of the
-    # last 64-key block unmasked or drops the last key (300 queries, 513 keys).
+    # last 64-key block unmasked or drops the last key (300 queries, 513 keys), at
+    # the FLUX head dim and the VAE's.
     import chip_smoke
 
-    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(11, 1, 300, 513, 2, 128))
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(11, 1, 300, 513, 2, head_dim))
     assert chip_smoke.kernel_error(fa.flash_attention_plain(q, k, v), q, k, v)["ok"]
     bugs = chip_smoke.tail_bugs(q, k, v)
     assert set(bugs) == {"tail_unmasked", "last_key_dropped"}
@@ -118,6 +120,9 @@ def _unaligned(shape, dtype=torch.bfloat16):
         ("d64", "sm90"),
         ("d8", "sm90"),
         ("d256", "mma"),
+        ("d264", "d512"),
+        ("d512", "d512"),
+        ("d1024", "d512"),  # which then refuses it: head dims above 512 raise
         ("unaligned_offset", "mma"),
         ("negative_scale", "mma"),
         ("f32", "f32"),
