@@ -39,12 +39,32 @@ the error.
    image. Times encode, denoise and decode; K1 must serve the DiT (``sm90``) and
    the VAE's mid-block attention (``d512``, once per encode or decode); the image
    must be finite, (1, 1024, 1024, 3) and in [0, 1]; a decode through K1 must
-   agree with the same decode on the plain attention path.
-Then the ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+   agree with the same decode on the plain attention path. The FLUX models are
+   freed after it.
+6. sd_pipeline — ``StableDiffusionPipeline`` with SDXL-base at full width
+   (``sdxl_config()``, 2.57 B parameters), CLIP-L, OpenCLIP-G and the SDXL VAE,
+   random bf16 weights from a seeded generator, the UNet wrapped by ``parallelize``
+   over ``[("cuda:0", 100)]``: 1024², batch 1, 8 steps of ``dpmpp_2m``/karras, CFG
+   7.0 with a negative prompt. Times encode, s/it and decode, reads the peak
+   memory; K1 must serve exactly 140 ``sm90`` calls per step (70 transformer
+   blocks × self + cross, cond ‖ uncond in one batch-2 call) and one ``d512``
+   call for the decode; the image must be finite, (1, 1024, 1024, 3), in [0, 1].
+   One UNet forward is held against the same forward on plain attention, and one
+   step runs under ``torch.profiler``.
+7. sd_samplers — SD1.5 at full width (``sd15_config()``) at 512², CFG 7.0,
+   through ``parallelize`` → ``run_sampler`` with every sampler name but
+   ``flow_euler`` (2 steps, 3 for the multistep ones), then an img2img (denoise
+   0.5) and an inpaint call: every latent finite, and K1 launches exactly 20
+   ``sm90`` + 10 ``mma`` per UNet forward (head dims 40 and 80, and 160; no middle
+   transformer, as the JAX package's ``middle_depth`` gives ``sd15_config()``
+   none). Then ``dpmpp_2m`` at 10 steps for its s/it.
+Then the script's wall time, the ``kernels`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -59,6 +79,11 @@ H100_HBM_BYTES_S = 3.35e12
 STEPS = 4
 FLUX_SHAPE = (1, 4608, 24, 128)  # 4096 image + 512 text tokens at 1024²
 VAE_SHAPE = (1, 16384, 1, 512)  # the FLUX VAE's mid-block attention at 1024² (128² latent)
+SDXL_4096 = (2, 4096, 10, 64)  # SDXL at 1024², latent level 1 (64²), 640 wide
+SDXL_1024 = (2, 1024, 20, 64)  # SDXL at 1024², latent level 2 (32²), 1280 wide
+SD15_4096 = (2, 4096, 8, 40)  # SD1.5 at 512², latent level 0 (64²), 320 wide
+SD15_1024 = (2, 1024, 8, 80)  # level 1 (32²), 640 wide
+SD15_256 = (2, 256, 8, 160)  # level 2 (16²), 1280 wide
 # name, q shape, k/v shape, dtype name, layout, the variant that must serve it.
 # Layouts: "contiguous"; "single_block_v", v a strided view of a fused projection
 # as in the FLUX single block (q and k contiguous); "unaligned", every input a
@@ -80,6 +105,20 @@ KERNEL_CASES = [
     ("d320", (2, 300, 2, 320), (2, 513, 2, 320), "bfloat16", "contiguous", "d512"),
     ("d512_f16", (2, 300, 2, 512), (2, 513, 2, 512), "float16", "contiguous", "d512"),
     ("d512_f32", (1, 300, 2, 512), (1, 513, 2, 512), "float32", "contiguous", "f32"),
+    # The SD-family UNets' calls at their real shapes (CFG's batch 2): SDXL at
+    # 1024² (head dim 64), SD1.5 at 512² (head dims 40, 80, 160), self-attention
+    # and cross-attention over 77 text tokens; then ragged cases at D=80 and 160.
+    ("sdxl_self_4096_d64", SDXL_4096, SDXL_4096, "bfloat16", "contiguous", "sm90"),
+    ("sdxl_self_1024_d64", SDXL_1024, SDXL_1024, "bfloat16", "contiguous", "sm90"),
+    ("sdxl_cross_4096x77_d64", SDXL_4096, (2, 77, 10, 64), "bfloat16", "contiguous", "sm90"),
+    ("sdxl_cross_1024x77_d64", SDXL_1024, (2, 77, 20, 64), "bfloat16", "contiguous", "sm90"),
+    ("sd15_self_4096_d40", SD15_4096, SD15_4096, "bfloat16", "contiguous", "sm90"),
+    ("sd15_self_1024_d80", SD15_1024, SD15_1024, "bfloat16", "contiguous", "sm90"),
+    ("sd15_self_256_d160", SD15_256, SD15_256, "bfloat16", "contiguous", "mma"),
+    ("sd15_cross_4096x77_d40", SD15_4096, (2, 77, 8, 40), "bfloat16", "contiguous", "sm90"),
+    ("sd15_cross_256x77_d160", SD15_256, (2, 77, 8, 160), "bfloat16", "contiguous", "mma"),
+    ("d80", (2, 300, 4, 80), (2, 513, 4, 80), "bfloat16", "contiguous", "sm90"),
+    ("d160", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "contiguous", "mma"),
 ]
 # Limits on the kernel's error against the plain version computed in f32 on the
 # same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
@@ -259,11 +298,34 @@ TIMED = {"sm90": ("flux_dev_1024", 20, 5, H100_BF16_FLOPS),
          "f32": ("flux_dev_1024", 5, 3, H100_F32_FLOPS)}
 # Cases whose inputs must make the planted tail bugs fail the check.
 TAIL_BUG_CASES = ("ragged_300x513", "d512_ragged_300x513")
+# The SD-family shapes timed as the UNets call them, each through the variant the
+# rule picks: (iterations, iterations of the plain version).
+SHAPES_TIMED = {"sdxl_self_4096_d64": (30, 3), "sdxl_self_1024_d64": (50, 5),
+                "sdxl_cross_4096x77_d64": (50, 5), "sdxl_cross_1024x77_d64": (50, 5),
+                "sd15_self_4096_d40": (30, 3), "sd15_self_1024_d80": (50, 5),
+                "sd15_self_256_d160": (50, 5)}
+
+
+def loop_ms(fn, iters: int) -> float:
+    """Device time per call over ``iters`` calls issued back to back, from two
+    CUDA events around the whole run: where the host issues calls faster than the
+    card runs them, the host's work per call is hidden, unlike in ``time_ms``."""
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def phase_kernel() -> dict:
     """Check every ``KERNEL_CASES`` row and the planted tail bugs, then time each
-    variant (``TIMED``). Returns ``{variant: timing row}``."""
+    variant (``TIMED``) and each SD-family shape (``SHAPES_TIMED``). Returns
+    ``{variant: timing row}``."""
     import torch
 
     from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
@@ -275,7 +337,7 @@ def phase_kernel() -> dict:
     cases = []
     controls = {}
     kept = {}
-    timed_cases = {c for c, *_ in TIMED.values()}
+    timed_cases = {c for c, *_ in TIMED.values()} | set(SHAPES_TIMED)
     for name, qshape, kshape, dtype_name, layout, want_variant in KERNEL_CASES:
         q, k, v = make_case(qshape, kshape, dtype_name, layout, gen, dev)
         variant = fa.kernel_variant(q, k, v)
@@ -320,7 +382,16 @@ def phase_kernel() -> dict:
             err = forced["max_abs_err"]
         rows[variant] = {"case": case, **time_variant(fa, variant, q, k, v, iters, plain_iters,
                                                       peak), "max_abs_err": err}
-    emit({"phase": "kernel", "cases": cases, "controls": controls, "timed": rows})
+    shapes = {}
+    for case, (iters, plain_iters) in SHAPES_TIMED.items():
+        q, k, v, err = kept[case]
+        variant = fa.kernel_variant(q, k, v)
+        row = time_variant(fa, variant, q, k, v, iters, plain_iters, H100_BF16_FLOPS)
+        row["loop_ms"] = loop_ms(lambda: fa._launch(q, k, v, q.shape[-1] ** -0.5, variant),
+                                 iters)
+        shapes[case] = {**row, "max_abs_err": err}
+    emit({"phase": "kernel", "cases": cases, "controls": controls, "timed": rows,
+          "timed_shapes": shapes})
     return rows
 
 
@@ -419,22 +490,27 @@ def phase_main_path():
 
 
 def phase_profile(pm, x, ctx, y) -> None:
-    """One FLUX-dev step under ``torch.profiler``: the top 10 CUDA kernels by total
-    device time, K1's share of all kernel time and of the step, and the device's busy
-    share (kernel time over the step's wall time, one stream, so kernels do not
-    overlap). Kernel times come from the profiler's trace (its ``kernel`` events)."""
+    """One FLUX-dev step under ``torch.profiler`` (``profile_step``)."""
+    from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample
+
+    profile_step("profile", lambda: flow_euler_sample(pm, x, ctx, steps=1, guidance=3.5, y=y))
+
+
+def profile_step(phase: str, step) -> dict:
+    """``step()`` under ``torch.profiler``: the top 10 CUDA kernels by total device
+    time, K1's share of all kernel time and of the step, and the device's busy share
+    (kernel time over the step's wall time, one stream, so kernels do not overlap).
+    Kernel times come from the profiler's trace (its ``kernel`` events)."""
     import os
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        flow_euler_sample(pm, x, ctx, steps=1, guidance=3.5, y=y)
+        step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     fd, path = tempfile.mkstemp(suffix=".json")
@@ -456,7 +532,7 @@ def phase_profile(pm, x, ctx, y) -> None:
     k1_calls = sum(t[1] for n, t in totals.items() if "flash_fwd" in n)
     top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:10]
     result = {
-        "phase": "profile", "step_wall_s": wall_s, "kernel_ms": kernel_ms,
+        "phase": phase, "step_wall_s": wall_s, "kernel_ms": kernel_ms,
         "busy_share": kernel_ms / (wall_s * 1e3), "k1_ms": k1_ms, "k1_calls": k1_calls,
         "k1_share_of_kernels": k1_ms / kernel_ms if kernel_ms else None,
         "k1_share_of_step": k1_ms / (wall_s * 1e3),
@@ -466,6 +542,7 @@ def phase_profile(pm, x, ctx, y) -> None:
     emit(result)
     if not kernel_ms or k1_calls == 0:
         raise RuntimeError(f"the profiled step shows no K1 kernel: {result}")
+    return result
 
 
 PIPELINE_PROMPT = "a photograph of an astronaut riding a horse on the moon, highly detailed"
@@ -497,6 +574,23 @@ def synthetic_tokenizers():
             return type("Encoding", (), {"ids": clip.encode(text)})()
 
     return clip, JsonTokenizer(_Pieces(), max_len=512, eos_id=1, pad_id=0)
+
+
+def _timed_span(spans: dict, name: str, fn):
+    """``fn`` wrapped to add its synchronised wall time to ``spans[name]`` and to
+    stamp its last end in ``spans[name + "_end"]``."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        spans[name + "_end"] = time.perf_counter()
+        spans[name] = spans.get(name, 0.0) + spans[name + "_end"] - start
+        return out
+
+    return run
 
 
 def phase_pipeline(pm) -> dict:
@@ -536,22 +630,9 @@ def phase_pipeline(pm) -> dict:
         return sum(p.numel() * p.element_size() for p in module.parameters())
 
     spans: dict[str, float] = {}
-
-    def timed(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - start
-            spans[name + "_end"] = time.perf_counter()
-            return out
-
-        return run
-
-    pipe.encode_prompt = timed("encode_s", pipe.encode_prompt)
-    vae.decode = timed("decode_s", vae.decode)
-    vae.encode = timed("vae_encode_s", vae.encode)
+    pipe.encode_prompt = _timed_span(spans, "encode_s", pipe.encode_prompt)
+    vae.decode = _timed_span(spans, "decode_s", vae.decode)
+    vae.encode = _timed_span(spans, "vae_encode_s", vae.encode)
     stamps = []
 
     def on_step(i, latent):
@@ -628,6 +709,216 @@ def phase_pipeline(pm) -> dict:
             "img2img": img2img["k1_launches_by_variant"]}
 
 
+SD_STEPS = 8
+SD_CFG = 7.0
+SD_NEGATIVE = "blurry, low quality"
+SD_REL_TOL = 5e-2  # bf16 SDXL UNet forward, K1 vs plain attention
+SDXL_SM90_PER_STEP = 140  # 70 transformer blocks × (self + cross), CFG in one call
+SD15_PER_FORWARD = {"sm90": 20, "mma": 10}  # head dims 40 and 80; 160
+
+
+def _launched(fa) -> dict:
+    return {n: c for n, c in fa.launches_by_variant.items() if c}
+
+
+def phase_sd_pipeline() -> dict:
+    """``StableDiffusionPipeline`` with SDXL-base at full width (CLIP-L, OpenCLIP-G,
+    the SDXL VAE; random bf16 weights from a seeded generator), the UNet through
+    ``parallelize``: 1024², batch 1, ``SD_STEPS`` steps of dpmpp_2m/karras at CFG
+    ``SD_CFG``. Returns K1's launches by variant in that run."""
+    import copy
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.text_encoders import (
+        build_clip_text,
+        clip_l_config,
+        open_clip_g_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.unet import build_unet, sdxl_config
+    from comfyui_parallelanything_tpu_torch.models.vae import build_vae, sdxl_vae_config
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.pipelines import StableDiffusionPipeline
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    unet = build_unet(sdxl_config(), device=dev, generator=gen)
+    clip_l = build_clip_text(clip_l_config(), device=dev, generator=gen)
+    clip_g = build_clip_text(open_clip_g_config(), device=dev, generator=gen)
+    vae = build_vae(sdxl_vae_config(), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tok_l, _ = synthetic_tokenizers()
+    tok_g = copy.copy(tok_l)
+    tok_g.pad_id = 0  # OpenCLIP-G pads with 0, CLIP-L with EOS
+    pm = parallelize(unet, [("cuda:0", 100)])
+    pipe = StableDiffusionPipeline(unet=pm, vae=vae, clip=clip_l, tokenizer=tok_l,
+                                   clip_g=clip_g, tokenizer_g=tok_g)
+
+    def nbytes(module):
+        return sum(p.numel() * p.element_size() for p in module.parameters())
+
+    spans: dict[str, float] = {}
+    pipe.encode_prompt = _timed_span(spans, "encode_s", pipe.encode_prompt)
+    vae.decode = _timed_span(spans, "decode_s", vae.decode)
+    stamps = []
+
+    def on_step(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    kw = dict(height=1024, width=1024, cfg_scale=SD_CFG, sampler="dpmpp_2m", karras=True)
+    # Warm-up (encoders, UNet, VAE decoder), not counted: one step.
+    pipe(PIPELINE_PROMPT, SD_NEGATIVE, steps=1, **kw)
+    torch.cuda.synchronize()
+    spans.clear()
+    fa.reset_launches()
+    attention._RESOLVED.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    img = pipe(PIPELINE_PROMPT, SD_NEGATIVE, steps=SD_STEPS,
+               rng=torch.Generator(device=dev).manual_seed(6), callback=on_step, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - start
+    launches = _launched(fa)
+    resolved = list(attention.resolved_backends())
+    peak = torch.cuda.max_memory_allocated(dev)
+    # Step i runs from the end of step i-1 (the first: the end of the encodes).
+    step_s = [b - a for a, b in zip([spans["encode_s_end"]] + stamps[:-1], stamps)]
+    res = {
+        "phase": "sd_pipeline", "model": "sdxl-base", "build_s": build_s,
+        "n_params": {"unet": unet.n_params(),
+                     "clip_l": sum(p.numel() for p in clip_l.module.parameters()),
+                     "clip_g": sum(p.numel() for p in clip_g.module.parameters()),
+                     "vae": sum(p.numel() for p in vae.module.parameters())},
+        "weight_bytes": {"unet": nbytes(unet.module), "clip_l": nbytes(clip_l.module),
+                         "clip_g": nbytes(clip_g.module), "vae": nbytes(vae.module)},
+        "steps": SD_STEPS, "cfg_scale": SD_CFG, "total_s": total,
+        "encode_s": spans["encode_s"], "decode_s": spans["decode_s"],
+        "s_per_it": sum(step_s) / len(step_s), "step_s": step_s,
+        "max_memory_allocated": peak, "k1_launches_by_variant": launches,
+        "k1_launches_expected": {"sm90": SDXL_SM90_PER_STEP * SD_STEPS, "d512": 1},
+        "resolved_backends": resolved, "image": list(img.shape),
+        "finite": bool(torch.isfinite(img).all().item()),
+        "min": img.min().item(), "max": img.max().item(),
+    }
+    emit(res)
+    if (launches != res["k1_launches_expected"] or resolved != ["pallas"]
+            or res["image"] != [1, 1024, 1024, 3] or not res["finite"]
+            or res["min"] < 0.0 or res["max"] > 1.0):
+        raise RuntimeError(f"sd_pipeline check failed: {res}")
+
+    # One UNet forward (batch 2, as CFG runs it) through K1 and on plain attention.
+    x = torch.randn((2, 128, 128, 4), generator=gen, device=dev)
+    t = torch.tensor([999.0, 999.0], device=dev)
+    ctx = torch.randn((2, 77, 2048), generator=gen, device=dev)
+    y = torch.randn((2, 2816), generator=gen, device=dev)
+    out_k = pm(x, t, ctx, y=y).float()
+    attention.set_attention_backend("xla")
+    try:
+        out_p = pm(x, t, ctx, y=y).float()
+    finally:
+        attention.set_attention_backend("auto")
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    emit({"phase": "sd_unet_vs_plain_attention", "rel_l2_err": rel,
+          "max_abs_err": (out_k - out_p).abs().max().item(), "tol": SD_REL_TOL,
+          "finite": bool(torch.isfinite(out_k).all().item())})
+    if not rel <= SD_REL_TOL:
+        raise RuntimeError(f"SDXL UNet forward through K1 disagrees with plain attention: {rel}")
+
+    # One denoise step (CFG, batch 2) under the profiler.
+    context, y1 = pipe.encode_prompt([PIPELINE_PROMPT], 1024, 1024)
+    uctx, uy = pipe.encode_prompt([SD_NEGATIVE], 1024, 1024)
+    noise = torch.randn((1, 128, 128, 4), generator=gen, device=dev)
+    profile_step("sd_profile", lambda: run_sampler(
+        pm, noise, context, sampler="dpmpp_2m", steps=1, cfg_scale=SD_CFG,
+        uncond_context=uctx, uncond_kwargs={"y": uy}, y=y1))
+    return launches
+
+
+SD15_MULTISTEP = ("lms", "dpmpp_2m", "dpmpp_2m_sde", "dpmpp_3m_sde", "uni_pc", "uni_pc_bh2")
+
+
+def phase_sd_samplers() -> dict:
+    """SD1.5 at full width at 512² through ``parallelize`` → ``run_sampler`` with
+    every sampler name but ``flow_euler``, an img2img and an inpaint call, CFG
+    ``SD_CFG``: every latent finite and K1's launches exactly ``SD15_PER_FORWARD``
+    per UNet forward. Returns K1's launches by variant over all those calls."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.unet import build_unet, sd15_config
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.runner import SAMPLER_NAMES, run_sampler
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    unet = build_unet(sd15_config(), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pm = parallelize(unet, [("cuda:0", 100)])
+    forwards = [0]
+
+    def counted(x, t, context=None, **kw):
+        forwards[0] += 1
+        return pm(x, t, context, **kw)
+
+    noise = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+    ctx = torch.randn((1, 77, 768), generator=gen, device=dev)
+    uctx = torch.randn((1, 77, 768), generator=gen, device=dev)
+    init = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+    mask = (torch.rand((1, 64, 64, 1), generator=gen, device=dev) > 0.5).float()
+    common = dict(cfg_scale=SD_CFG, uncond_context=uctx)
+    run_sampler(counted, noise, ctx, sampler="euler", steps=1, **common)  # warm-up
+    torch.cuda.synchronize()
+    calls = [(name, dict(sampler=name, steps=3 if name in SD15_MULTISTEP else 2))
+             for name in SAMPLER_NAMES if name != "flow_euler"]
+    calls += [("img2img", dict(sampler="dpmpp_2m", steps=2, init_latent=init, denoise=0.5)),
+              ("inpaint", dict(sampler="euler_ancestral", steps=2, init_latent=init,
+                               latent_mask=mask))]
+    rows, total = {}, dict.fromkeys(fa.VARIANTS, 0)
+    for name, kw in calls:
+        forwards[0] = 0
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out = run_sampler(counted, noise, ctx, rng=torch.Generator(device=dev).manual_seed(8),
+                          **common, **kw)
+        torch.cuda.synchronize()
+        launched = _launched(fa)
+        want = {v: n * forwards[0] for v, n in SD15_PER_FORWARD.items()}
+        rows[name] = {"steps": kw["steps"], "forwards": forwards[0], "seconds":
+                      time.perf_counter() - t0, "k1_launches_by_variant": launched,
+                      "finite": bool(torch.isfinite(out).all().item()),
+                      "shape": list(out.shape)}
+        for v, n in fa.launches_by_variant.items():
+            total[v] += n
+        if launched != want or not rows[name]["finite"] or rows[name]["shape"] != [1, 64, 64, 4]:
+            emit({"phase": "sd_samplers", "model": "sd15", "runs": rows})
+            raise RuntimeError(f"sd_samplers check failed at {name}: {rows[name]}, want {want}")
+
+    stamps = []
+
+    def on_step(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run_sampler(pm, noise, ctx, sampler="dpmpp_2m", steps=10, callback=on_step, **common)
+    step_s = [b - a for a, b in zip([start] + stamps[:-1], stamps)]
+    emit({"phase": "sd_samplers", "model": "sd15", "n_params": unet.n_params(),
+          "build_s": build_s, "runs": rows, "dpmpp_2m_s_per_it": sum(step_s) / len(step_s),
+          "dpmpp_2m_step_s": step_s, "k1_launches_by_variant": total})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -636,12 +927,24 @@ def main() -> int:
         return 2
     import comfyui_parallelanything_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    start = time.perf_counter()
     phase_device()
     phase_build()
     rows = phase_kernel()
     pm, main_launches = phase_main_path()
     pipe_launches = phase_pipeline(pm)
-    paths = {"main_path": main_launches, **pipe_launches}
+    # Free FLUX-dev before the SD-family phases.
+    pm.cleanup()
+    del pm
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd_launches = phase_sd_pipeline()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampler_launches = phase_sd_samplers()
+    paths = {"main_path": main_launches, **pipe_launches, "sd_pipeline": sd_launches,
+             "sd_samplers": sampler_launches}
+    emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "mma": "flash_attention.cu",
                "d512": "flash_attention.cu", "f32": "flash_attention.cu"}
     emit({"kernels": [{
@@ -650,8 +953,9 @@ def main() -> int:
         "route": "cuda",
         "source": f"comfyui_parallelanything_tpu_torch/csrc/{sources[variant]}",
         "replaces": "comfyui_parallelanything_tpu/ops/pallas/flash_attention.py:95",
-        "launches": sum(by_variant[variant] for by_variant in paths.values()),
-        "launches_by_path": {path: by_variant[variant] for path, by_variant in paths.items()},
+        "launches": sum(by_variant.get(variant, 0) for by_variant in paths.values()),
+        "launches_by_path": {path: by_variant.get(variant, 0)
+                             for path, by_variant in paths.items()},
         "shape": row["shape"],
         "dtype": row["dtype"],
         "max_abs_err": row["max_abs_err"],

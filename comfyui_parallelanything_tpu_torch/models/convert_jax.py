@@ -17,6 +17,11 @@ conversion is a rename plus layout changes:
 - ``from_jax_vae_params`` — the image VAE (``encoder/down_0_block_0/conv1/kernel``
   → ``encoder.down_0_block_0.conv1.weight``): Conv kernels (kh, kw, in, out) →
   (out, in, kh, kw), GroupNorm scales renamed to ``weight``.
+- ``from_jax_unet_params`` — the SD-family UNet (``in_1_0_attn/block_0/attn1_q/
+  kernel`` → ``in_1_0_attn.blocks.0.attn1_q.weight``): Conv kernels as the VAE's,
+  Dense kernels transposed, the ``DenseGeneral`` q/k/v kernels (C, H, D) flattened
+  to (H·D, C) and the o kernels (H, D, C) to (C, H·D), Group/LayerNorm scales
+  renamed to ``weight``.
 """
 
 from __future__ import annotations
@@ -91,3 +96,24 @@ def from_jax_text_params(tree: Mapping) -> dict[str, torch.Tensor]:
 def from_jax_vae_params(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``AutoencoderKL`` tree → ``vae.AutoencoderKL`` state dict."""
     return _convert(tree, _vae_leaf)
+
+
+_UNET_BLOCK = re.compile(r"(^|/)block_(\d+)/")
+
+
+def from_jax_unet_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``UNet2D`` tree → ``unet.UNet2D`` state dict."""
+    state = {}
+    for path, arr in _flatten(tree).items():
+        module, _, leaf = _UNET_BLOCK.sub(r"\1blocks.\2/", path).rpartition("/")
+        if leaf != "kernel":
+            name, value = _renamed(leaf, arr)
+        elif arr.ndim == 4:  # Conv (kh, kw, in, out)
+            name, value = "weight", arr.transpose(3, 2, 0, 1)
+        elif module.endswith("_o") and arr.ndim == 3:  # DenseGeneral (H, D, C)
+            name, value = "weight", arr.reshape(-1, arr.shape[-1]).T
+        else:  # Dense (in, out) or DenseGeneral (C, H, D)
+            name, value = "weight", arr.reshape(arr.shape[0], -1).T
+        key = f"{module}/{name}".replace("/", ".")
+        state[key] = torch.from_numpy(np.array(value, copy=True))
+    return state

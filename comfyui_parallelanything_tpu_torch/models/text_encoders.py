@@ -7,6 +7,9 @@ of ``comfyui_parallelanything_tpu/models/text_encoders.py``).
 - **T5 encoder** (FLUX/WAN context): RMSNorm, relative-position-bucket attention
   bias (shared from layer 0, or one table per layer for UMT5), key mask, unscaled
   logits, tanh-GELU gated FFN.
+- **SDXL conditioning**: ``sdxl_text_conditioning`` and
+  ``sdxl_refiner_text_conditioning`` assemble the UNet's (context, y) pair from
+  the towers' outputs.
 
 Numerics follow the JAX module: linears and embeddings compute in ``cfg.dtype``
 (weights stored in it, as flax casts them to it before use), CLIP's LayerNorms
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..devices.discovery import default_device
+from ..ops.basic import timestep_embedding
 
 # ---------------------------------------------------------------------------
 # CLIP text towers
@@ -265,7 +269,7 @@ class T5Encoder(nn.Module):
     """Bidirectional T5 v1.1 / UMT5 encoder stack; returns the final RMS-normed
     stream (f32). The relative-position bias table ``rel_bias`` is shared by all
     layers unless ``cfg.per_layer_bias`` (UMT5: ``rel_bias_{i}`` per layer);
-    ``mask`` (B, S) of 0/1 marks real tokens, and every row needs at least one."""
+    ``mask`` (B, S) of 0/1 marks real tokens; a row with none comes out NaN."""
 
     def __init__(self, cfg: T5Config):
         super().__init__()
@@ -289,8 +293,7 @@ class T5Encoder(nn.Module):
                                        cfg.relative_max_distance)
         mask_bias = 0.0
         if mask is not None:
-            if not bool((mask > 0).any(dim=-1).all()):
-                raise ValueError("every T5 mask row needs at least one real token")
+            # A row with no real token softmaxes over all -inf: NaN, as in JAX.
             mask_bias = torch.where(mask[:, None, None, :] > 0, 0.0, -math.inf)
 
         def layer_bias(table):
@@ -378,3 +381,37 @@ def build_t5_encoder(cfg: T5Config, *, device=None, generator: torch.Generator |
     """A T5 encoder on ``device`` (default ``cuda:0``), from ``state_dict`` or
     random weights from ``generator``."""
     return _build(T5Encoder, cfg, device, generator, state_dict)
+
+
+# ---------------------------------------------------------------------------
+# SDXL conditioning
+# ---------------------------------------------------------------------------
+
+
+def _size_embeddings(pooled: torch.Tensor, values) -> torch.Tensor:
+    """``pooled`` (f32) ⊕ a 256-wide sinusoidal embedding of each value."""
+    B = pooled.shape[0]
+    embs = [timestep_embedding(torch.full((B,), float(v), dtype=torch.float32,
+                                          device=pooled.device), 256) for v in values]
+    return torch.cat([pooled.float(), *embs], dim=-1)
+
+
+def sdxl_text_conditioning(l_penultimate, g_penultimate, g_pooled, width: int, height: int,
+                           crop_x: int = 0, crop_y: int = 0, target_width: int | None = None,
+                           target_height: int | None = None):
+    """SDXL's (context, y): context = CLIP-L ⊕ OpenCLIP-G penultimate streams
+    (768 + 1280 = 2048 wide, f32); y = G pooled (1280) ⊕ six sinusoidal embeddings
+    of height, width, crop_y, crop_x, target height and width (256 each → 2816 =
+    the UNet's adm_in_channels)."""
+    context = torch.cat([l_penultimate.float(), g_penultimate.float()], dim=-1)
+    sizes = [height, width, crop_y, crop_x, target_height or height, target_width or width]
+    return context, _size_embeddings(g_pooled, sizes)
+
+
+def sdxl_refiner_text_conditioning(g_penultimate, g_pooled, width: int, height: int,
+                                   ascore: float, crop_x: int = 0, crop_y: int = 0):
+    """The SDXL refiner's (context, y): context = the OpenCLIP-G penultimate stream
+    (1280 wide, f32); y = G pooled (1280) ⊕ five sinusoidal embeddings of height,
+    width, crop_y, crop_x and the aesthetic score (→ 2560)."""
+    return g_penultimate.float(), _size_embeddings(g_pooled, [height, width, crop_y, crop_x,
+                                                              ascore])

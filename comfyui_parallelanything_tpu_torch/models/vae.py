@@ -28,6 +28,7 @@ from torch import nn
 
 from ..devices.discovery import default_device
 from ..ops.attention import attention_local
+from ..ops.basic import GroupNorm
 from ..ops.resize import resize
 from .tiling import blend_mask1d, tile_starts
 
@@ -72,20 +73,6 @@ def flux_vae_config(**overrides) -> VAEConfig:
     return dataclasses.replace(base, **overrides)
 
 
-class _GroupNorm(nn.Module):
-    """GroupNorm over channels (dim 1), eps 1e-6, computed in f32 with f32 scale
-    and bias; the result in ``dtype``."""
-
-    def __init__(self, groups: int, channels: int, dtype: torch.dtype):
-        super().__init__()
-        self.groups, self.dtype = groups, dtype
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x):
-        return F.group_norm(x.float(), self.groups, self.weight, self.bias, 1e-6).to(self.dtype)
-
-
 def _conv(cin: int, cout: int, k: int, cfg: VAEConfig, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2 if stride == 1 else 0,
                      dtype=cfg.dtype)
@@ -99,9 +86,9 @@ def _apply(conv: nn.Conv2d, x):
 class VAEResBlock(nn.Module):
     def __init__(self, cfg: VAEConfig, in_ch: int, out_ch: int):
         super().__init__()
-        self.norm1 = _GroupNorm(cfg.norm_groups, in_ch, cfg.dtype)
+        self.norm1 = GroupNorm(cfg.norm_groups, in_ch, cfg.dtype)
         self.conv1 = _conv(in_ch, out_ch, 3, cfg)
-        self.norm2 = _GroupNorm(cfg.norm_groups, out_ch, cfg.dtype)
+        self.norm2 = GroupNorm(cfg.norm_groups, out_ch, cfg.dtype)
         self.conv2 = _conv(out_ch, out_ch, 3, cfg)
         if in_ch != out_ch:
             self.nin_shortcut = _conv(in_ch, out_ch, 1, cfg)
@@ -119,7 +106,7 @@ class VAEAttnBlock(nn.Module):
 
     def __init__(self, cfg: VAEConfig, ch: int):
         super().__init__()
-        self.norm = _GroupNorm(cfg.norm_groups, ch, cfg.dtype)
+        self.norm = GroupNorm(cfg.norm_groups, ch, cfg.dtype)
         self.q = _conv(ch, ch, 1, cfg)
         self.k = _conv(ch, ch, 1, cfg)
         self.v = _conv(ch, ch, 1, cfg)
@@ -193,7 +180,7 @@ class Encoder(_Stack):
         self._add("mid_block_1", VAEResBlock(cfg, ch, ch))
         self._add("mid_attn_1", VAEAttnBlock(cfg, ch))
         self._add("mid_block_2", VAEResBlock(cfg, ch, ch))
-        self.norm_out = _GroupNorm(cfg.norm_groups, ch, cfg.dtype)
+        self.norm_out = GroupNorm(cfg.norm_groups, ch, cfg.dtype)
         self.conv_out = _conv(ch, 2 * cfg.z_channels, 3, cfg)
 
 
@@ -212,7 +199,7 @@ class Decoder(_Stack):
                 ch = out
             if level != 0:
                 self._add(f"up_{level}_upsample", Upsample(cfg, ch))
-        self.norm_out = _GroupNorm(cfg.norm_groups, ch, cfg.dtype)
+        self.norm_out = GroupNorm(cfg.norm_groups, ch, cfg.dtype)
         self.conv_out = _conv(ch, cfg.in_channels, 3, cfg)
 
 
@@ -399,7 +386,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             m.bias.zero_()
-        elif isinstance(m, _GroupNorm):
+        elif isinstance(m, GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
 

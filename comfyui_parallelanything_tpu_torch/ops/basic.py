@@ -5,6 +5,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 
 def rms_normalize(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -33,3 +35,30 @@ def timestep_embedding(
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def progress_window_gate(t_vec: torch.Tensor, start: float, end: float, ndim: int,
+                         flow_time: bool = False) -> torch.Tensor:
+    """Per-batch sampling-progress window gate in {0, 1}, shaped (B, 1, ...) to
+    broadcast over a rank-``ndim`` batch tensor. Progress runs 0 → 1 over the
+    denoise: flow time is the noise level (progress = 1 − t); the eps/v families
+    carry table timesteps (progress = 1 − t/999)."""
+    t = t_vec.float()
+    progress = 1.0 - (t if flow_time else t / 999.0)
+    on = (progress >= float(start)) & (progress <= float(end))
+    return on.float().reshape((-1,) + (1,) * (ndim - 1))
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over channels (dim 1) as flax's ``nn.GroupNorm`` computes it with a
+    ``dtype``: eps 1e-6, statistics and affine in f32 with f32 scale and bias, the
+    result cast to ``dtype``. The VAE and the UNet share it."""
+
+    def __init__(self, groups: int, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.groups, self.dtype = groups, dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.groups, self.weight, self.bias, 1e-6).to(self.dtype)

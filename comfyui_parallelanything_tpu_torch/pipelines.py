@@ -1,12 +1,14 @@
 """End-to-end text→image: tokenize → encode → (parallel) denoise → decode
 (counterpart of ``comfyui_parallelanything_tpu/pipelines.py``).
 
-``FluxPipeline`` is ported: T5 context + CLIP-L pooled vector, flow-matching
-sampling through ``run_sampler`` (txt2img, img2img, inpaint, true CFG), VAE decode.
-The diffusion model slot takes a bare ``DiffusionModel`` or the ``ParallelModel``
-``parallelize`` returns, so every sampler step runs over the device chain.
-``StableDiffusionPipeline``, ``Sd3Pipeline`` and ``WanVideoPipeline`` are not
-ported yet (ROADMAP Queue 1, Nodes and host).
+``StableDiffusionPipeline`` (SD1.5 / SD2.x / SDXL: CLIP context, SDXL's pooled
+and size vector, k-sampler or DDIM sampling with batched CFG) and
+``FluxPipeline`` (T5 context + CLIP-L pooled vector, flow-matching sampling) are
+ported, each with txt2img, img2img and inpainting through ``run_sampler`` and a
+VAE decode. The diffusion model slot takes a bare ``DiffusionModel`` or the
+``ParallelModel`` ``parallelize`` returns, so every sampler step runs over the
+device chain. ``Sd3Pipeline`` and ``WanVideoPipeline`` are not ported yet
+(ROADMAP Queue 1, Nodes and host).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any
 
 import torch
 
+from .models.text_encoders import sdxl_text_conditioning
 from .models.vae import images_to_vae_input, vae_output_to_images
 from .ops.resize import resize
 from .sampling.runner import run_sampler
@@ -88,6 +91,107 @@ def _model_config_of(model) -> Any:
     ``ParallelModel`` (whose ``config`` is the ParallelConfig)."""
     cfg = getattr(model, "model_config", None)
     return cfg if cfg is not None else getattr(model, "config", None)
+
+
+@dataclasses.dataclass
+class StableDiffusionPipeline:
+    """SD1.5 / SD2.x (``clip`` only) and SDXL (``clip`` + ``clip_g``) text→image.
+
+    ``unet`` may be a ``DiffusionModel`` or a ``ParallelModel`` (``parallelize``
+    first to run each denoise step over the device chain); its config's
+    ``prediction`` ("eps" or "v") selects the parameterization."""
+
+    unet: Any
+    vae: Any  # 4-channel autoencoder (models.vae.VAE)
+    clip: Any  # CLIP-L (SD1.5) or OpenCLIP-H (SD2.x) TextEncoder
+    tokenizer: Any  # prompts -> (ids, mask)
+    clip_g: Any = None  # SDXL's second tower (OpenCLIP-G)
+    tokenizer_g: Any = None
+    # SD2.x conditions on the penultimate layer ("penultimate"; with
+    # open_clip_h_config the tower applies SD2's ln_final to it), SD1.5 on the
+    # final layer-normed stream ("last").
+    clip_layer: str = "last"
+
+    @property
+    def is_sdxl(self) -> bool:
+        return self.clip_g is not None
+
+    def encode_prompt(self, prompts: list[str], height: int, width: int):
+        """Prompts → (context, y) for the UNet family in use (y is None but for SDXL)."""
+        ids, _ = self.tokenizer(prompts)
+        last, penultimate, _pooled = self.clip(ids)
+        if not self.is_sdxl:
+            if self.clip_layer not in ("last", "penultimate"):
+                raise ValueError(
+                    f"clip_layer must be 'last' or 'penultimate', got {self.clip_layer!r}")
+            return (penultimate if self.clip_layer == "penultimate" else last), None
+        ids_g, _ = (self.tokenizer_g or self.tokenizer)(prompts)
+        _, pen_g, pooled_g = self.clip_g(ids_g)
+        return sdxl_text_conditioning(penultimate, pen_g, pooled_g, width=width, height=height)
+
+    def __call__(
+        self,
+        prompt: str | list[str],
+        negative_prompt: str | list[str] = "",
+        *,
+        steps: int = 30,
+        cfg_scale: float = 7.5,
+        height: int = 512,
+        width: int = 512,
+        rng: torch.Generator | None = None,
+        sampler: str = "dpmpp_2m",
+        karras: bool = True,
+        scheduler: str | None = None,
+        callback=None,
+        init_image=None,
+        denoise: float = 1.0,
+        mask=None,
+        compile_loop: bool = False,
+    ) -> torch.Tensor:
+        """Returns float images (B, height, width, 3) in [0, 1]. ``rng`` draws the
+        initial noise and seeds the stochastic samplers' per-step noise (a
+        generator seeded with 0 when None). CFG runs when ``cfg_scale != 1``, the
+        uncond half on ``negative_prompt`` (SDXL: with its own pooled ``y``).
+        img2img: ``init_image`` (B or 1, height, width, 3 in [0, 1]) with
+        ``denoise < 1``; inpainting: ``mask`` (B or 1, height, width[, 1]; 1 =
+        regenerate) at any denoise."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        negatives = _match_negatives(prompts, negative_prompt)
+        f = self.vae.spatial_factor
+        if height % f or width % f:
+            raise ValueError(f"height/width must be multiples of {f}")
+
+        context, y = self.encode_prompt(prompts, height, width)
+        use_cfg = cfg_scale != 1.0
+        uncond_context = None
+        uncond_kwargs = None
+        if use_cfg:
+            uncond_context, uncond_y = self.encode_prompt(negatives, height, width)
+            if uncond_y is not None:
+                uncond_kwargs = {"y": uncond_y}
+
+        B = len(prompts)
+        device = self.vae.device
+        noise = initial_noise((B, height // f, width // f, self.vae.cfg.z_channels), rng,
+                              device)
+        kwargs = {} if y is None else {"y": y}
+        if sampler == "flow_euler":
+            raise ValueError("flow_euler belongs to FluxPipeline, not the SD family")
+        latent_mask = _latent_mask_for(mask, init_image, f, height, width)
+        if latent_mask is not None:
+            latent_mask = latent_mask.to(device)
+        init_latent = _encode_init(self.vae, init_image, denoise, B, (height, width),
+                                   allow_full_denoise=mask is not None)
+        latents = run_sampler(
+            self.unet, noise, context, init_latent=init_latent, denoise=denoise,
+            latent_mask=latent_mask,
+            prediction=getattr(_model_config_of(self.unet), "prediction", "eps"),
+            sampler=sampler, steps=steps, cfg_scale=cfg_scale if use_cfg else 1.0,
+            uncond_context=uncond_context, uncond_kwargs=uncond_kwargs, rng=rng,
+            karras=karras, scheduler=scheduler, callback=callback,
+            compile_loop=compile_loop, **kwargs,
+        )
+        return vae_output_to_images(self.vae.decode(latents))
 
 
 @dataclasses.dataclass

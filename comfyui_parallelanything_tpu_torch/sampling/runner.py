@@ -1,25 +1,35 @@
 """Sampler dispatch shared by the pipelines (counterpart of
 ``comfyui_parallelanything_tpu/sampling/runner.py``).
 
-The port has the rectified-flow sampler only: ``run_sampler(sampler="flow_euler")``
-with the JAX runner's whole flow branch (shifted schedule, img2img truncation and
-noising from ``init_latent`` + ``denoise``, ``latent_mask`` re-pinning, explicit
-``sigmas``, true CFG). The other sampler names, the whole-loop compiled path,
-per-request LoRA and combined/area conditioning raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+One table for every sampler name: ``flow_euler`` (the rectified-flow ladder),
+``ddim`` (timestep-indexed, eps or v) and the k-sampler family (``SAMPLERS`` of
+``k_samplers.py``, each over the KSampler scheduler menu, for eps, v and flow
+models, with combined/area conditioning through ``EpsDenoiser``). img2img
+truncation and noising, ``latent_mask`` re-pinning and explicit ``sigmas`` work on
+every branch that takes them, as in the JAX runner. The whole-loop compiled path
+and per-request LoRA raise ``NotImplementedError`` naming the ROADMAP item that
+ports them; the serving scheduler's continuous-batching seam is not ported, and
+the port's runs are the JAX runner's runs with no scheduler installed.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .ddim import ddim_sample
 from .flow import flow_euler_sample, flow_timesteps
-
-K_SAMPLER_NAMES = (
-    "euler", "euler_ancestral", "heun", "dpm_2", "dpm_2_ancestral", "lms",
-    "dpmpp_2s_ancestral", "dpmpp_sde", "dpmpp_2m", "dpmpp_2m_sde", "dpmpp_3m_sde",
-    "lcm", "ddpm", "uni_pc", "uni_pc_bh2",
+from .k_samplers import (
+    FLOW_REJECT,
+    FLOW_VARIANTS,
+    RNG_SAMPLERS,
+    EpsDenoiser,
+    flow_sigma_table,
+    make_sigmas,
 )
+from .k_samplers import SAMPLERS as K_SAMPLERS
+from .schedules import ddim_timesteps, scaled_linear_schedule
+
+K_SAMPLER_NAMES = tuple(K_SAMPLERS)
 SAMPLER_NAMES = ("ddim", *K_SAMPLER_NAMES, "flow_euler")
 
 
@@ -55,79 +65,192 @@ def run_sampler(
     lora: dict | None = None,
     **model_kwargs,
 ) -> torch.Tensor:
-    """Drive ``model`` from ``noise`` (unit-variance N(0, 1)) to a clean latent.
+    """Drive ``model`` from ``noise`` (unit-variance N(0, 1)) to a clean latent with
+    the named sampler; eps-family samplers scale the noise to sigma_max themselves.
 
-    ``flow_euler``: the shift-warped flow schedule (``shift``), FLUX-dev's
-    distilled ``guidance``, true CFG from ``cfg_scale`` + ``uncond_context``.
+    ``shift``/``guidance`` apply to the flow paths: ``flow_euler`` and any
+    k-sampler with ``prediction="flow"`` (shift warps the flow sigma table the
+    scheduler menu ranges over; guidance feeds FLUX-dev's distilled guidance).
+    ``scheduler`` names the KSampler menu (``k_samplers.SCHEDULER_NAMES``); without
+    it ``karras`` picks karras or normal (flow models: normal).
+
     img2img: with ``init_latent`` + ``denoise < 1`` the schedule for
     ``steps/denoise`` total steps is truncated to its last ``steps`` entries and
-    ``init_latent`` is noised to its start (x_t = t·noise + (1−t)·x0).
-    Inpainting: ``latent_mask`` (1 = denoise, 0 = keep ``init_latent``) re-pins the
-    keep region to the init noised to each step's level after every step.
-    ``sigmas`` is an explicit descending schedule: no construction, no
-    ``denoise`` truncation, and a given ``init_latent`` is mixed in at
-    ``sigmas[0]``. ``rng``, ``karras`` and ``scheduler`` do not apply to
-    ``flow_euler``."""
+    ``init_latent`` is noised to its start; where a scheduler realises fewer
+    sigmas than ``steps``, the truncation is rescaled to the realised length so
+    the requested strength survives. ddim instead spaces ``steps`` timesteps over
+    [0, denoise·T). Inpainting: ``latent_mask`` (1 = denoise, 0 = keep
+    ``init_latent``) re-pins the keep region to the init noised to each step's
+    level after every step, at any denoise. ``sigmas`` is an explicit descending
+    schedule: no construction, no ``denoise`` truncation, and a given
+    ``init_latent`` is the base it noises (``init + σ₀·noise``; flow:
+    ``σ₀·noise + (1−σ₀)·init``); ddim refuses it. ``extra_conds``/``cond_*``
+    combine conditionings on the k-sampler family only. ``rng`` is the generator
+    of the stochastic samplers' per-step noise (``k_samplers.step_noise``; a
+    generator seeded 0 on the latent's device when None). ``alphas_cumprod`` in
+    ``model_kwargs`` replaces the scaled-linear schedule of ddim and the eps/v
+    k-samplers."""
     if sampler not in SAMPLER_NAMES:
         raise ValueError(f"unknown sampler {sampler!r} (have {', '.join(SAMPLER_NAMES)})")
-    if sampler != "flow_euler":
-        raise NotImplementedError(
-            f"sampler {sampler!r} is not ported yet (ROADMAP Queue 1, The UNet slice: "
-            "sampling/ddim.py, k_samplers.py and the rest of runner.py)")
-    if compile_loop:
-        raise NotImplementedError(
-            "compile_loop=True, the whole-loop compiled sampler, is not ported yet "
-            "(ROADMAP Queue 1, Serving: sampling/compiled.py)")
     if lora:
         raise NotImplementedError(
             "per-request LoRA is not ported yet (ROADMAP Queue 1, Nodes and host: "
             "models/lora.py)")
-    if (extra_conds or cond_area is not None or cond_area_pct is not None
-            or cond_mask is not None):
-        raise NotImplementedError(
-            "combined/area conditioning lives in the k-sampler family's EpsDenoiser, "
-            "not ported yet (ROADMAP Queue 1, The UNet slice)")
     use_cfg = cfg_scale != 1.0 and uncond_context is not None
     eff_cfg = cfg_scale if use_cfg else 1.0
+    # Model-level sampler preferences: defaults only, an explicit value wins.
+    prefs = getattr(model, "sampler_prefs", None) or {}
+    if cfg_rescale == 0.0:
+        cfg_rescale = float(prefs.get("cfg_rescale", 0.0))
+    multi_cond = (bool(extra_conds) or cond_area is not None
+                  or cond_area_pct is not None or cond_mask is not None)
+    if multi_cond and sampler in ("ddim", "flow_euler"):
+        raise ValueError(
+            "combined/area conditioning (ConditioningCombine/SetArea) is supported on "
+            f"the k-sampler family only, not {sampler!r} — pick any stock sampler name")
+    if multi_cond:
+        compile_loop = False  # multi-cond runs the eager loop, as in the JAX runner
+    if compile_loop:
+        raise NotImplementedError(
+            "compile_loop=True, the whole-loop compiled sampler, is not ported yet "
+            "(ROADMAP Queue 1, Serving: sampling/compiled.py)")
     if not 0.0 < denoise <= 1.0:
         raise ValueError(f"denoise must be in (0, 1], got {denoise}")
     if latent_mask is not None and init_latent is None:
         raise ValueError("latent_mask requires init_latent (the kept content)")
-    if prediction == "v":
+    if prediction == "v" and sampler == "flow_euler":
         raise ValueError("flow_euler is velocity-parameterized already; "
                          "prediction='v' applies to the eps-family samplers")
+    if prediction == "flow" and sampler == "ddim":
+        raise ValueError("ddim runs in alpha-bar space and has no flow form; "
+                         "use flow_euler or any k-sampler for flow models")
+    if sigmas is not None and sampler == "ddim":
+        raise ValueError("ddim is timestep-indexed, not sigma-driven; explicit "
+                         "sigmas apply to flow_euler and the k-samplers")
     img2img = init_latent is not None and denoise < 1.0
     total = max(steps, int(round(steps / denoise))) if img2img else steps
 
-    if sigmas is not None:
-        ts = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
-        x = ts[0] * noise
-        if init_latent is not None:
-            x = x + (1.0 - ts[0]) * init_latent
-    else:
-        ts = flow_timesteps(total, shift)
-        x = noise
-        if img2img:
-            # x_t = t·noise + (1-t)·x0 under the v = noise - x0 flow.
-            ts = ts[-(steps + 1):]
-            x = ts[0] * noise + (1.0 - ts[0]) * init_latent
-
-    cb = callback
-    if latent_mask is not None:
+    def masked_callback(keep_at):
+        """Blend the keep region back after each step; the user callback (which
+        may replace x) runs on the blended latent."""
+        if latent_mask is None:
+            return callback
         m, user = latent_mask, callback
 
         def cb(i, x):
-            """Blend the keep region back after each step; the user callback (which
-            may replace x) runs on the blended latent."""
-            keep = (1.0 - ts[i + 1]) * init_latent + ts[i + 1] * noise
-            x = x * m + keep * (1.0 - m)
+            x = x * m + keep_at(i) * (1.0 - m)
             if user is not None:
                 out = user(i, x)
                 x = x if out is None else out
             return x
 
-    return flow_euler_sample(
-        model, x, context, steps=steps, shift=shift, guidance=guidance,
-        cfg_scale=eff_cfg, uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
-        callback=cb, ts=ts, cfg_rescale=cfg_rescale, **model_kwargs,
+        return cb
+
+    if sampler == "flow_euler":
+        if sigmas is not None:
+            ts = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
+            x = ts[0] * noise
+            if init_latent is not None:
+                x = x + (1.0 - ts[0]) * init_latent
+        else:
+            ts = flow_timesteps(total, shift)
+            x = noise
+            if img2img:
+                # x_t = t·noise + (1-t)·x0 under the v = noise - x0 flow.
+                ts = ts[-(steps + 1):]
+                x = ts[0] * noise + (1.0 - ts[0]) * init_latent
+        return flow_euler_sample(
+            model, x, context, steps=steps, shift=shift, guidance=guidance,
+            cfg_scale=eff_cfg, uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
+            callback=masked_callback(
+                lambda i: (1.0 - ts[i + 1]) * init_latent + ts[i + 1] * noise),
+            ts=ts, cfg_rescale=cfg_rescale, **model_kwargs,
+        )
+
+    if sampler == "ddim":
+        # One schedule drives the truncation, the noising and the sampler.
+        acp = model_kwargs.pop("alphas_cumprod", None)
+        acp = scaled_linear_schedule() if acp is None else torch.as_tensor(
+            acp, dtype=torch.float32).cpu()
+        x = noise
+        if img2img:
+            # `steps` timesteps evenly over [0, denoise·T), descending.
+            t_start = max(1, round(denoise * (acp.shape[0] - 1)))
+            ts = torch.linspace(t_start, 0, steps, dtype=torch.float32).round().to(torch.int32)
+            a0 = acp[ts[0]]
+            x = torch.sqrt(a0) * init_latent + torch.sqrt(1.0 - a0) * noise
+        else:
+            ts = ddim_timesteps(steps, acp.shape[0])
+
+        def ddim_keep(i):
+            a = acp[ts[i + 1]] if i + 1 < len(ts) else torch.tensor(1.0)
+            return torch.sqrt(a) * init_latent + torch.sqrt(1.0 - a) * noise
+
+        return ddim_sample(
+            model, x, context, steps=steps, cfg_scale=eff_cfg,
+            uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
+            callback=masked_callback(ddim_keep), ts=ts, alphas_cumprod=acp,
+            prediction=prediction, cfg_rescale=cfg_rescale, **model_kwargs,
+        )
+
+    step_fn = K_SAMPLERS[sampler]
+    is_flow = prediction == "flow"
+    acp = model_kwargs.pop("alphas_cumprod", None)
+    explicit_sigmas = sigmas is not None
+    if is_flow:
+        if acp is not None:
+            raise ValueError(
+                "alphas_cumprod is an eps-schedule input with no flow meaning; "
+                "flow schedules derive from the shift-warped flow sigma table")
+        if sampler in FLOW_REJECT:
+            raise ValueError(
+                f"{sampler} is an eps-schedule construction (alpha-bar posterior) with "
+                "no rectified-flow form; pick any other k-sampler for flow models")
+        if not explicit_sigmas:
+            sigmas = make_sigmas(scheduler if scheduler is not None else "normal", total,
+                                 sigma_table=flow_sigma_table(shift))
+        if guidance is not None:
+            model_kwargs["guidance"] = torch.full((noise.shape[0],), guidance,
+                                                  dtype=torch.float32, device=noise.device)
+    elif not explicit_sigmas:
+        sched_name = scheduler if scheduler is not None else ("karras" if karras else "normal")
+        sigmas = make_sigmas(sched_name, total, acp)
+    if explicit_sigmas:
+        sigmas = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
+    if img2img and not explicit_sigmas:
+        # A schedule can realise fewer sigmas than asked (ddim_uniform's stride,
+        # beta's dedup): slice `steps` while that still truncates, else rescale the
+        # truncation to the realised length so the requested strength survives.
+        realized = len(sigmas) - 1
+        if realized > steps:
+            sigmas = sigmas[-(steps + 1):]
+        else:
+            keep = min(realized, max(1, round(steps * realized / total)))
+            sigmas = sigmas[-(keep + 1):]
+    mix_init = img2img or (explicit_sigmas and init_latent is not None)
+    if is_flow:
+        x = sigmas[0] * noise
+        if mix_init:
+            x = x + (1.0 - sigmas[0]) * init_latent
+    else:
+        x = noise * sigmas[0]
+        if mix_init:
+            x = init_latent + x
+    denoiser = EpsDenoiser(
+        model, context, cfg_scale=eff_cfg, uncond_context=uncond_context,
+        uncond_kwargs=uncond_kwargs, alphas_cumprod=acp, prediction=prediction,
+        cfg_rescale=cfg_rescale, extra_conds=extra_conds, cond_area=cond_area,
+        cond_area_pct=cond_area_pct, cond_mask=cond_mask, cond_strength=cond_strength,
+        cond_mask_strength=cond_mask_strength, **model_kwargs,
     )
+    if is_flow:
+        step_fn = FLOW_VARIANTS.get(sampler, step_fn)
+        cb = masked_callback(
+            lambda i: (1.0 - sigmas[i + 1]) * init_latent + sigmas[i + 1] * noise)
+    else:
+        cb = masked_callback(lambda i: init_latent + noise * sigmas[i + 1])
+    if sampler in RNG_SAMPLERS:
+        if rng is None:
+            rng = torch.Generator(device=noise.device).manual_seed(0)
+        return step_fn(denoiser, x, sigmas, rng, callback=cb)
+    return step_fn(denoiser, x, sigmas, callback=cb)

@@ -15,10 +15,12 @@ OpenCLIP-G with 0), plus a 0/1 mask for T5-style encoders.
 
 CLIP's split pattern uses the Unicode categories ``\\p{L}`` and ``\\p{N}``, which
 the stdlib ``re`` module cannot name. Its letter and number classes are built here
-from ``unicodedata`` (every code point whose category starts with ``L`` or ``N``),
-so the split follows the categories of the Unicode version Python ships; the
-``regex`` package may ship a newer one, and code points assigned between the two
-versions split differently.
+from ``unicodedata`` (every code point whose category starts with ``L`` or ``N``)
+plus the table of ``utils/unicode_classes.py``: the code points that the ``regex``
+package's newer Unicode tables class as letters or numbers, and U+0345, which that
+pattern matches in no class. The pattern is case-sensitive but for its
+contractions: the text is lowercased first, and ``re.IGNORECASE`` would let
+U+0345 match the letter class through its fold to U+03B9.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import re
 import unicodedata
 
 import numpy as np
+
+from .unicode_classes import LETTERS, NO_CLASS, NUMBERS
 
 
 @functools.cache
@@ -53,9 +57,11 @@ def _bytes_to_unicode() -> dict[int, str]:
 
 @functools.cache
 def _category_ranges() -> dict[str, str]:
-    """``{"L": ..., "N": ...}``: the body of a character class (escaped ranges) of
-    every code point whose Unicode category starts with that letter."""
-    spans: dict[str, list[list[int]]] = {"L": [], "N": []}
+    """``{"L": ..., "N": ..., "none": ...}``: the body of a character class (escaped
+    ranges) of every code point whose Unicode category starts with that letter,
+    with the newer letters and numbers of ``unicode_classes``; ``"none"`` holds
+    its ``NO_CLASS`` code points."""
+    spans: dict[str, list] = {"L": [], "N": []}
     # Planes 4-16 hold no letters or numbers (unassigned, tags, private use).
     for cp in range(0x40000):
         major = unicodedata.category(chr(cp))[0]
@@ -66,12 +72,15 @@ def _category_ranges() -> dict[str, str]:
             runs[-1][1] = cp
         else:
             runs.append([cp, cp])
+    spans["L"] += LETTERS
+    spans["N"] += NUMBERS
+    spans["none"] = list(NO_CLASS)
     return {
-        major: "".join(
+        name: "".join(
             re.escape(chr(a)) if a == b else f"{re.escape(chr(a))}-{re.escape(chr(b))}"
             for a, b in runs
         )
-        for major, runs in spans.items()
+        for name, runs in spans.items()
     }
 
 
@@ -105,8 +114,8 @@ class CLIPBPETokenizer:
         cls = _category_ranges()
         # CLIP's pattern: contractions, letter runs, single digits, other symbols.
         self._pat = re.compile(
-            rf"'s|'t|'re|'ve|'m|'ll|'d|[{cls['L']}]+|[{cls['N']}]|[^\s{cls['L']}{cls['N']}]+",
-            re.IGNORECASE,
+            rf"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[{cls['L']}]+|[{cls['N']}]"
+            rf"|[^\s{cls['L']}{cls['N']}{cls['none']}]+"
         )
         self._cache: dict[str, list[int]] = {}
 

@@ -16,9 +16,10 @@ from comfyui_parallelanything_tpu_torch import parallelize  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models import flux  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops import attention  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
-from comfyui_parallelanything_tpu_torch.models import text_encoders, vae  # noqa: E402
+from comfyui_parallelanything_tpu_torch.models import text_encoders, unet, vae  # noqa: E402
 from comfyui_parallelanything_tpu_torch.pipelines import FluxPipeline  # noqa: E402
 from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample  # noqa: E402
+from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -283,3 +284,41 @@ def test_small_bf16_pipeline_takes_the_d512_variant(cuda_device):
     assert img.shape == (1, 32, 32, 3) and img.dtype == torch.bfloat16
     assert torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1
 
+
+
+# A small SD1.5-shaped UNet whose heads are 40, 80 and 160 wide, as SD1.5's are.
+SMALL_UNET = dict(model_channels=80, channel_mult=(1, 2, 4), num_res_blocks=1,
+                  attention_levels=(0, 1, 2), transformer_depth=(1, 1, 1), num_heads=2,
+                  context_dim=64, norm_groups=8)
+
+
+@pytest.mark.parametrize("dtype,rel_tol,variants",
+                         [(torch.float32, 1e-4, {"f32": 20}),
+                          (torch.bfloat16, 5e-2, {"sm90": 12, "mma": 8})])
+def test_small_unet_sampler_on_the_card_matches_the_cpu(cuda_device, monkeypatch, dtype,
+                                                        rel_tol, variants):
+    # dpmpp_2m, 2 steps, CFG (cond ‖ uncond in one batch-2 forward per step): 10
+    # transformer blocks per forward (3 input, 1 middle, 6 output) make 20 attention
+    # calls, 12 at head dims 40 and 80 and 8 at 160. In bf16 the card and the CPU
+    # round differently (about 1.5 % relative L2 per forward, as FLUX-dev's forward
+    # on the card reads against plain attention), and CFG 5 scales the cond-uncond
+    # difference by 5, so the sampled latent is held to 5e-2.
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = unet.UNetConfig(**SMALL_UNET, dtype=dtype)
+    cpu_model = unet.build_unet(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu_model = unet.build_unet(cfg, device=cuda_device,
+                                state_dict=cpu_model.module.state_dict())
+    g = torch.Generator().manual_seed(1)
+    noise = torch.randn((1, 32, 32, 4), generator=g)
+    ctx, uctx = torch.randn((1, 77, 64), generator=g), torch.randn((1, 77, 64), generator=g)
+    kw = dict(sampler="dpmpp_2m", steps=2, cfg_scale=5.0)
+    want = run_sampler(cpu_model, noise, ctx, uncond_context=uctx, **kw)
+    pm = parallelize(gpu_model, [("cuda:0", 100)])
+    fa.reset_launches()
+    got = run_sampler(pm, noise.to(cuda_device), ctx.to(cuda_device),
+                      uncond_context=uctx.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert {v: n for v, n in fa.launches_by_variant.items() if n} == {
+        v: 2 * n for v, n in variants.items()}
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    assert rel <= rel_tol, rel

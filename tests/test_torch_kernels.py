@@ -180,3 +180,41 @@ def test_build_key_covers_headers_and_link_flags(tmp_path, monkeypatch):
     assert edited != before
     monkeypatch.setattr(build, "NVCC_FLAGS", build.COMPILE_FLAGS + ("-shared", "-lm"))
     assert build.library_path("flash_attention") not in (before, edited)
+
+
+@pytest.mark.parametrize(
+    "name,hw,want",
+    [("sdxl_config", 128, {("sm90", (2, 4096, 10, 64), 4096): 10,
+                           ("sm90", (2, 4096, 10, 64), 77): 10,
+                           ("sm90", (2, 1024, 20, 64), 1024): 60,
+                           ("sm90", (2, 1024, 20, 64), 77): 60}),
+     ("sd15_config", 64, {("sm90", (2, 4096, 8, 40), 4096): 5, ("sm90", (2, 4096, 8, 40), 77): 5,
+                          ("sm90", (2, 1024, 8, 80), 1024): 5, ("sm90", (2, 1024, 8, 80), 77): 5,
+                          ("mma", (2, 256, 8, 160), 256): 5, ("mma", (2, 256, 8, 160), 77): 5})],
+    ids=["sdxl-1024", "sd15-512"],
+)
+def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name, hw, want):
+    # A full-size UNet forward at batch 2 (CFG) on the meta device: shapes and
+    # strides only, no memory. Every attention call's q/k/v as the UNet lays them
+    # out, through the variant rule: SDXL at 1024² makes 140 calls, all sm90;
+    # SD1.5 at 512² makes 20 sm90 (head dims 40, 80) and 10 mma (160) calls, with
+    # no middle transformer (the JAX package's middle_depth gives it none).
+    from collections import Counter
+
+    from comfyui_parallelanything_tpu_torch.models import unet
+
+    seen = Counter()
+
+    def spy(q, k, v, scale=None):
+        seen[(fa.kernel_variant(q, k, v, scale), tuple(q.shape), k.shape[1])] += 1
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(unet, "attention", spy)
+    cfg = getattr(unet, name)()
+    with torch.device("meta"):
+        module = unet.UNet2D(cfg)
+        kw = {"y": torch.empty(2, cfg.adm_in_channels)} if cfg.adm_in_channels else {}
+        out = module(torch.empty(2, hw, hw, 4), torch.empty(2), torch.empty(2, 77, cfg.context_dim),
+                     **kw)
+    assert out.shape == (2, hw, hw, 4)
+    assert dict(seen) == want

@@ -141,11 +141,17 @@ class TestT5:
         np.testing.assert_array_equal(got.numpy(), want)
 
     def test_fully_masked_row_raises(self):
-        _, penc, _ = _pair("t5", seed=3)
+        # A row with no real token: both sides softmax over all -inf, so every query
+        # of that row is NaN and the other rows are untouched.
+        jenc, penc, _ = _pair("t5", seed=3)
+        tokens = _tokens(5, (2, 8), T5_SMALL["vocab_size"])
         mask = np.ones((2, 8), np.int32)
         mask[1] = 0
-        with pytest.raises(ValueError, match="at least one real token"):
-            penc(np.zeros((2, 8), np.int32), mask=mask)
+        want = np.asarray(jenc(jnp.asarray(tokens), mask=jnp.asarray(mask)))
+        got = penc(tokens, mask=mask).numpy()
+        assert np.isnan(want[1]).all() and np.isfinite(want[0]).all()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got[0], want[0], **TOL)
 
 
 def _hf_clip_layout(cfg, rng, prefix=""):
@@ -289,20 +295,25 @@ class TestTokenizer:
         np.testing.assert_array_equal(pmask, jmask)
         assert pids.dtype == np.int32
 
-    def test_split_pattern_matches_regex_on_assigned_code_points(self):
-        # Every 7th code point of the BMP and the first supplementary planes, each
-        # between a letter and a digit: the stdlib pattern splits as the regex one
-        # wherever Python's Unicode tables assign the code point (a few code points
-        # assigned only in newer tables, and U+0345 under IGNORECASE, differ; see
-        # ROADMAP Queue 3).
-        import unicodedata
+    @pytest.mark.parametrize("which", ["every_7th", "table"])
+    def test_split_pattern_matches_regex_on_assigned_code_points(self, which):
+        # Each code point between a letter and a digit, doubled, and after an
+        # apostrophe: the stdlib pattern splits as the regex one. "every_7th" walks
+        # the BMP and the first supplementary planes, assigned or not; "table" takes
+        # every code point of utils/unicode_classes.py (letters and numbers newer
+        # than Python's Unicode tables, and U+0345).
+        from comfyui_parallelanything_tpu_torch.utils import unicode_classes as uc
 
         jt, pt = _byte_tokenizers()
-        for cp in range(0, 0x30000, 7):
+        if which == "every_7th":
+            cps = range(0, 0x30000, 7)
+        else:
+            cps = [cp for a, b in uc.LETTERS + uc.NUMBERS + uc.NO_CLASS
+                   for cp in range(a, b + 1)]
+            assert len(cps) == 9_662
+        for cp in cps:
             ch = chr(cp)
-            if unicodedata.category(ch) == "Cn" or cp == 0x345:
-                continue
-            text = " ".join(f"a{ch}1 {ch}{ch} x".lower().split())
+            text = " ".join(f"a{ch}1 {ch}{ch} x '{ch}s".lower().split())
             assert pt._pat.findall(text) == jt._pat.findall(text), hex(cp)
 
     def test_json_tokenizer_matches_jax(self, tmp_path):
@@ -320,3 +331,32 @@ class TestTokenizer:
             got = ptok.load_tokenizer_json(path, **kw)(["hello world", "world </s> hello x"])
             for w, g in zip(want, got):
                 np.testing.assert_array_equal(g, w)
+
+
+class TestSDXLConditioning:
+    def test_sdxl_and_refiner_conditioning_match_jax(self):
+        rng = np.random.default_rng(9)
+        l_pen = rng.normal(size=(2, 7, 48)).astype(np.float32)
+        g_pen = rng.normal(size=(2, 7, 64)).astype(np.float32)
+        g_pool = rng.normal(size=(2, 16)).astype(np.float32)
+        T = torch.from_numpy
+        for kw in (dict(width=1024, height=768), dict(width=832, height=1216, crop_x=16,
+                                                       crop_y=8, target_width=1024,
+                                                       target_height=1024)):
+            want = jte.sdxl_text_conditioning(jnp.asarray(l_pen), jnp.asarray(g_pen),
+                                              jnp.asarray(g_pool), **kw)
+            got = pte.sdxl_text_conditioning(T(l_pen), T(g_pen), T(g_pool), **kw)
+            assert got[1].shape == (2, 16 + 6 * 256)
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        # A bf16 tower output comes out f32, as the JAX helper casts it.
+        ctx, _ = pte.sdxl_text_conditioning(T(l_pen).bfloat16(), T(g_pen), T(g_pool),
+                                            width=64, height=64)
+        assert ctx.dtype == torch.float32 and ctx.shape == (2, 7, 112)
+        want = jte.sdxl_refiner_text_conditioning(jnp.asarray(g_pen), jnp.asarray(g_pool),
+                                                  width=1024, height=1024, ascore=6.0, crop_x=4)
+        got = pte.sdxl_refiner_text_conditioning(T(g_pen), T(g_pool), width=1024, height=1024,
+                                                 ascore=6.0, crop_x=4)
+        assert got[1].shape == (2, 16 + 5 * 256)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
