@@ -14,7 +14,9 @@ the error.
    row (the FLUX-dev shape, contiguous and with the single block's strided v, a
    ragged Sq≠Sk shape, head dims 64, 40 and 256, f16, f32, an unaligned view, more
    than 65535 batch·heads, the FLUX VAE's 512-wide head at 1024², and ragged,
-   320-wide, f16 and f32 cases at D=512), each through the variant the wrapper's
+   320-wide, f16 and f32 cases at D=512, and every self- and cross-attention call
+   of the SDXL and SD1.5 UNets at their real shapes, with ragged cases at head dims
+   80 and 160), each through the variant the wrapper's
    ``kernel_variant`` picks, which must be the row's; within limits set from the
    kernel's measured error. Two planted tail bugs (the last key block's padding left
    unmasked, the last key dropped) must fail the same check at D=128 and D=512.
@@ -57,7 +59,8 @@ the error.
    0.5) and an inpaint call: every latent finite, and K1 launches exactly 20
    ``sm90`` + 10 ``mma`` per UNet forward (head dims 40 and 80, and 160; no middle
    transformer, as the JAX package's ``middle_depth`` gives ``sd15_config()``
-   none). Then ``dpmpp_2m`` at 10 steps for its s/it.
+   none). Then ``dpmpp_2m`` at 10 steps for its s/it, and one UNet forward held
+   against the same forward on plain attention.
 Then the script's wall time, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -116,6 +119,7 @@ KERNEL_CASES = [
     ("sd15_self_1024_d80", SD15_1024, SD15_1024, "bfloat16", "contiguous", "sm90"),
     ("sd15_self_256_d160", SD15_256, SD15_256, "bfloat16", "contiguous", "mma"),
     ("sd15_cross_4096x77_d40", SD15_4096, (2, 77, 8, 40), "bfloat16", "contiguous", "sm90"),
+    ("sd15_cross_1024x77_d80", SD15_1024, (2, 77, 8, 80), "bfloat16", "contiguous", "sm90"),
     ("sd15_cross_256x77_d160", SD15_256, (2, 77, 8, 160), "bfloat16", "contiguous", "mma"),
     ("d80", (2, 300, 4, 80), (2, 513, 4, 80), "bfloat16", "contiguous", "sm90"),
     ("d160", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "contiguous", "mma"),
@@ -712,7 +716,7 @@ def phase_pipeline(pm) -> dict:
 SD_STEPS = 8
 SD_CFG = 7.0
 SD_NEGATIVE = "blurry, low quality"
-SD_REL_TOL = 5e-2  # bf16 SDXL UNet forward, K1 vs plain attention
+SD_REL_TOL = 5e-2  # bf16 SDXL and SD1.5 UNet forwards, K1 vs plain attention
 SDXL_SM90_PER_STEP = 140  # 70 transformer blocks × (self + cross), CFG in one call
 SD15_PER_FORWARD = {"sm90": 20, "mma": 10}  # head dims 40 and 80; 160
 
@@ -849,11 +853,13 @@ def phase_sd_samplers() -> dict:
     """SD1.5 at full width at 512² through ``parallelize`` → ``run_sampler`` with
     every sampler name but ``flow_euler``, an img2img and an inpaint call, CFG
     ``SD_CFG``: every latent finite and K1's launches exactly ``SD15_PER_FORWARD``
-    per UNet forward. Returns K1's launches by variant over all those calls."""
+    per UNet forward; then one UNet forward through K1 against the same forward on
+    plain attention. Returns K1's launches by variant over the sampler calls."""
     import torch
 
     from comfyui_parallelanything_tpu_torch import parallelize
     from comfyui_parallelanything_tpu_torch.models.unet import build_unet, sd15_config
+    from comfyui_parallelanything_tpu_torch.ops import attention
     from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
     from comfyui_parallelanything_tpu_torch.sampling.runner import SAMPLER_NAMES, run_sampler
 
@@ -916,6 +922,23 @@ def phase_sd_samplers() -> dict:
     emit({"phase": "sd_samplers", "model": "sd15", "n_params": unet.n_params(),
           "build_s": build_s, "runs": rows, "dpmpp_2m_s_per_it": sum(step_s) / len(step_s),
           "dpmpp_2m_step_s": step_s, "k1_launches_by_variant": total})
+
+    # One UNet forward (batch 2, as CFG runs it) through K1 and on plain attention:
+    # head dims 40 and 80 on sm90 with 77-key cross-attention tails, 160 on mma.
+    x = torch.cat([noise, init])
+    t = torch.tensor([999.0, 999.0], device=dev)
+    out_k = pm(x, t, torch.cat([ctx, uctx])).float()
+    attention.set_attention_backend("xla")
+    try:
+        out_p = pm(x, t, torch.cat([ctx, uctx])).float()
+    finally:
+        attention.set_attention_backend("auto")
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    emit({"phase": "sd15_unet_vs_plain_attention", "rel_l2_err": rel,
+          "max_abs_err": (out_k - out_p).abs().max().item(), "tol": SD_REL_TOL,
+          "finite": bool(torch.isfinite(out_k).all().item())})
+    if not rel <= SD_REL_TOL:
+        raise RuntimeError(f"SD1.5 UNet forward through K1 disagrees with plain attention: {rel}")
     return total
 
 

@@ -16,7 +16,6 @@ parameter tree, so ``convert_jax.from_jax_params`` is a rename plus transposes.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +23,7 @@ from torch import nn
 
 from ..devices.discovery import default_device
 from ..ops.attention import attention
+from ..ops import basic
 from ..ops.basic import modulate, rms_normalize, timestep_embedding
 from ..ops.rope import apply_rope, axis_rope_freqs
 from .api import DiffusionModel, PipelineSegment, PipelineSpec
@@ -312,13 +312,10 @@ def _flux_pipeline_spec(cfg: FluxConfig) -> PipelineSpec:
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``, in place: every linear N(0, 1/fan_in)
-    with zero bias, every norm scale one. The generator must live on the
-    module's device, so a full-size model is initialised where it runs."""
+    with zero bias (``ops.basic.init_random_``), every QKNorm scale one."""
+    basic.init_random_(module, generator)
     for m in module.modules():
-        if isinstance(m, nn.Linear):
-            m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=generator)
-            m.bias.zero_()
-        elif isinstance(m, QKNorm):
+        if isinstance(m, QKNorm):
             m.query_norm.fill_(1.0)
             m.key_norm.fill_(1.0)
 

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..devices.discovery import default_device
-from ..ops.basic import timestep_embedding
+from ..ops import basic
+from ..ops.basic import LayerNorm, flax_apply, timestep_embedding
 
 # ---------------------------------------------------------------------------
 # CLIP text towers
@@ -91,35 +92,18 @@ def _act(name: str):
     raise ValueError(f"unknown activation {name!r}")
 
 
-class _LayerNorm(nn.Module):
-    """LayerNorm computed in f32 with f32 scale and bias; the output is f32."""
-
-    def __init__(self, dim: int, eps: float):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x):
-        return F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
-
-
-def _linear(x, layer: nn.Linear):
-    """A flax ``Dense`` with ``dtype``: the input cast to the weight's dtype."""
-    return layer(x.to(layer.weight.dtype))
-
 
 class _CLIPBlock(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         w, dt = cfg.hidden_size, cfg.dtype
         self.cfg = cfg
-        self.ln1 = _LayerNorm(w, 1e-5)
+        self.ln1 = LayerNorm(w, 1e-5)
         self.q = nn.Linear(w, w, dtype=dt)
         self.k = nn.Linear(w, w, dtype=dt)
         self.v = nn.Linear(w, w, dtype=dt)
         self.out = nn.Linear(w, w, dtype=dt)
-        self.ln2 = _LayerNorm(w, 1e-5)
+        self.ln2 = LayerNorm(w, 1e-5)
         self.fc1 = nn.Linear(w, cfg.d_ff, dtype=dt)
         self.fc2 = nn.Linear(cfg.d_ff, w, dtype=dt)
         self.act = _act(cfg.act)
@@ -130,13 +114,13 @@ class _CLIPBlock(nn.Module):
         D = cfg.hidden_size // H
         h = self.ln1(x)
         B, S, _ = h.shape
-        q, k, v = (_linear(h, m).reshape(B, S, H, D) for m in (self.q, self.k, self.v))
+        q, k, v = (flax_apply(m, h).reshape(B, S, H, D) for m in (self.q, self.k, self.v))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (D**-0.5)
         probs = torch.softmax(logits.float() + bias, dim=-1)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
-        x = x + _linear(attn.reshape(B, S, cfg.hidden_size), self.out)
-        h = self.act(_linear(self.ln2(x), self.fc1))
-        return x + _linear(h, self.fc2)
+        x = x + flax_apply(self.out, attn.reshape(B, S, cfg.hidden_size))
+        h = self.act(flax_apply(self.fc1, self.ln2(x)))
+        return x + flax_apply(self.fc2, h)
 
 
 class CLIPTextModel(nn.Module):
@@ -151,7 +135,7 @@ class CLIPTextModel(nn.Module):
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype)
         self.pos_emb = nn.Parameter(torch.zeros(cfg.max_len, cfg.hidden_size))
         self.layers = nn.ModuleList(_CLIPBlock(cfg) for _ in range(cfg.num_layers))
-        self.final_ln = _LayerNorm(cfg.hidden_size, 1e-5)
+        self.final_ln = LayerNorm(cfg.hidden_size, 1e-5)
         if cfg.projection_dim is not None:
             self.text_proj = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False,
                                        dtype=cfg.dtype)
@@ -172,7 +156,7 @@ class CLIPTextModel(nn.Module):
         eos_pos = torch.argmax((tokens == cfg.eos_id).int(), dim=-1)
         pooled = last[torch.arange(B, device=last.device), eos_pos]
         if cfg.projection_dim is not None:
-            pooled = _linear(pooled, self.text_proj)
+            pooled = flax_apply(self.text_proj, pooled)
         return last, penultimate, pooled
 
 
@@ -254,15 +238,15 @@ class _T5Block(nn.Module):
         H, D = cfg.num_heads, cfg.d_kv
         h = self.ln1(x)
         B, S, _ = h.shape
-        q, k, v = (_linear(h, m).reshape(B, S, H, D) for m in (self.q, self.k, self.v))
+        q, k, v = (flax_apply(m, h).reshape(B, S, H, D) for m in (self.q, self.k, self.v))
         # Unscaled dot products (T5 folds 1/sqrt(d) into its init).
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + bias
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, H * D)
-        x = x + _linear(attn, self.o)
+        x = x + flax_apply(self.o, attn)
         h = self.ln2(x)
-        h = F.gelu(_linear(h, self.wi_0), approximate="tanh") * _linear(h, self.wi_1)
-        return x + _linear(h, self.wo)
+        h = F.gelu(flax_apply(self.wi_0, h), approximate="tanh") * flax_apply(self.wi_1, h)
+        return x + flax_apply(self.wo, h)
 
 
 class T5Encoder(nn.Module):
@@ -332,21 +316,13 @@ class TextEncoder:
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``, in place: linears N(0, 1/fan_in) with zero
-    bias, embeddings N(0, 1), CLIP's position table N(0, 0.01), T5's bias tables
-    N(0, 1), norm scales one and biases zero. The generator lives on the module's
-    device, so a full-size encoder is initialised where it runs."""
+    """Random weights from ``generator``, in place: linears, embeddings and
+    LayerNorms as ``ops.basic.init_random_`` sets them, T5's RMSNorm scales one,
+    CLIP's position table N(0, 0.01) and T5's bias tables N(0, 1)."""
+    basic.init_random_(module, generator)
     for m in module.modules():
-        if isinstance(m, nn.Linear):
-            m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, (_LayerNorm, _T5RMSNorm)):
+        if isinstance(m, _T5RMSNorm):
             m.weight.fill_(1.0)
-            if isinstance(m, _LayerNorm):
-                m.bias.zero_()
     for name, p in module.named_parameters(recurse=False):
         if name == "pos_emb":
             p.normal_(0.0, 0.01, generator=generator)

@@ -28,7 +28,6 @@ plain data.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +35,7 @@ from torch import nn
 
 from ..devices.discovery import default_device
 from ..ops.attention import attention
-from ..ops.basic import GroupNorm, timestep_embedding
+from ..ops.basic import GroupNorm, LayerNorm, flax_apply, init_random_, timestep_embedding
 from .api import DiffusionModel, PipelineSegment, PipelineSpec
 
 
@@ -171,25 +170,6 @@ def _conv(cin: int, cout: int, k: int, dtype: torch.dtype, stride: int = 1) -> n
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, dtype=dtype)
 
 
-def _apply(conv: nn.Conv2d, x):
-    """A flax ``Conv`` with ``dtype``: the input cast to the weight's dtype."""
-    return conv(x.to(conv.weight.dtype))
-
-
-class LayerNorm(nn.Module):
-    """flax's ``nn.LayerNorm`` with a ``dtype``: eps 1e-6, statistics and affine in
-    f32 with f32 scale and bias, the result cast to ``dtype``."""
-
-    def __init__(self, dim: int, dtype: torch.dtype):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x):
-        return F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, 1e-6).to(self.dtype)
-
-
 class ResBlock(nn.Module):
     """GN → SiLU → conv, + the embedding's projection, GN → SiLU → conv, with a
     1×1 convolution on the shortcut when the width changes (NCHW)."""
@@ -206,11 +186,11 @@ class ResBlock(nn.Module):
             self.Conv_2 = _conv(in_ch, out_ch, 1, dt)
 
     def forward(self, x, emb):
-        h = _apply(self.Conv_0, F.silu(self.GroupNorm_0(x)))
+        h = flax_apply(self.Conv_0, F.silu(self.GroupNorm_0(x)))
         h = h + self.Dense_0(F.silu(emb))[:, :, None, None]
-        h = _apply(self.Conv_1, F.silu(self.GroupNorm_1(h)))
+        h = flax_apply(self.Conv_1, F.silu(self.GroupNorm_1(h)))
         if hasattr(self, "Conv_2"):
-            x = _apply(self.Conv_2, x)
+            x = flax_apply(self.Conv_2, x)
         return x + h
 
 
@@ -230,9 +210,9 @@ class TransformerBlock(nn.Module):
             setattr(self, f"{n}_k", nn.Linear(kv_in, inner, bias=False, dtype=dt))
             setattr(self, f"{n}_v", nn.Linear(kv_in, inner, bias=False, dtype=dt))
             setattr(self, f"{n}_o", nn.Linear(inner, channels, dtype=dt))
-        self.LayerNorm_0 = LayerNorm(channels, dt)
-        self.LayerNorm_1 = LayerNorm(channels, dt)
-        self.LayerNorm_2 = LayerNorm(channels, dt)
+        self.LayerNorm_0 = LayerNorm(channels, out_dtype=dt)
+        self.LayerNorm_1 = LayerNorm(channels, out_dtype=dt)
+        self.LayerNorm_2 = LayerNorm(channels, out_dtype=dt)
         self.ff_in = nn.Linear(channels, channels * 8, dtype=dt)
         self.ff_out = nn.Linear(channels * 4, channels, dtype=dt)
 
@@ -273,12 +253,12 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x, context):
         B, C, H, W = x.shape
-        h = _apply(self.proj_in, self.GroupNorm_0(x))
+        h = flax_apply(self.proj_in, self.GroupNorm_0(x))
         h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
         for block in self.blocks:
             h = block(h, context)
         h = h.reshape(B, H, W, C).permute(0, 3, 1, 2).contiguous()
-        return x + _apply(self.proj_out, h)
+        return x + flax_apply(self.proj_out, h)
 
 
 class Downsample(nn.Module):
@@ -289,7 +269,7 @@ class Downsample(nn.Module):
         self.Conv_0 = _conv(channels, channels, 3, cfg.dtype, stride=2)
 
     def forward(self, x):
-        return _apply(self.Conv_0, x)
+        return flax_apply(self.Conv_0, x)
 
 
 class Upsample(nn.Module):
@@ -300,7 +280,7 @@ class Upsample(nn.Module):
         self.Conv_0 = _conv(channels, channels, 3, cfg.dtype)
 
     def forward(self, x):
-        return _apply(self.Conv_0, F.interpolate(x, scale_factor=2, mode="nearest"))
+        return flax_apply(self.Conv_0, F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
 def _nhwc_to_nchw(t: torch.Tensor) -> torch.Tensor:
@@ -375,7 +355,7 @@ class UNet2D(nn.Module):
             emb = emb + self.label_embed_2(F.silu(self.label_embed_0(y.to(cfg.dtype))))
         if context is not None:
             context = context.to(cfg.dtype)
-        h = _apply(self.input_conv, _nhwc_to_nchw(x.to(cfg.dtype)))
+        h = flax_apply(self.input_conv, _nhwc_to_nchw(x.to(cfg.dtype)))
         carry = {"h": h, "emb": emb, "context": context, "skip_0": h}
         if control is not None:
             for j, res in enumerate(control.get("input") or ()):
@@ -498,23 +478,6 @@ def _unet_pipeline_spec(cfg: UNetConfig) -> PipelineSpec:
         finalize_keys=("out_norm", "out_conv"),
         finalize=lambda module, carry, out_shape: module.finalize(carry, out_shape),
     )
-
-
-@torch.no_grad()
-def init_random_(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``, in place: convolutions and linears
-    N(0, 1/fan_in) with zero bias, norm scales one and biases zero. The generator
-    lives on the module's device, so a full-size UNet is initialised where it
-    runs."""
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, (GroupNorm, LayerNorm)):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
 
 
 def build_unet(cfg: UNetConfig, *, device=None, generator: torch.Generator | None = None,

@@ -19,7 +19,6 @@ in numpy, with the JAX package's window starts and blend ramps.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -28,7 +27,7 @@ from torch import nn
 
 from ..devices.discovery import default_device
 from ..ops.attention import attention_local
-from ..ops.basic import GroupNorm
+from ..ops.basic import GroupNorm, flax_apply, init_random_
 from ..ops.resize import resize
 from .tiling import blend_mask1d, tile_starts
 
@@ -78,11 +77,6 @@ def _conv(cin: int, cout: int, k: int, cfg: VAEConfig, stride: int = 1) -> nn.Co
                      dtype=cfg.dtype)
 
 
-def _apply(conv: nn.Conv2d, x):
-    """A flax ``Conv`` with ``dtype``: the input cast to the weight's dtype."""
-    return conv(x.to(conv.weight.dtype))
-
-
 class VAEResBlock(nn.Module):
     def __init__(self, cfg: VAEConfig, in_ch: int, out_ch: int):
         super().__init__()
@@ -94,10 +88,10 @@ class VAEResBlock(nn.Module):
             self.nin_shortcut = _conv(in_ch, out_ch, 1, cfg)
 
     def forward(self, x):
-        h = _apply(self.conv1, F.silu(self.norm1(x)))
-        h = _apply(self.conv2, F.silu(self.norm2(h)))
+        h = flax_apply(self.conv1, F.silu(self.norm1(x)))
+        h = flax_apply(self.conv2, F.silu(self.norm2(h)))
         if hasattr(self, "nin_shortcut"):
-            x = _apply(self.nin_shortcut, x)
+            x = flax_apply(self.nin_shortcut, x)
         return x + h
 
 
@@ -134,7 +128,7 @@ class Downsample(nn.Module):
 
     def forward(self, x):
         # ldm kl-f8: asymmetric (0,1)x(0,1) padding + VALID stride-2 conv.
-        return _apply(self.conv, F.pad(x, (0, 1, 0, 1)))
+        return flax_apply(self.conv, F.pad(x, (0, 1, 0, 1)))
 
 
 class Upsample(nn.Module):
@@ -143,7 +137,7 @@ class Upsample(nn.Module):
         self.conv = _conv(ch, ch, 3, cfg)
 
     def forward(self, x):
-        return _apply(self.conv, F.interpolate(x, scale_factor=2, mode="nearest"))
+        return flax_apply(self.conv, F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
 class _Stack(nn.Module):
@@ -159,10 +153,10 @@ class _Stack(nn.Module):
         self._names.append(name)
 
     def forward(self, x):
-        h = _apply(self.conv_in, x)
+        h = flax_apply(self.conv_in, x)
         for name in self._names:
             h = getattr(self, name)(h)
-        return _apply(self.conv_out, F.silu(self.norm_out(h)))
+        return flax_apply(self.conv_out, F.silu(self.norm_out(h)))
 
 
 class Encoder(_Stack):
@@ -224,7 +218,7 @@ class AutoencoderKL(nn.Module):
         """Pixels (B,H,W,3 in [-1,1]) → (mean, logvar) of the latent posterior."""
         h = self.encoder(x.permute(0, 3, 1, 2))
         if self.cfg.use_quant_conv:
-            h = _apply(self.quant_conv, h)
+            h = flax_apply(self.quant_conv, h)
         mean, logvar = h.permute(0, 2, 3, 1).chunk(2, dim=-1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
@@ -242,7 +236,7 @@ class AutoencoderKL(nn.Module):
         """Scaled latent → pixels (B, f·H, f·W, 3)."""
         h = (z / self.cfg.scaling_factor + self.cfg.shift_factor).permute(0, 3, 1, 2)
         if self.cfg.use_quant_conv:
-            h = _apply(self.post_quant_conv, h)
+            h = flax_apply(self.post_quant_conv, h)
         return self.decoder(h).permute(0, 2, 3, 1)
 
     def forward(self, x, rng: torch.Generator | None = None):
@@ -376,19 +370,6 @@ class VAE:
                 out[:, hs * f : (hs + th) * f, ws * f : (ws + tw) * f] += dec * mask
                 weight[:, hs * f : (hs + th) * f, ws * f : (ws + tw) * f] += mask
         return torch.from_numpy(out / weight).to(self.device)
-
-
-def init_random_(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``, in place: convolutions N(0, 1/fan_in)
-    with zero bias, norm scales one and biases zero."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-            m.bias.zero_()
-        elif isinstance(m, GroupNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
 
 
 def build_vae(cfg: VAEConfig, *, device=None, generator: torch.Generator | None = None,

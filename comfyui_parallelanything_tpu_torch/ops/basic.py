@@ -49,6 +49,11 @@ def progress_window_gate(t_vec: torch.Tensor, start: float, end: float, ndim: in
     return on.float().reshape((-1,) + (1,) * (ndim - 1))
 
 
+def flax_apply(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A flax ``Conv``/``Dense`` with ``dtype``: the input cast to the weight's dtype."""
+    return layer(x.to(layer.weight.dtype))
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over channels (dim 1) as flax's ``nn.GroupNorm`` computes it with a
     ``dtype``: eps 1e-6, statistics and affine in f32 with f32 scale and bias, the
@@ -62,3 +67,37 @@ class GroupNorm(nn.Module):
 
     def forward(self, x):
         return F.group_norm(x.float(), self.groups, self.weight, self.bias, 1e-6).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim as flax's ``nn.LayerNorm`` computes it with a
+    ``dtype``: statistics and affine in f32 with f32 scale and bias, the result
+    cast to ``out_dtype``. eps is flax's default 1e-6; CLIP's towers use 1e-5."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, out_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps, self.out_dtype = eps, out_dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
+                            self.eps).to(self.out_dtype)
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator``, in place: convolutions and linears
+    N(0, 1/fan_in) with zero bias, embeddings N(0, 1), ``GroupNorm``/``LayerNorm``
+    scales one and biases zero. The generator lives on the module's device, so a
+    full-size model is initialised where it runs."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight[0].numel()), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, (GroupNorm, LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()

@@ -98,10 +98,6 @@ def run_sampler(
             "models/lora.py)")
     use_cfg = cfg_scale != 1.0 and uncond_context is not None
     eff_cfg = cfg_scale if use_cfg else 1.0
-    # Model-level sampler preferences: defaults only, an explicit value wins.
-    prefs = getattr(model, "sampler_prefs", None) or {}
-    if cfg_rescale == 0.0:
-        cfg_rescale = float(prefs.get("cfg_rescale", 0.0))
     multi_cond = (bool(extra_conds) or cond_area is not None
                   or cond_area_pct is not None or cond_mask is not None)
     if multi_cond and sampler in ("ddim", "flow_euler"):

@@ -218,3 +218,10 @@ def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name,
                      **kw)
     assert out.shape == (2, hw, hw, 4)
     assert dict(seen) == want
+    # The card's smoke run holds K1 against its plain version at each of these
+    # calls: a contiguous bf16 KERNEL_CASES row with the same variant and shapes.
+    import chip_smoke
+
+    held = {(variant, qshape, kshape[1]) for _, qshape, kshape, dtype, layout, variant
+            in chip_smoke.KERNEL_CASES if dtype == "bfloat16" and layout == "contiguous"}
+    assert set(seen) <= held, set(seen) - held
