@@ -9,22 +9,27 @@ and without a CUDA device (or without the port beside it) nothing is printed but
 the error.
 
 1. device — the card, and ``nvidia-smi``'s name and power limit line.
-2. build — every CUDA kernel under ``csrc/``, one ``nvcc`` per source, in parallel.
+2. build — every CUDA kernel under ``csrc/``, one ``nvcc`` per translation unit, in
+   parallel (the seconds to each unit's end are printed).
 3. kernel — K1 (flash attention) against its plain version at every ``KERNEL_CASES``
    row (the FLUX-dev shape, contiguous and with the single block's strided v, a
    ragged Sq≠Sk shape, head dims 64, 40 and 256, f16, f32, an unaligned view, more
-   than 65535 batch·heads, the FLUX VAE's 512-wide head at 1024², and ragged,
-   320-wide, f16 and f32 cases at D=512, and every self- and cross-attention call
-   of the SDXL and SD1.5 UNets at their real shapes, with ragged cases at head dims
-   80 and 160), each through the variant the wrapper's
-   ``kernel_variant`` picks, which must be the row's; within limits set from the
-   kernel's measured error. Two planted tail bugs (the last key block's padding left
-   unmasked, the last key dropped) must fail the same check at D=128 and D=512.
-   Each variant is then timed (``TIMED``) beside its plain version,
-   ``F.scaled_dot_product_attention`` (timed here only, never called by the port;
-   the backend it took is recorded) and the card's bound: ``sm90`` and ``mma`` at
-   the FLUX-dev shape, ``d512`` at the VAE shape, ``f32`` at the FLUX-dev shape in
-   float32 against the card's f32 rate.
+   than 65535 batch·heads, the FLUX VAE's 512-wide head at 1024², ragged cases at
+   head dims 160, 264, 320 and 512, f16, f32, a single query and key and more than
+   65535 batch·heads at D=512, unaligned views at D=160 and 512, and every self- and
+   cross-attention call of the SDXL and SD1.5 UNets at their real shapes), each
+   through the variant the wrapper's ``kernel_variant`` picks, which must be the
+   row's; within limits set from the kernel's measured error. Two planted tail bugs
+   (the last key block's padding left unmasked, the last key dropped) must fail the
+   same check at D=128 and D=512. Each variant is then timed (``TIMED``) beside its
+   plain version, ``F.scaled_dot_product_attention`` (timed here only, never called
+   by the port; the backend it took is recorded) and the card's bound: ``sm90`` and
+   ``mma`` at the FLUX-dev shape, ``wide`` and ``d512`` (forced) at the VAE shape,
+   ``f32`` at the FLUX-dev shape in float32 against the card's f32 rate; then
+   (2, 4096, 8, 160) through ``wide`` and ``mma`` forced (``THROUGHPUT_TIMED``), the
+   UNets' shapes (``SHAPES_TIMED``), and the device time per call of ``wide``,
+   ``mma`` forced and SDPA at SD1.5's 160-wide shapes from a profiler window
+   (``DEVICE_TIMED``).
 4. main_path — FLUX-dev at full width and depth (19 double + 38 single blocks,
    3072 wide, 24×128 heads) in bf16 with random weights from a seeded generator
    on the card, wrapped by ``parallelize`` over ``[("cuda:0", 100)]``, sampled by
@@ -39,7 +44,7 @@ the error.
    weights from a seeded generator, a tokenizer built here over a synthetic vocab;
    4 steps, guidance 3.5, then an img2img call (denoise 0.5, 2 steps) on its
    image. Times encode, denoise and decode; K1 must serve the DiT (``sm90``) and
-   the VAE's mid-block attention (``d512``, once per encode or decode); the image
+   the VAE's mid-block attention (``wide``, once per encode or decode); the image
    must be finite, (1, 1024, 1024, 3) and in [0, 1]; a decode through K1 must
    agree with the same decode on the plain attention path. The FLUX models are
    freed after it.
@@ -49,7 +54,7 @@ the error.
    over ``[("cuda:0", 100)]``: 1024², batch 1, 8 steps of ``dpmpp_2m``/karras, CFG
    7.0 with a negative prompt. Times encode, s/it and decode, reads the peak
    memory; K1 must serve exactly 140 ``sm90`` calls per step (70 transformer
-   blocks × self + cross, cond ‖ uncond in one batch-2 call) and one ``d512``
+   blocks × self + cross, cond ‖ uncond in one batch-2 call) and one ``wide``
    call for the decode; the image must be finite, (1, 1024, 1024, 3), in [0, 1].
    One UNet forward is held against the same forward on plain attention, and one
    step runs under ``torch.profiler``.
@@ -57,7 +62,7 @@ the error.
    through ``parallelize`` → ``run_sampler`` with every sampler name but
    ``flow_euler`` (2 steps, 3 for the multistep ones), then an img2img (denoise
    0.5) and an inpaint call: every latent finite, and K1 launches exactly 20
-   ``sm90`` + 10 ``mma`` per UNet forward (head dims 40 and 80, and 160; no middle
+   ``sm90`` + 10 ``wide`` per UNet forward (head dims 40 and 80, and 160; no middle
    transformer, as the JAX package's ``middle_depth`` gives ``sd15_config()``
    none). Then ``dpmpp_2m`` at 10 steps for its s/it, and one UNet forward held
    against the same forward on plain attention.
@@ -100,14 +105,21 @@ KERNEL_CASES = [
     ("d40", (2, 300, 4, 40), (2, 513, 4, 40), "bfloat16", "contiguous", "sm90"),
     ("f16", (2, 300, 4, 128), (2, 513, 4, 128), "float16", "contiguous", "sm90"),
     ("f32", (2, 300, 4, 128), (2, 513, 4, 128), "float32", "contiguous", "f32"),
-    ("d256", (2, 300, 4, 256), (2, 513, 4, 256), "bfloat16", "contiguous", "mma"),
+    ("d256", (2, 300, 4, 256), (2, 513, 4, 256), "bfloat16", "contiguous", "wide"),
     ("unaligned", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16", "unaligned", "mma"),
     ("batch_heads_65600", (65600, 3, 1, 8), (65600, 3, 1, 8), "bfloat16", "contiguous", "sm90"),
-    ("vae_1024_d512", VAE_SHAPE, VAE_SHAPE, "bfloat16", "contiguous", "d512"),
-    ("d512_ragged_300x513", (2, 300, 2, 512), (2, 513, 2, 512), "bfloat16", "contiguous", "d512"),
-    ("d320", (2, 300, 2, 320), (2, 513, 2, 320), "bfloat16", "contiguous", "d512"),
-    ("d512_f16", (2, 300, 2, 512), (2, 513, 2, 512), "float16", "contiguous", "d512"),
+    ("vae_1024_d512", VAE_SHAPE, VAE_SHAPE, "bfloat16", "contiguous", "wide"),
+    ("d512_ragged_300x513", (2, 300, 2, 512), (2, 513, 2, 512), "bfloat16", "contiguous", "wide"),
+    ("d264", (2, 300, 2, 264), (2, 513, 2, 264), "bfloat16", "contiguous", "wide"),
+    ("d320", (2, 300, 2, 320), (2, 513, 2, 320), "bfloat16", "contiguous", "wide"),
+    ("d512_f16", (2, 300, 2, 512), (2, 513, 2, 512), "float16", "contiguous", "wide"),
+    ("d512_single", (1, 1, 1, 512), (1, 1, 1, 512), "bfloat16", "contiguous", "wide"),
+    ("d512_batch_heads_65537", (65537, 2, 1, 512), (65537, 3, 1, 512), "bfloat16",
+     "contiguous", "wide"),
     ("d512_f32", (1, 300, 2, 512), (1, 513, 2, 512), "float32", "contiguous", "f32"),
+    # What TMA cannot take keeps the mma.sync variants: unaligned views.
+    ("d160_unaligned", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "unaligned", "mma"),
+    ("d512_unaligned", (2, 300, 2, 512), (2, 513, 2, 512), "bfloat16", "unaligned", "d512"),
     # The SD-family UNets' calls at their real shapes (CFG's batch 2): SDXL at
     # 1024² (head dim 64), SD1.5 at 512² (head dims 40, 80, 160), self-attention
     # and cross-attention over 77 text tokens; then ragged cases at D=80 and 160.
@@ -117,12 +129,14 @@ KERNEL_CASES = [
     ("sdxl_cross_1024x77_d64", SDXL_1024, (2, 77, 20, 64), "bfloat16", "contiguous", "sm90"),
     ("sd15_self_4096_d40", SD15_4096, SD15_4096, "bfloat16", "contiguous", "sm90"),
     ("sd15_self_1024_d80", SD15_1024, SD15_1024, "bfloat16", "contiguous", "sm90"),
-    ("sd15_self_256_d160", SD15_256, SD15_256, "bfloat16", "contiguous", "mma"),
+    ("sd15_self_256_d160", SD15_256, SD15_256, "bfloat16", "contiguous", "wide"),
     ("sd15_cross_4096x77_d40", SD15_4096, (2, 77, 8, 40), "bfloat16", "contiguous", "sm90"),
     ("sd15_cross_1024x77_d80", SD15_1024, (2, 77, 8, 80), "bfloat16", "contiguous", "sm90"),
-    ("sd15_cross_256x77_d160", SD15_256, (2, 77, 8, 160), "bfloat16", "contiguous", "mma"),
+    ("sd15_cross_256x77_d160", SD15_256, (2, 77, 8, 160), "bfloat16", "contiguous", "wide"),
     ("d80", (2, 300, 4, 80), (2, 513, 4, 80), "bfloat16", "contiguous", "sm90"),
-    ("d160", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "contiguous", "mma"),
+    ("d160", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "contiguous", "wide"),
+    # SD1.5's head dim at a long sequence, timed for throughput (no model call has it).
+    ("d160_4096", (2, 4096, 8, 160), (2, 4096, 8, 160), "bfloat16", "contiguous", "wide"),
 ]
 # Limits on the kernel's error against the plain version computed in f32 on the
 # same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
@@ -256,7 +270,7 @@ def phase_build():
     for name, r in results.items():
         print(f"--- nvcc {name}\n{r['log']}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {n: {"seconds": r["seconds"], "cached": r["cached"]}
+          "kernels": {n: {"seconds": r["seconds"], "cached": r["cached"], "units": r["units"]}
                       for n, r in results.items()}})
 
 
@@ -298,8 +312,16 @@ def time_variant(fa, variant, q, k, v, iters, plain_iters, peak_flops) -> dict:
 # FLUX-dev shape in float32, against the card's f32 rate.
 TIMED = {"sm90": ("flux_dev_1024", 20, 5, H100_BF16_FLOPS),
          "mma": ("flux_dev_1024", 20, 5, H100_BF16_FLOPS),
+         "wide": ("vae_1024_d512", 20, 3, H100_BF16_FLOPS),
          "d512": ("vae_1024_d512", 10, 3, H100_BF16_FLOPS),
          "f32": ("flux_dev_1024", 5, 3, H100_F32_FLOPS)}
+# Cases timed through several variants, each forced: (variants, iterations,
+# iterations of the plain version).
+THROUGHPUT_TIMED = {"d160_4096": (("wide", "mma"), 20, 3)}
+# Cases whose device time per call is read from a profiler window of back-to-back
+# calls (one call is mostly host time there): K1 through the rule, ``mma`` forced and
+# SDPA, each called this many times in the window.
+DEVICE_TIMED = {"sd15_self_256_d160": 50, "sd15_cross_256x77_d160": 50}
 # Cases whose inputs must make the planted tail bugs fail the check.
 TAIL_BUG_CASES = ("ragged_300x513", "d512_ragged_300x513")
 # The SD-family shapes timed as the UNets call them, each through the variant the
@@ -326,14 +348,65 @@ def loop_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fns: dict, calls: int) -> dict[str, float]:
+    """Device time per call of each of ``fns`` (``{label: (fn, owns)}``): one
+    ``torch.profiler`` window runs every ``fn`` ``calls`` times back to back, and a
+    CUDA kernel counts for the label whose ``owns(kernel name)`` is true. Where one
+    call is mostly the host's time, this is the card's share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, _ in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn, _ in fns.values():
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    totals = kernel_times(prof)
+    out = {label: sum(ms for name, (ms, _) in totals.items() if owns(name)) / calls
+           for label, (_, owns) in fns.items()}
+    if not all(out.values()):
+        raise RuntimeError(f"the profiler window shows no device time for some of {out}")
+    return out
+
+
+def kernel_times(prof) -> dict[str, list]:
+    """``{kernel name: [total ms, calls]}`` from a finished ``torch.profiler``
+    window's trace (its ``kernel`` events)."""
+    import os
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    totals: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            tot = totals.setdefault(e["name"], [0.0, 0])
+            tot[0] += e["dur"] / 1e3  # µs -> ms
+            tot[1] += 1
+    return totals
+
+
 def phase_kernel() -> dict:
     """Check every ``KERNEL_CASES`` row and the planted tail bugs, then time each
-    variant (``TIMED``) and each SD-family shape (``SHAPES_TIMED``). Returns
-    ``{variant: timing row}``."""
+    variant (``TIMED``), the throughput cases through several variants
+    (``THROUGHPUT_TIMED``), each SD-family shape (``SHAPES_TIMED``) and the device
+    time of the small 160-wide calls (``DEVICE_TIMED``). Returns ``{variant: timing
+    row}``."""
     import torch
+    import torch.nn.functional as F
 
     from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
 
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -341,7 +414,8 @@ def phase_kernel() -> dict:
     cases = []
     controls = {}
     kept = {}
-    timed_cases = {c for c, *_ in TIMED.values()} | set(SHAPES_TIMED)
+    timed_cases = ({c for c, *_ in TIMED.values()} | set(SHAPES_TIMED) | set(THROUGHPUT_TIMED)
+                   | set(DEVICE_TIMED))
     for name, qshape, kshape, dtype_name, layout, want_variant in KERNEL_CASES:
         q, k, v = make_case(qshape, kshape, dtype_name, layout, gen, dev)
         variant = fa.kernel_variant(q, k, v)
@@ -386,6 +460,17 @@ def phase_kernel() -> dict:
             err = forced["max_abs_err"]
         rows[variant] = {"case": case, **time_variant(fa, variant, q, k, v, iters, plain_iters,
                                                       peak), "max_abs_err": err}
+    throughput = {}
+    for case, (variants, iters, plain_iters) in THROUGHPUT_TIMED.items():
+        q, k, v, _ = kept[case]
+        throughput[case] = {}
+        for variant in variants:
+            forced = kernel_error(fa._launch(q, k, v, q.shape[-1] ** -0.5, variant), q, k, v)
+            if not forced["ok"]:
+                raise RuntimeError(f"the {variant} variant disagrees at {case}: {forced}")
+            throughput[case][variant] = {
+                **time_variant(fa, variant, q, k, v, iters, plain_iters, H100_BF16_FLOPS),
+                "max_abs_err": forced["max_abs_err"]}
     shapes = {}
     for case, (iters, plain_iters) in SHAPES_TIMED.items():
         q, k, v, err = kept[case]
@@ -394,8 +479,27 @@ def phase_kernel() -> dict:
         row["loop_ms"] = loop_ms(lambda: fa._launch(q, k, v, q.shape[-1] ** -0.5, variant),
                                  iters)
         shapes[case] = {**row, "max_abs_err": err}
+    device = {}
+    for case, calls in DEVICE_TIMED.items():
+        q, k, v, _ = kept[case]
+        scale = q.shape[-1] ** -0.5
+        variant = fa.kernel_variant(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = device_ms({
+            "ms": (lambda: fa._launch(q, k, v, scale, variant),
+                   lambda name: f"flash_fwd_{variant}" in name),
+            "mma_ms": (lambda: fa._launch(q, k, v, scale, "mma"),
+                       lambda name: "flash_fwd_mma" in name),
+            "library_ms": (lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                           lambda name: not any(f"flash_fwd_{v}" in name for v in fa.VARIANTS)),
+        }, calls)
+        device[case] = {
+            "variant": variant, **ms, "library_backend": sdpa_backend(qt, kt, vt),
+            "calls": calls, "bound_ms": attention_bound_ms(
+                tuple(q.shape), tuple(k.shape), q.element_size(), H100_BF16_FLOPS)[0]}
     emit({"phase": "kernel", "cases": cases, "controls": controls, "timed": rows,
-          "timed_shapes": shapes})
+          "timed_throughput": throughput, "timed_shapes": shapes, "device_timed": device,
+          "seconds": time.perf_counter() - start})
     return rows
 
 
@@ -505,9 +609,6 @@ def profile_step(phase: str, step) -> dict:
     time, K1's share of all kernel time and of the step, and the device's busy share
     (kernel time over the step's wall time, one stream, so kernels do not overlap).
     Kernel times come from the profiler's trace (its ``kernel`` events)."""
-    import os
-    import tempfile
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -517,20 +618,7 @@ def profile_step(phase: str, step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
-    totals: dict[str, list] = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            tot = totals.setdefault(e["name"], [0.0, 0])
-            tot[0] += e["dur"] / 1e3  # µs -> ms
-            tot[1] += 1
+    totals = kernel_times(prof)
     kernel_ms = sum(t[0] for t in totals.values())
     k1_ms = sum(t[0] for n, t in totals.items() if "flash_fwd" in n)
     k1_calls = sum(t[1] for n, t in totals.items() if "flash_fwd" in n)
@@ -602,7 +690,7 @@ def phase_pipeline(pm) -> dict:
     the FLUX VAE with random weights from a seeded generator, 1024², batch 1, 4
     steps, guidance 3.5; then one img2img call (denoise 0.5, 2 steps) on its
     output. K1 must serve every attention call of the DiT (``sm90``) and of the
-    VAE's mid blocks (``d512``); the images must be finite, (1, 1024, 1024, 3) and
+    VAE's mid blocks (``wide``); the images must be finite, (1, 1024, 1024, 3) and
     in [0, 1]; the decode through K1 must agree with the same decode on the plain
     attention path. Returns K1's launches by variant in each call."""
     import torch
@@ -675,8 +763,8 @@ def phase_pipeline(pm) -> dict:
             "min": img.min().item(), "max": img.max().item(),
         }
 
-    def check(res, steps, d512):
-        want = {"sm90": 57 * steps, "d512": d512}
+    def check(res, steps, wide):
+        want = {"sm90": 57 * steps, "wide": wide}
         return (res["image"] == [1, 1024, 1024, 3] and res["finite"] and res["min"] >= 0.0
                 and res["max"] <= 1.0 and res["resolved_backends"] == ["pallas"]
                 and {n: c for n, c in res["k1_launches_by_variant"].items() if c} == want)
@@ -718,7 +806,7 @@ SD_CFG = 7.0
 SD_NEGATIVE = "blurry, low quality"
 SD_REL_TOL = 5e-2  # bf16 SDXL and SD1.5 UNet forwards, K1 vs plain attention
 SDXL_SM90_PER_STEP = 140  # 70 transformer blocks × (self + cross), CFG in one call
-SD15_PER_FORWARD = {"sm90": 20, "mma": 10}  # head dims 40 and 80; 160
+SD15_PER_FORWARD = {"sm90": 20, "wide": 10}  # head dims 40 and 80; 160
 
 
 def _launched(fa) -> dict:
@@ -807,7 +895,7 @@ def phase_sd_pipeline() -> dict:
         "encode_s": spans["encode_s"], "decode_s": spans["decode_s"],
         "s_per_it": sum(step_s) / len(step_s), "step_s": step_s,
         "max_memory_allocated": peak, "k1_launches_by_variant": launches,
-        "k1_launches_expected": {"sm90": SDXL_SM90_PER_STEP * SD_STEPS, "d512": 1},
+        "k1_launches_expected": {"sm90": SDXL_SM90_PER_STEP * SD_STEPS, "wide": 1},
         "resolved_backends": resolved, "image": list(img.shape),
         "finite": bool(torch.isfinite(img).all().item()),
         "min": img.min().item(), "max": img.max().item(),
@@ -924,7 +1012,7 @@ def phase_sd_samplers() -> dict:
           "dpmpp_2m_step_s": step_s, "k1_launches_by_variant": total})
 
     # One UNet forward (batch 2, as CFG runs it) through K1 and on plain attention:
-    # head dims 40 and 80 on sm90 with 77-key cross-attention tails, 160 on mma.
+    # head dims 40 and 80 on sm90 with 77-key cross-attention tails, 160 on wide.
     x = torch.cat([noise, init])
     t = torch.tensor([999.0, 999.0], device=dev)
     out_k = pm(x, t, torch.cat([ctx, uctx])).float()
@@ -968,8 +1056,9 @@ def main() -> int:
     paths = {"main_path": main_launches, **pipe_launches, "sd_pipeline": sd_launches,
              "sd_samplers": sampler_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
-    sources = {"sm90": "flash_attention_sm90.cuh", "mma": "flash_attention.cu",
-               "d512": "flash_attention.cu", "f32": "flash_attention.cu"}
+    sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
+               "mma": "flash_attention.cu", "d512": "flash_attention.cu",
+               "f32": "flash_attention_f32.cu"}
     emit({"kernels": [{
         "name": "flash_attention",
         "variant": variant,

@@ -9,15 +9,20 @@
 // Bound on an H100 SXM at the FLUX-dev 1024² shape (B=1, S=4608, H=24, D=128):
 // 4·B·H·S²·D = 261 GFLOP per call (0.264 ms at 989 TFLOP/s bf16) against 113 MB of
 // q/k/v/o (0.034 ms at 3.35 TB/s), so the call is bound by tensor-core operations.
-// Every variant keeps the S×S logits out of device memory. Four variants; the
+// Every variant keeps the S×S logits out of device memory. Five variants; the
 // caller names one and exactly that one is launched (see `kernel_variant` in
 // ops/kernels/flash_attention.py for the rule):
 //   - `sm90` (flash_attention_sm90.cuh): bf16/f16, head_dim ≤ 128 and a multiple of
 //     8, 16-byte aligned data and strides, a positive scale: TMA loads, a
 //     warp-specialised producer and two wgmma consumer warpgroups. It serves the
-//     FLUX-dev main path.
-//   - `mma` (below): the other bf16/f16 calls (head_dim in (128, 256], unaligned
-//     views, a scale ≤ 0), on mma.sync m16n8k16 with f32 accumulation:
+//     FLUX-dev main path and the UNets' head dims 40, 64 and 80.
+//   - `wide` (flash_attention_wide.cuh, compiled in flash_attention_wide.cu): the
+//     same conditions with head_dim in (128, 512]: the VAE mid-block's 512-wide head
+//     and SD1.5's 160-wide heads. Two wgmma warpgroups share 64 query rows and split
+//     the output's columns.
+//   - `mma` (below): the bf16/f16 calls that TMA cannot take with head_dim ≤ 256
+//     (unaligned views, head_dim % 8 != 0, a scale ≤ 0), on mma.sync m16n8k16 with
+//     f32 accumulation:
 //       - one CTA of 4 warps per (batch·head, 64-query tile); each warp owns 16 rows;
 //       - the TPU grid's sequential key-block axis is a loop inside the CTA; each
 //         64-key K/V tile is staged in shared memory (rows padded by 8 elements so
@@ -26,10 +31,8 @@
 //         is re-packed in registers as the A operand of P·V;
 //       - the ragged seq_k tail is masked in the loop, the seq_q tail on store, and the
 //         head dim is padded to 64/128/256 by zero-filling shared memory.
-//   - `d512` (below): bf16/f16 with head_dim in (256, 512], the VAE mid-block's
-//     one 512-wide head. Bound at the FLUX VAE's 1024² shape (B=1, S=16384, H=1,
-//     D=512) by operations: 4·S²·D = 550 GFLOP (0.556 ms at 989 TFLOP/s) against
-//     67 MB of q/k/v/o. One 64-query tile's f32 output is 128 KB, more than one
+//   - `d512` (below): the bf16/f16 calls that TMA cannot take with head_dim in
+//     (256, 512]. One 64-query tile's f32 output is 128 KB, more than one
 //     warpgroup's registers hold, so the CTA has 8 warps and splits it: for
 //     S = Q·Kᵀ each warp takes 16 rows × 32 keys of a 64-key block; the scaled,
 //     masked logits go to shared memory, where 4 threads per row run the online
@@ -37,8 +40,10 @@
 //     256 output columns (128 f32 accumulators a thread). Q, K and V tiles of
 //     64 × 512 live in shared memory together (222 KB with S, P and the row
 //     state).
-//   - `f32` (below): float32 inputs, a scalar-FMA kernel with the same tiling in
-//     full f32 (not on the bf16 main path), head_dim up to 512.
+//   - `f32` (flash_attention_f32.cu): float32 inputs, a scalar-FMA kernel with the
+//     same tiling in full f32 (not on the bf16 main path), head_dim up to 512.
+// The wide and f32 variants are translation units of their own, compiled in
+// parallel with this one and linked into the same library.
 // Grids cover at most 65535 batch·head slices (gridDim.y), so larger batches are
 // launched in chunks of whole batch rows.
 
@@ -48,29 +53,31 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_params.cuh"
 #include "flash_attention_sm90.cuh"
+
+// The f32 variant, compiled in flash_attention_f32.cu.
+extern "C" cudaError_t pa_flash_attention_f32(int batch, cudaStream_t stream,
+                                              const pa_flash::Params& p);
+
+// The wide variant, compiled in flash_attention_wide.cu.
+extern "C" cudaError_t pa_flash_attention_wide(
+    const void* q, const void* k, const void* v, void* o, int dtype, int batch, int heads,
+    int seq_q, int seq_k, int head_dim, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh, float scale_log2,
+    cudaStream_t stream);
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
+using pa_flash::kLog2e;
+using pa_flash::kThreads;
+using pa_flash::launch;
+using pa_flash::Params;
+
 constexpr int kBlockQ = 64;    // 16 query rows per warp
 constexpr int kBlockK = 64;
 constexpr int kSmemPad = 8;    // 16-bit elements of padding per shared-memory row
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  int heads, seq_q, seq_k, head_dim;
-  float scale_log2;  // scale · log2(e): the softmax runs on exp2
-  int vec_ok;        // every row 16-byte aligned and head_dim % 8 == 0
-};
 
 // ---------------------------------------------------------------------------
 // bf16 / f16 tensor-core kernel
@@ -456,119 +463,6 @@ __global__ void __launch_bounds__(kD512Threads, 1) flash_fwd_d512(Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// float32 kernel: same tiling idea, scalar FMA in full f32
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Block = 32;  // query rows and keys per tile
-
-template <int D_PAD>
-__device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* src,
-                                              long long row_stride, int row0, int n_rows,
-                                              int head_dim) {
-  for (int idx = threadIdx.x; idx < kF32Block * D_PAD; idx += kThreads) {
-    const int r = idx / D_PAD;
-    const int c = idx % D_PAD;
-    const int row = row0 + r;
-    dst[r * ld + c] =
-        (row < n_rows && c < head_dim) ? src[(long long)row * row_stride + c] : 0.f;
-  }
-}
-
-template <int D_PAD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
-  constexpr int LDQ = D_PAD + 1;       // odd stride: column walks are conflict free
-  constexpr int LDP = kF32Block + 1;
-  constexpr int kPerThread = D_PAD / 4;  // output columns owned by one thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);
-  float* k_s = q_s + kF32Block * LDQ;
-  float* v_s = k_s + kF32Block * LDQ;
-  float* p_s = v_s + kF32Block * D_PAD;
-  float* row_s = p_s + kF32Block * LDP;  // per-row alpha, then 1/l
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads;
-  const int h = bh % p.heads;
-  const int q0 = blockIdx.x * kF32Block;
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  load_tile_f32<D_PAD>(q_s, LDQ, qb, p.q_ss, q0, p.seq_q, p.head_dim);
-
-  const int t = threadIdx.x;
-  const int my_row = t / 4;  // row this thread accumulates
-  const int my_col = t % 4;  // first of its interleaved columns
-  float acc[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) acc[i] = 0.f;
-  float m_run = -INFINITY;  // threads t < 32 own the softmax state of row t
-  float l_run = 0.f;
-
-  const int n_kblocks = (p.seq_k + kF32Block - 1) / kF32Block;
-  for (int j = 0; j < n_kblocks; ++j) {
-    __syncthreads();
-    load_tile_f32<D_PAD>(k_s, LDQ, kb, p.k_ss, j * kF32Block, p.seq_k, p.head_dim);
-    load_tile_f32<D_PAD>(v_s, D_PAD, vb, p.v_ss, j * kF32Block, p.seq_k, p.head_dim);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kF32Block / 4; ++i) {
-      const int col = my_col + 4 * i;
-      float dot = 0.f;
-      for (int d = 0; d < D_PAD; ++d) dot = fmaf(q_s[my_row * LDQ + d], k_s[col * LDQ + d], dot);
-      p_s[my_row * LDP + col] =
-          (j * kF32Block + col < p.seq_k) ? dot * p.scale_log2 : -INFINITY;
-    }
-    __syncthreads();
-    if (t < kF32Block) {
-      float mx = m_run;
-      for (int c = 0; c < kF32Block; ++c) mx = fmaxf(mx, p_s[t * LDP + c]);
-      const float alpha = exp2f(m_run - mx);
-      float sum = 0.f;
-      for (int c = 0; c < kF32Block; ++c) {
-        const float e = exp2f(p_s[t * LDP + c] - mx);
-        p_s[t * LDP + c] = e;
-        sum += e;
-      }
-      l_run = l_run * alpha + sum;
-      m_run = mx;
-      row_s[t] = alpha;
-    }
-    __syncthreads();
-    const float alpha = row_s[my_row];
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int d = my_col + 4 * i;
-      float o = acc[i] * alpha;
-      for (int c = 0; c < kF32Block; ++c) o = fmaf(p_s[my_row * LDP + c], v_s[c * D_PAD + d], o);
-      acc[i] = o;
-    }
-  }
-  __syncthreads();
-  if (t < kF32Block) row_s[t] = 1.f / l_run;
-  __syncthreads();
-  const int row = q0 + my_row;
-  if (row < p.seq_q) {
-    float* ob = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss;
-    const float inv = row_s[my_row];
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int d = my_col + 4 * i;
-      if (d < p.head_dim) ob[d] = acc[i] * inv;
-    }
-  }
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                   const Params& p) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int D_PAD>
 cudaError_t dispatch_mma(int dtype, int batch, cudaStream_t stream, const Params& p) {
   const size_t smem = (size_t)(kBlockQ + 2 * kBlockK) * (D_PAD + kSmemPad) * sizeof(uint16_t);
@@ -585,21 +479,15 @@ cudaError_t dispatch_d512(int dtype, int batch, cudaStream_t stream, const Param
              : launch(flash_fwd_d512<__half>, grid, kD512Threads, d512_smem_bytes(), stream, p);
 }
 
-template <int D_PAD>
-cudaError_t dispatch_f32(int batch, cudaStream_t stream, const Params& p) {
-  const size_t smem = (size_t)(2 * kF32Block * (D_PAD + 1) + kF32Block * D_PAD +
-                               kF32Block * (kF32Block + 1) + kF32Block) * sizeof(float);
-  const dim3 grid((p.seq_q + kF32Block - 1) / kF32Block, batch * p.heads);
-  return launch(flash_fwd_f32<D_PAD>, grid, kThreads, smem, stream, p);
-}
-
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32, 2 = float16. variant: 0 = mma (head_dim <= 256),
-// 1 = f32, 2 = sm90, 3 = d512 (bf16/f16, head_dim <= 512); a variant that cannot take
-// the call is refused, never replaced by another. Strides are in elements; the head
-// dim is contiguous. Launches on `stream`, which must belong to the current device.
-// Returns the CUDA error of the launch (0 on success).
+// 1 = f32, 2 = sm90 (head_dim <= 128), 3 = d512 (bf16/f16, head_dim <= 512), 4 = wide
+// (head_dim in (128, 512]); sm90 and wide also need head_dim % 8 == 0, 16-byte aligned
+// pointers, strides that are positive multiples of 8 and a positive scale. A variant
+// that cannot take the call is refused, never replaced by another. Strides are in
+// elements; the head dim is contiguous. Launches on `stream`, which must belong to the
+// current device. Returns the CUDA error of the launch (0 on success).
 extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       int dtype, int variant, int batch, int heads, int seq_q,
                                       int seq_k, int head_dim, long long q_sb, long long q_ss,
@@ -610,21 +498,23 @@ extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* 
   if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > kD512 || seq_q < 1 || seq_k < 1 ||
       batch < 1 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
-  if ((variant == 1) != (dtype == 1) || variant < 0 || variant > 3 ||
+  if ((variant == 1) != (dtype == 1) || variant < 0 || variant > 4 ||
       (variant == 0 && head_dim > 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 2) {
+  if (variant == 2 || variant == 4) {
     const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                                  v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-    bool ok = head_dim <= 128 && head_dim % 8 == 0 && scale > 0.f;
+    bool ok = (variant == 2 ? head_dim <= 128 : head_dim > 128) && head_dim % 8 == 0 &&
+              scale > 0.f;
     for (long long st : strides) ok = ok && st > 0 && st % 8 == 0;
     const void* ptrs[] = {q, k, v, o};
     for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
     if (!ok) return (int)cudaErrorInvalidValue;
-    return (int)pa_sm90::launch(q, k, v, o, dtype, batch, heads, seq_q, seq_k, head_dim, q_sb,
-                                q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                                scale * kLog2e, s);
+    const auto launch_tma = variant == 2 ? pa_sm90::launch : pa_flash_attention_wide;
+    return (int)launch_tma(q, k, v, o, dtype, batch, heads, seq_q, seq_k, head_dim, q_sb, q_ss,
+                           q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                           scale * kLog2e, s);
   }
   const long long esize = dtype == 1 ? 4 : 2;
   const int max_batch = 65535 / heads;  // gridDim.y limit on batch·head slices
@@ -638,12 +528,8 @@ extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* 
              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
              heads, seq_q, seq_k, head_dim, scale * kLog2e, vec_ok};
     if (variant == 3) err = dispatch_d512(dtype, nb, s, p);
-    else if (variant == 1) {
-      if (head_dim <= 64) err = dispatch_f32<64>(nb, s, p);
-      else if (head_dim <= 128) err = dispatch_f32<128>(nb, s, p);
-      else if (head_dim <= 256) err = dispatch_f32<256>(nb, s, p);
-      else err = dispatch_f32<512>(nb, s, p);
-    } else {
+    else if (variant == 1) err = pa_flash_attention_f32(nb, s, p);
+    else {
       if (head_dim <= 64) err = dispatch_mma<64>(dtype, nb, s, p);
       else if (head_dim <= 128) err = dispatch_mma<128>(dtype, nb, s, p);
       else err = dispatch_mma<256>(dtype, nb, s, p);

@@ -37,14 +37,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_tma.cuh"
 #include "hopper.cuh"
 
 namespace pa_sm90 {
 
+using pa_tma::encode_bshd;
+using pa_tma::fast_exp2;
+using pa_tma::IsBf16;
+using pa_tma::kBoxCols;
+using pa_tma::pack2;
+using pa_tma::row_max;
+
 constexpr int kThreads = 384;      // producer warpgroup + 2 consumer warpgroups
 constexpr int kBlockQ = 128;       // 64 query rows per consumer
 constexpr int kBlockK = 128;       // keys per K/V tile
-constexpr int kBoxCols = 64;       // head-dim columns per 128-byte swizzled row
 constexpr int kRowBytes = 128;
 constexpr int kBoxBytes = kBlockK * kRowBytes;  // one 64-column box of 128 rows
 constexpr int kConsumerWarps = 8;
@@ -69,55 +76,6 @@ struct Args {
   int bh0;           // first batch·head slice of this launch
   float scale_log2;  // scale · log2(e) > 0: the softmax runs on exp2
 };
-
-template <typename T>
-struct IsBf16 {
-  static constexpr bool value = false;
-};
-template <>
-struct IsBf16<__nv_bfloat16> {
-  static constexpr bool value = true;
-};
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Each of the thread's two rows' max of one 64 × 128 logits accumulator (unscaled).
-// With kMask, keys at column ≥ `n_valid` (counted from this thread's first column,
-// 2t) first become -inf.
-template <bool kMask>
-__device__ __forceinline__ void row_max(float (&s)[64], float (&mx)[2], int n_valid) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (kMask && i * 8 + e >= n_valid) {
-        s[4 * i + e] = -INFINITY;
-        s[4 * i + 2 + e] = -INFINITY;
-      }
-      mx[0] = fmaxf(mx[0], s[4 * i + e]);
-      mx[1] = fmaxf(mx[1], s[4 * i + 2 + e]);
-    }
-  }
-}
 
 template <int D_PAD, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -326,49 +284,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps and launch
+// Host side: launch
 // ---------------------------------------------------------------------------
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime so the library needs
-// no -lcuda.
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over (D, H, S, B) of a BSHD tensor with element strides (sb, ss, sh, 1);
-// boxes of 64 head-dim columns × `box_rows` sequence rows of one (b, h), stored with
-// the 128-byte swizzle. Reads outside the tensor are zero-filled.
-inline bool encode_bshd(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr, int batch,
-                        int seq, int heads, int head_dim, long long sb, long long ss,
-                        long long sh, int box_rows) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)heads, (cuuint64_t)seq,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return enc(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D_PAD, typename T>
 cudaError_t launch_t(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,

@@ -168,6 +168,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
 
+#define PA_REGS_96                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "     \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "      \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "      \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "      \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "      \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95}"
+
+#define PA_REGS_128                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "     \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "      \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "      \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "      \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "      \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "        \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "       \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
 // D(64×128, f32) = A(64×16) · B(16×128) + (scale_d ? D : 0), A and B from shared
 // memory, both K-major.
 #define PA_WGMMA_SS_N128(TY)                                                                  \
@@ -177,6 +195,34 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
                : PA_F8(0), PA_F8(8), PA_F8(16), PA_F8(24), PA_F8(32), PA_F8(40), PA_F8(48),   \
                  PA_F8(56)                                                                    \
                : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+// D(64×64, f32) = A(64×16) · B(16×64) + (scale_d ? D : 0), A and B from shared
+// memory, both K-major.
+#define PA_WGMMA_SS_N64(TY)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                   \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " PA_REGS_32        \
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                              \
+               : PA_F8(0), PA_F8(8), PA_F8(16), PA_F8(24)                                     \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+// D(64×256, f32) += A(64×16, registers) · B(16×256, shared memory, MN-major).
+#define PA_WGMMA_RS_N256(TY)                                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                  \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " PA_REGS_128      \
+               ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                           \
+               : PA_F8(0), PA_F8(8), PA_F8(16), PA_F8(24), PA_F8(32), PA_F8(40), PA_F8(48),   \
+                 PA_F8(56), PA_F8(64), PA_F8(72), PA_F8(80), PA_F8(88), PA_F8(96),            \
+                 PA_F8(104), PA_F8(112), PA_F8(120)                                           \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+// D(64×192, f32) += A(64×16, registers) · B(16×192, shared memory, MN-major).
+#define PA_WGMMA_RS_N192(TY)                                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                                  \
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " " PA_REGS_96       \
+               ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"                               \
+               : PA_F8(0), PA_F8(8), PA_F8(16), PA_F8(24), PA_F8(32), PA_F8(40), PA_F8(48),   \
+                 PA_F8(56), PA_F8(64), PA_F8(72), PA_F8(80), PA_F8(88)                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
 
 // D(64×128, f32) += A(64×16, registers) · B(16×128, shared memory, MN-major).
 #define PA_WGMMA_RS_N128(TY)                                                                  \
@@ -206,11 +252,34 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
   }
 }
 
+template <bool kBf16>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  if constexpr (kBf16) {
+    PA_WGMMA_SS_N64("bf16");
+  } else {
+    PA_WGMMA_SS_N64("f16");
+  }
+}
+
 template <bool kBf16, int N>
 __device__ __forceinline__ void wgmma_rs_m64k16(float (&d)[N / 2], const uint32_t (&a)[4],
                                                 uint64_t desc_b) {
-  static_assert(N == 64 || N == 128, "wgmma_rs_m64k16 takes N = 64 or 128");
-  if constexpr (N == 128) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "wgmma_rs_m64k16 takes N = 64, 128, 192 or 256");
+  if constexpr (N == 256) {
+    if constexpr (kBf16) {
+      PA_WGMMA_RS_N256("bf16");
+    } else {
+      PA_WGMMA_RS_N256("f16");
+    }
+  } else if constexpr (N == 192) {
+    if constexpr (kBf16) {
+      PA_WGMMA_RS_N192("bf16");
+    } else {
+      PA_WGMMA_RS_N192("f16");
+    }
+  } else if constexpr (N == 128) {
     if constexpr (kBf16) {
       PA_WGMMA_RS_N128("bf16");
     } else {
@@ -227,7 +296,12 @@ __device__ __forceinline__ void wgmma_rs_m64k16(float (&d)[N / 2], const uint32_
 
 #undef PA_WGMMA_RS_N64
 #undef PA_WGMMA_RS_N128
+#undef PA_WGMMA_RS_N192
+#undef PA_WGMMA_RS_N256
+#undef PA_WGMMA_SS_N64
 #undef PA_WGMMA_SS_N128
+#undef PA_REGS_128
+#undef PA_REGS_96
 #undef PA_REGS_64
 #undef PA_REGS_32
 #undef PA_F8

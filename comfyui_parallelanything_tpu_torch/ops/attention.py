@@ -9,15 +9,19 @@ q/k/v ("BSHD") and return (B, S, H, D).
 - ``"pallas"`` — the hand-written flash-attention kernel
   (``ops/kernels/flash_attention.py``; the name matches the JAX package's so
   ``resolved_backends()`` reads the same on both sides).
-- ``"auto"`` — a CUDA tensor goes to the kernel, a CPU tensor to the xla family.
-  There is no measured table yet that could send a CUDA shape elsewhere, so a CUDA
-  call the kernel does not take (head dim above 512, float64) raises; select
-  ``"xla"`` for those.
+- ``"auto"`` — a CUDA call that one of the kernel's variants takes goes to the
+  kernel; every other call (a CPU tensor, or on CUDA a head dim above 512 or
+  float64) goes to the xla family, as the JAX package's ``auto`` sends what its
+  kernel cannot take. The rule is the kernel's own ``kernel_takes`` (which
+  ``kernel_variant`` applies first), checked before the launch. There is no
+  measured table yet that could send a CUDA shape the kernel takes elsewhere.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .kernels.flash_attention import flash_attention, kernel_takes
 
 _BACKEND_NAMES = ("auto", "xla", "xla_chunked", "pallas")
 
@@ -75,13 +79,11 @@ def attention_local(q, k, v, scale: float | None = None) -> torch.Tensor:
         scale = q.shape[-1] ** -0.5
     backend = _BACKEND
     if backend == "auto":
-        backend = "pallas" if q.is_cuda else "xla"
+        backend = "pallas" if q.is_cuda and kernel_takes(q, k, v) else "xla"
     if backend == "xla" and q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] > _CHUNK_THRESHOLD:
         backend = "xla_chunked"
     _RESOLVED.add(backend)
     if backend == "pallas":
-        from .kernels.flash_attention import flash_attention
-
         return flash_attention(q, k, v, scale=scale)
     if backend == "xla_chunked":
         return _xla_chunked_attention(q, k, v, scale)

@@ -10,24 +10,32 @@ call does 4·B·H·S²·D = 261 GFLOP (0.264 ms at 989 TFLOP/s bf16) and must mo
 113 MB of q/k/v/o (0.034 ms at 3.35 TB/s), so it is bound by tensor-core
 operations. The CUDA source (``csrc/flash_attention.cu``) keeps the S×S logits
 out of device memory and reads the BSHD layout in place from strides (no
-fold/transpose/pad copies). It has four variants, and ``kernel_variant`` picks
+fold/transpose/pad copies). It has five variants, and ``kernel_variant`` picks
 one from dtype, shape, strides and alignment before the launch:
 
 - ``sm90`` (``csrc/flash_attention_sm90.cuh``): bf16 or f16, head dim ≤ 128 and a
   multiple of 8, every ``data_ptr`` 16-byte aligned, strides of dims 0–2 positive
   multiples of 8 elements (TMA's 16-byte rule), a positive scale (the kernel takes
   the softmax max on unscaled logits). TMA loads feed two ``wgmma`` consumer
-  warpgroups from a warp-specialised producer. Every FLUX-dev call.
-- ``d512``: bf16/f16 with head dim in (256, 512] (the VAE mid-block's one
-  512-wide head), ``mma.sync`` on 8 warps that split the 64 × 512 output tile,
-  with Q, K and V tiles and the block's logits in shared memory. Bound at the FLUX
-  VAE's 1024² shape (1, 16384, 1, 512) by operations: 550 GFLOP, 0.556 ms.
-- ``mma``: the other bf16/f16 calls (head dim in (128, 256], unaligned views, a
-  scale ≤ 0), ``mma.sync`` with K/V tiles staged through shared memory.
+  warpgroups from a warp-specialised producer. Every FLUX-dev call, and the UNets'
+  head dims 40, 64 and 80.
+- ``wide`` (``csrc/flash_attention_wide.cuh``): the same conditions with head dim
+  in (128, 512]: the VAE mid-block's one 512-wide head and SD1.5's 160-wide heads.
+  Two ``wgmma`` consumer warpgroups share 64 query rows and each keeps half of the
+  output's columns; K and V tiles share one TMA ring. Bound at the FLUX VAE's 1024²
+  shape (1, 16384, 1, 512) by operations: 550 GFLOP, 0.556 ms.
+- ``mma``: the bf16/f16 calls that TMA cannot take (unaligned views, head dim not
+  a multiple of 8, a scale ≤ 0) with head dim ≤ 256, ``mma.sync`` with K/V tiles
+  staged through shared memory.
+- ``d512``: the same calls with head dim in (256, 512], ``mma.sync`` on 8 warps
+  that split the 64 × 512 output tile, with Q, K and V tiles and the block's
+  logits in shared memory.
 - ``f32``: float32, a scalar-FMA kernel in full f32, head dims up to 512.
 
-``flash_attention`` launches the chosen variant for CUDA tensors and raises on what
-no variant takes (head dims above 512, float64); it computes
+``kernel_takes`` is false, and ``kernel_variant`` answers ``None``, for what no
+variant takes (head dims above 512, float64, a strided head dim, an empty dim,
+more than 65535 heads): ``ops/attention.py``'s ``auto`` sends those calls to the
+xla family, and ``flash_attention`` raises ``ValueError`` on them. It computes
 ``flash_attention_plain`` only for CPU tensors. ``launches`` counts kernel
 launches, ``launches_by_variant`` the same per variant.
 """
@@ -40,7 +48,7 @@ import torch
 
 from . import build
 
-VARIANTS = ("sm90", "mma", "f32", "d512")
+VARIANTS = ("sm90", "mma", "f32", "d512", "wide")
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
@@ -48,7 +56,7 @@ MAX_HEAD_DIM = 512
 MMA_MAX_HEAD_DIM = 256
 SM90_MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
-_VARIANT_CODES = {"mma": 0, "f32": 1, "sm90": 2, "d512": 3}
+_VARIANT_CODES = {"mma": 0, "f32": 1, "sm90": 2, "d512": 3, "wide": 4}
 _FN = None
 
 
@@ -64,17 +72,28 @@ def _tma_ready(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
 
 
-def kernel_variant(q, k, v, scale: float | None = None) -> str:
-    """The variant of K1 that serves a call on these tensors: ``sm90``, ``mma``,
-    ``d512`` or ``f32``. Pure Python on dtype, shape, strides, ``data_ptr``
-    alignment and the scale (``None``: the default ``D**-0.5``), so it answers for
-    CPU tensors too."""
+def kernel_takes(q, k, v) -> bool:
+    """Whether some variant of K1 takes a call on these (B, S, H, D) tensors: bf16,
+    f16 or f32, head dim ≤ 512, no empty dim, at most 65535 heads, a contiguous head
+    dim. Pure Python on dtype, shape and strides."""
+    b, sq, h, d = q.shape
+    return (q.dtype in _DTYPE_CODES and d <= MAX_HEAD_DIM and h <= 65535
+            and min(b, sq, h, k.shape[1]) >= 1 and all(t.stride(-1) == 1 for t in (q, k, v)))
+
+
+def kernel_variant(q, k, v, scale: float | None = None) -> str | None:
+    """The variant of K1 that serves a call on these (B, S, H, D) tensors: ``sm90``,
+    ``wide``, ``mma``, ``d512`` or ``f32``, or ``None`` where none takes it
+    (``kernel_takes``). Pure Python on dtype, shape, strides, ``data_ptr`` alignment
+    and the scale (``None``: the default ``D**-0.5``), so it answers for CPU and meta
+    tensors too."""
+    if not kernel_takes(q, k, v):
+        return None
     if q.dtype == torch.float32:
         return "f32"
     d = q.shape[-1]
-    if (d <= SM90_MAX_HEAD_DIM and d % 8 == 0 and (scale is None or scale > 0)
-            and all(_tma_ready(t) for t in (q, k, v))):
-        return "sm90"
+    if d % 8 == 0 and (scale is None or scale > 0) and all(_tma_ready(t) for t in (q, k, v)):
+        return "sm90" if d <= SM90_MAX_HEAD_DIM else "wide"
     return "d512" if d > MMA_MAX_HEAD_DIM else "mma"
 
 
@@ -149,8 +168,9 @@ def _launch(q, k, v, scale: float, variant: str) -> torch.Tensor:
     if variant == "mma" and head_dim > MMA_MAX_HEAD_DIM:
         raise ValueError(f"the mma variant takes head dims up to {MMA_MAX_HEAD_DIM}, "
                          f"got {head_dim}")
-    if variant == "sm90" and kernel_variant(q, k, v, scale) != "sm90":
-        raise ValueError("the sm90 variant needs head_dim <= 128 and a multiple of 8, "
+    if variant in ("sm90", "wide") and kernel_variant(q, k, v, scale) != variant:
+        dims = "head_dim <= 128" if variant == "sm90" else "head_dim in (128, 512]"
+        raise ValueError(f"the {variant} variant needs {dims} and a multiple of 8, "
                          "16-byte aligned data, strides that are multiples of 8 and a "
                          "positive scale")
     out = torch.empty((batch, seq_q, heads, head_dim), dtype=q.dtype, device=q.device)

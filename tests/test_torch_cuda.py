@@ -62,16 +62,22 @@ def _no_tf32():
 
 
 # The smoke run's cases, plus a 256-wide head, a small f32 case with D=40, a
-# 264-wide head (the smallest the d512 variant serves), a single query and key at
-# D=512, and the d512 variant past 65535 batch·heads.
+# 264-wide head, a single query and key at D=512, and the wide variant past 65535
+# batch·heads; then the wide variant at the edges of its padded widths (136, 192,
+# 384) and in f16 at D=160, and the d512 variant at an unaligned D=264.
 @pytest.mark.parametrize(
     "qshape,kshape,dtype_name,layout,variant",
     [c[1:] for c in chip_smoke.KERNEL_CASES]
-    + [((2, 130, 3, 256), (2, 70, 3, 256), "bfloat16", "contiguous", "mma"),
+    + [((2, 130, 3, 256), (2, 70, 3, 256), "bfloat16", "contiguous", "wide"),
        ((1, 100, 2, 40), (1, 77, 2, 40), "float32", "contiguous", "f32"),
-       ((2, 65, 3, 264), (2, 129, 3, 264), "bfloat16", "contiguous", "d512"),
-       ((1, 1, 1, 512), (1, 1, 1, 512), "bfloat16", "contiguous", "d512"),
-       ((65537, 2, 1, 512), (65537, 3, 1, 512), "bfloat16", "contiguous", "d512")],
+       ((2, 65, 3, 264), (2, 129, 3, 264), "bfloat16", "contiguous", "wide"),
+       ((1, 1, 1, 512), (1, 1, 1, 512), "bfloat16", "contiguous", "wide"),
+       ((65537, 2, 1, 512), (65537, 3, 1, 512), "bfloat16", "contiguous", "wide"),
+       ((2, 130, 3, 136), (2, 70, 3, 136), "bfloat16", "contiguous", "wide"),
+       ((2, 130, 3, 192), (2, 200, 3, 192), "bfloat16", "contiguous", "wide"),
+       ((2, 130, 3, 384), (2, 200, 3, 384), "bfloat16", "contiguous", "wide"),
+       ((2, 256, 8, 160), (2, 77, 8, 160), "float16", "contiguous", "wide"),
+       ((2, 65, 3, 264), (2, 129, 3, 264), "bfloat16", "unaligned", "d512")],
 )
 def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype_name, layout,
                                               variant):
@@ -93,6 +99,56 @@ def test_mma_variant_forced_on_aligned_inputs_matches_plain(cuda_device, qshape,
     assert fa.launches_by_variant["mma"] == before + 1
     res = chip_smoke.kernel_error(got, q, k, v)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("variant,qshape,kshape", [
+    ("mma", (2, 256, 8, 160), (2, 77, 8, 160)),
+    ("mma", (2, 300, 4, 256), (2, 513, 4, 256)),
+    ("d512", (2, 300, 2, 512), (2, 513, 2, 512)),
+    ("d512", (2, 300, 2, 320), (2, 513, 2, 320)),
+])
+def test_mma_variants_forced_on_wide_inputs_match_plain(cuda_device, variant, qshape, kshape):
+    # Inputs the wide variant takes, launched through the mma.sync variants that
+    # serve what TMA cannot take: they stay right on inputs they no longer serve.
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = chip_smoke.make_case(qshape, kshape, "bfloat16", "contiguous", g, cuda_device)
+    assert fa.kernel_variant(q, k, v) == "wide"
+    before = fa.launches_by_variant[variant]
+    got = fa._launch(q, k, v, qshape[-1] ** -0.5, variant)
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant[variant] == before + 1
+    res = chip_smoke.kernel_error(got, q, k, v)
+    assert res["ok"], res
+
+
+def test_wide_variant_refuses_what_it_cannot_take(cuda_device):
+    x = torch.zeros((1, 8, 1, 128), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wide variant needs"):
+        fa._launch(x, x, x, 0.1, "wide")
+    y = torch.zeros((1, 8, 1, 512), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="positive scale"):
+        fa._launch(y, y, y, -0.1, "wide")
+    u = torch.zeros(8 * 512 + 1, device=cuda_device, dtype=torch.bfloat16)[1:].view(1, 8, 1, 512)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch(u, u, u, 0.1, "wide")
+
+
+@pytest.mark.parametrize("d,dtype", [(520, torch.bfloat16), (64, torch.float64)])
+def test_auto_attention_sends_what_no_variant_takes_to_xla(cuda_device, d, dtype):
+    # Under auto, a CUDA call that K1 cannot take (a head dim above 512, float64)
+    # takes the xla family, as the JAX package's auto does; a direct flash_attention
+    # call still raises.
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn((1, 100, 2, d), generator=g, device=cuda_device, dtype=dtype)
+               for _ in range(3))
+    assert fa.kernel_variant(q, k, v) is None
+    attention._RESOLVED.clear()
+    launches = fa.launches
+    got = attention.attention_local(q, k, v)
+    assert attention.resolved_backends() == ("xla",) and fa.launches == launches
+    torch.testing.assert_close(got, attention._xla_attention(q, k, v, d ** -0.5))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v)
 
 
 def test_sm90_variant_refuses_what_it_cannot_take(cuda_device):
@@ -266,7 +322,7 @@ def test_small_pipeline_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
                             pipe("a horse", init_image=init, denoise=0.5, **kw).cpu())
         launched = dict(fa.launches_by_variant)
     # txt2img: 2 steps × 2 blocks + 1 decode; img2img: 1 encode + 2 steps × 2 + 1 decode.
-    assert launched == {"sm90": 0, "mma": 0, "f32": 4 + 1 + 1 + 4 + 1, "d512": 0}
+    assert launched == {"sm90": 0, "mma": 0, "f32": 4 + 1 + 1 + 4 + 1, "d512": 0, "wide": 0}
     for got, want in zip(images["cuda"], images["cpu"]):
         assert got.shape == (1, 16, 16, 3)
         rel = ((got - want).norm() / want.norm()).item()
@@ -275,12 +331,14 @@ def test_small_pipeline_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
 
 def test_small_bf16_pipeline_takes_the_d512_variant(cuda_device):
     # A VAE whose mid blocks are 512 channels wide, as in every kl-f8 VAE: its
-    # attention is one 512-wide head, which K1 serves with the d512 variant.
+    # attention is one 512-wide head, which K1 serves with the wide variant (the
+    # d512 variant served it before wide existed; it now takes only what TMA cannot).
     pipe = _small_pipeline(cuda_device, torch.bfloat16, vae_base=256, vae_groups=32)
     fa.reset_launches()
     img = pipe("a horse on the moon", steps=2, height=32, width=32)
     torch.cuda.synchronize()
-    assert fa.launches_by_variant["d512"] == 1 and fa.launches_by_variant["sm90"] == 4
+    assert fa.launches_by_variant["wide"] == 1 and fa.launches_by_variant["sm90"] == 4
+    assert fa.launches_by_variant["d512"] == 0
     assert img.shape == (1, 32, 32, 3) and img.dtype == torch.bfloat16
     assert torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1
 
@@ -294,7 +352,7 @@ SMALL_UNET = dict(model_channels=80, channel_mult=(1, 2, 4), num_res_blocks=1,
 
 @pytest.mark.parametrize("dtype,rel_tol,variants",
                          [(torch.float32, 1e-4, {"f32": 20}),
-                          (torch.bfloat16, 5e-2, {"sm90": 12, "mma": 8})])
+                          (torch.bfloat16, 5e-2, {"sm90": 12, "wide": 8})])
 def test_small_unet_sampler_on_the_card_matches_the_cpu(cuda_device, monkeypatch, dtype,
                                                         rel_tol, variants):
     # dpmpp_2m, 2 steps, CFG (cond ‖ uncond in one batch-2 forward per step): 10

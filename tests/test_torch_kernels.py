@@ -38,6 +38,8 @@ def _qkv(seed, b, sq, sk, h, d):
         (1, 300, 513, 2, 32, 128),
         (2, 128, 128, 2, 40, 64),     # head dim padded to 128 lanes on the TPU side
         (1, 128, 1024, 1, 32, 64),    # 16 streamed key blocks
+        (1, 100, 80, 2, 160, 64),     # SD1.5's deepest head dim, padded to 256 lanes
+        (1, 70, 130, 1, 512, 64),     # the VAE mid-block's one 512-wide head
     ],
 )
 def test_plain_matches_pallas_interpret(b, sq, sk, h, d, block):
@@ -92,7 +94,7 @@ def test_wrapper_rejects_bad_inputs():
 def test_build_is_keyed_by_source_and_outside_the_package():
     path = build.library_path("flash_attention")
     assert path.parent == build.BUILD_DIR and path.name.startswith("libflash_attention-")
-    assert (build.CSRC_DIR / build.SOURCES["flash_attention"]).exists()
+    assert all((build.CSRC_DIR / unit).exists() for unit in build.SOURCES["flash_attention"])
     assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
 
 
@@ -119,13 +121,23 @@ def _unaligned(shape, dtype=torch.bfloat16):
         ("d40", "sm90"),
         ("d64", "sm90"),
         ("d8", "sm90"),
-        ("d256", "mma"),
-        ("d264", "d512"),
-        ("d512", "d512"),
-        ("d1024", "d512"),  # which then refuses it: head dims above 512 raise
+        ("d136", "wide"),
+        ("d160", "wide"),
+        ("d256", "wide"),
+        ("d264", "wide"),
+        ("d320", "wide"),
+        ("d512", "wide"),
+        ("d130", "mma"),   # head dim not a multiple of 8: TMA cannot take it
+        ("d260", "d512"),
+        ("d1024", None),  # no variant: head dims above 512 go to the xla family
         ("unaligned_offset", "mma"),
+        ("unaligned_d160", "mma"),
+        ("unaligned_d512", "d512"),
         ("negative_scale", "mma"),
+        ("negative_scale_d512", "d512"),
         ("f32", "f32"),
+        ("f64", None),
+        ("strided_head_dim", None),
     ],
 )
 def test_kernel_variant_rule(case, want):
@@ -141,17 +153,22 @@ def test_kernel_variant_rule(case, want):
     elif case.startswith("d"):
         d = int(case[1:])
         q = k = v = torch.empty((2, 30, 4, d), dtype=torch.bfloat16)
-    elif case == "unaligned_offset":
-        q = k = torch.empty((2, 30, 4, 128), dtype=torch.bfloat16)
-        v = _unaligned((2, 30, 4, 128))
+    elif case.startswith("unaligned"):
+        d = int(case.removeprefix("unaligned_d")) if case != "unaligned_offset" else 128
+        q = k = torch.empty((2, 30, 4, d), dtype=torch.bfloat16)
+        v = _unaligned((2, 30, 4, d))
         assert v.data_ptr() % 16 != 0
-    elif case == "negative_scale":
-        q = k = v = torch.empty((2, 30, 4, 128), dtype=torch.bfloat16)
-        assert fa.kernel_variant(q, k, v, 0.1) == "sm90"
-        assert fa.kernel_variant(q, k, v, 0.0) == "mma"
+    elif case.startswith("negative_scale"):
+        d = 512 if case.endswith("d512") else 128
+        q = k = v = torch.empty((2, 30, 4, d), dtype=torch.bfloat16)
+        assert fa.kernel_variant(q, k, v, 0.1) == ("sm90" if d == 128 else "wide")
+        assert fa.kernel_variant(q, k, v, 0.0) == want
         scale = -0.1
+    elif case == "strided_head_dim":
+        q = k = v = torch.empty((2, 30, 128, 4), dtype=torch.bfloat16).transpose(2, 3)
     else:
-        q = k = v = torch.empty((2, 30, 4, 128), dtype=torch.float32)
+        dtype = torch.float32 if case == "f32" else torch.float64
+        q = k = v = torch.empty((2, 30, 4, 128), dtype=dtype)
     assert fa.kernel_variant(q, k, v, scale) == want
 
 
@@ -190,14 +207,15 @@ def test_build_key_covers_headers_and_link_flags(tmp_path, monkeypatch):
                            ("sm90", (2, 1024, 20, 64), 77): 60}),
      ("sd15_config", 64, {("sm90", (2, 4096, 8, 40), 4096): 5, ("sm90", (2, 4096, 8, 40), 77): 5,
                           ("sm90", (2, 1024, 8, 80), 1024): 5, ("sm90", (2, 1024, 8, 80), 77): 5,
-                          ("mma", (2, 256, 8, 160), 256): 5, ("mma", (2, 256, 8, 160), 77): 5})],
+                          ("wide", (2, 256, 8, 160), 256): 5,
+                          ("wide", (2, 256, 8, 160), 77): 5})],
     ids=["sdxl-1024", "sd15-512"],
 )
 def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name, hw, want):
     # A full-size UNet forward at batch 2 (CFG) on the meta device: shapes and
     # strides only, no memory. Every attention call's q/k/v as the UNet lays them
     # out, through the variant rule: SDXL at 1024² makes 140 calls, all sm90;
-    # SD1.5 at 512² makes 20 sm90 (head dims 40, 80) and 10 mma (160) calls, with
+    # SD1.5 at 512² makes 20 sm90 (head dims 40, 80) and 10 wide (160) calls, with
     # no middle transformer (the JAX package's middle_depth gives it none).
     from collections import Counter
 
@@ -225,3 +243,58 @@ def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name,
     held = {(variant, qshape, kshape[1]) for _, qshape, kshape, dtype, layout, variant
             in chip_smoke.KERNEL_CASES if dtype == "bfloat16" and layout == "contiguous"}
     assert set(seen) <= held, set(seen) - held
+
+
+@pytest.mark.parametrize("name", ["flux_vae_config", "sdxl_vae_config"])
+def test_full_size_vae_attention_takes_the_wide_variant(monkeypatch, name):
+    # A full-size kl-f8 VAE at 1024² on the meta device: its encoder's and its
+    # decoder's mid-block attention are each one (1, 16384, 1, 512) call, laid out
+    # as the VAE lays it out, which the rule sends to the wide variant. The card's
+    # smoke run holds K1 against its plain version at that call (vae_1024_d512).
+    from collections import Counter
+
+    from comfyui_parallelanything_tpu_torch.models import vae
+
+    seen = Counter()
+
+    def spy(q, k, v, scale=None):
+        seen[(fa.kernel_variant(q, k, v, scale), tuple(q.shape), k.shape[1])] += 1
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(vae, "attention_local", spy)
+    cfg = getattr(vae, name)()
+    with torch.device("meta"):
+        module = vae.AutoencoderKL(cfg)
+        z = module.encode(torch.empty(1, 1024, 1024, 3, dtype=cfg.dtype))
+        out = module.decode(z)
+    assert z.shape == (1, 128, 128, cfg.z_channels) and out.shape == (1, 1024, 1024, 3)
+    assert dict(seen) == {("wide", (1, 16384, 1, 512), 16384): 2}
+    import chip_smoke
+
+    assert ("vae_1024_d512", (1, 16384, 1, 512), (1, 16384, 1, 512), "bfloat16", "contiguous",
+            "wide") in chip_smoke.KERNEL_CASES
+
+
+def test_auto_routes_what_no_variant_takes_to_xla():
+    # ops/attention.py's auto sends a call to K1 only on CUDA and only where
+    # kernel_takes holds (where kernel_variant names a variant); the rule answers on
+    # meta tensors, without a card. A direct flash_attention call keeps its ValueError (on CUDA; see
+    # tests/test_torch_cuda.py).
+    from comfyui_parallelanything_tpu_torch.ops import attention
+
+    def meta(d, dtype=torch.bfloat16):
+        return torch.empty((1, 64, 2, d), dtype=dtype, device="meta")
+
+    assert not fa.kernel_takes(meta(520), meta(520), meta(520))
+    assert fa.kernel_variant(meta(520), meta(520), meta(520)) is None
+    assert fa.kernel_variant(meta(64, torch.float64), meta(64, torch.float64),
+                             meta(64, torch.float64)) is None
+    assert fa.kernel_variant(meta(512), meta(512), meta(512)) == "wide"
+    assert fa.kernel_variant(meta(64), meta(64), meta(64)) == "sm90"
+    # On the CPU every call takes the xla family, whatever its head dim or dtype.
+    attention._RESOLVED.clear()
+    q = torch.from_numpy(_qkv(3, 1, 16, 16, 2, 520)[0]).double()
+    got = attention.attention_local(q, q, q)
+    assert attention.resolved_backends() == ("xla",)
+    want = attention._xla_attention(q, q, q, 520 ** -0.5)
+    torch.testing.assert_close(got, want)
