@@ -16,20 +16,26 @@ the error.
    ragged Sq≠Sk shape, head dims 64, 40 and 256, f16, f32, an unaligned view, more
    than 65535 batch·heads, the FLUX VAE's 512-wide head at 1024², ragged cases at
    head dims 160, 264, 320 and 512, f16, f32, a single query and key and more than
-   65535 batch·heads at D=512, unaligned views at D=160 and 512, and every self- and
-   cross-attention call of the SDXL and SD1.5 UNets at their real shapes), each
-   through the variant the wrapper's ``kernel_variant`` picks, which must be the
-   row's; within limits set from the kernel's measured error. Two planted tail bugs
-   (the last key block's padding left unmasked, the last key dropped) must fail the
-   same check at D=128 and D=512. Each variant is then timed (``TIMED``) beside its
-   plain version, ``F.scaled_dot_product_attention`` (timed here only, never called
-   by the port; the backend it took is recorded) and the card's bound: ``sm90`` and
-   ``mma`` at the FLUX-dev shape, ``wide`` and ``d512`` (forced) at the VAE shape,
-   ``f32`` at the FLUX-dev shape in float32 against the card's f32 rate; then
-   (2, 4096, 8, 160) through ``wide`` and ``mma`` forced (``THROUGHPUT_TIMED``), the
-   UNets' shapes (``SHAPES_TIMED``), and the device time per call of ``wide``,
-   ``mma`` forced and SDPA at SD1.5's 160-wide shapes from a profiler window
-   (``DEVICE_TIMED``).
+   65535 batch·heads at D=512, unaligned views at D=160 and 512, every self- and
+   cross-attention call of the SDXL and SD1.5 UNets at their real shapes, and in
+   float32 ragged cases at head dims 40, 80, 160 and 256, SD1.5's calls, more than
+   65535 batch·heads, an unaligned view and D=512), each through the variant the
+   wrapper's ``kernel_variant`` picks, which must be the row's; within limits set
+   from the kernel's measured error. Two planted tail bugs (the last key block's
+   padding left unmasked, the last key dropped) must fail the same check at D=128
+   (bf16 and f32) and D=512. A probe measures ``ex2.approx``'s and ``exp2f``'s error
+   and checks that the tensor cores truncate a raw f32 word read as TF32. Each
+   variant is then timed (``TIMED``) beside its plain version,
+   ``F.scaled_dot_product_attention`` (timed here only, never called by the port;
+   the backend it took is recorded) and the card's bound: ``sm90`` and ``mma`` at
+   the FLUX-dev shape, ``wide`` and ``d512`` (forced) at the VAE shape, ``tf32x3``
+   and ``f32`` (forced) at the FLUX-dev shape in float32 against three passes at the
+   card's TF32 rate and its f32 rate; then (2, 4096, 8, 160) through ``wide`` and
+   ``mma`` forced and ``f32`` once at the VAE shape in float32
+   (``THROUGHPUT_TIMED``), the UNets' shapes (``SHAPES_TIMED``), and the device time
+   per call through the rule's variant, a forced one and SDPA at SD1.5's 160-wide
+   bf16 shapes (``mma`` forced) and at all its float32 shapes (``f32`` forced) from
+   a profiler window (``DEVICE_TIMED``).
 4. main_path — FLUX-dev at full width and depth (19 double + 38 single blocks,
    3072 wide, 24×128 heads) in bf16 with random weights from a seeded generator
    on the card, wrapped by ``parallelize`` over ``[("cuda:0", 100)]``, sampled by
@@ -66,6 +72,11 @@ the error.
    transformer, as the JAX package's ``middle_depth`` gives ``sd15_config()``
    none). Then ``dpmpp_2m`` at 10 steps for its s/it, and one UNet forward held
    against the same forward on plain attention.
+8. sd15_f32 — the same SD1.5 in float32 (what ``--force-fp32`` gives a user), TF32
+   off for matmuls and convolutions: one batch-2 UNet forward through K1 held
+   against the same forward on plain attention, then ``dpmpp_2m`` for a few steps
+   (s/it, peak memory); K1 launches exactly 30 ``tf32x3`` and no ``f32`` per
+   forward (head dims 40, 80 and 160, 10 calls each).
 Then the script's wall time, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -82,6 +93,8 @@ import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, same data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor cores, same data sheet
+TF32X3_PASSES = 3  # tf32x3 takes every product as three TF32 products
 H100_HBM_BYTES_S = 3.35e12
 
 STEPS = 4
@@ -104,7 +117,7 @@ KERNEL_CASES = [
     ("d64", (2, 300, 4, 64), (2, 513, 4, 64), "bfloat16", "contiguous", "sm90"),
     ("d40", (2, 300, 4, 40), (2, 513, 4, 40), "bfloat16", "contiguous", "sm90"),
     ("f16", (2, 300, 4, 128), (2, 513, 4, 128), "float16", "contiguous", "sm90"),
-    ("f32", (2, 300, 4, 128), (2, 513, 4, 128), "float32", "contiguous", "f32"),
+    ("f32", (2, 300, 4, 128), (2, 513, 4, 128), "float32", "contiguous", "tf32x3"),
     ("d256", (2, 300, 4, 256), (2, 513, 4, 256), "bfloat16", "contiguous", "wide"),
     ("unaligned", (2, 300, 4, 128), (2, 513, 4, 128), "bfloat16", "unaligned", "mma"),
     ("batch_heads_65600", (65600, 3, 1, 8), (65600, 3, 1, 8), "bfloat16", "contiguous", "sm90"),
@@ -117,6 +130,18 @@ KERNEL_CASES = [
     ("d512_batch_heads_65537", (65537, 2, 1, 512), (65537, 3, 1, 512), "bfloat16",
      "contiguous", "wide"),
     ("d512_f32", (1, 300, 2, 512), (1, 513, 2, 512), "float32", "contiguous", "f32"),
+    ("vae_1024_d512_f32", VAE_SHAPE, VAE_SHAPE, "float32", "contiguous", "f32"),
+    # float32 through tf32x3: one tile (its hi parts are the raw words, which a card
+    # that rounded them would fail here by about 1e-4), the UNets' head dims and its
+    # widest, and past 65535 batch·heads; an unaligned view keeps the scalar kernel.
+    ("f32_one_tile", (1, 64, 1, 128), (1, 64, 1, 128), "float32", "contiguous", "tf32x3"),
+    ("f32_d40", (2, 300, 4, 40), (2, 513, 4, 40), "float32", "contiguous", "tf32x3"),
+    ("f32_d80", (2, 300, 4, 80), (2, 513, 4, 80), "float32", "contiguous", "tf32x3"),
+    ("f32_d160", (2, 300, 4, 160), (2, 513, 4, 160), "float32", "contiguous", "tf32x3"),
+    ("f32_d256", (2, 300, 2, 256), (2, 513, 2, 256), "float32", "contiguous", "tf32x3"),
+    ("f32_batch_heads_65600", (65600, 3, 1, 8), (65600, 3, 1, 8), "float32", "contiguous",
+     "tf32x3"),
+    ("f32_unaligned", (2, 300, 4, 128), (2, 513, 4, 128), "float32", "unaligned", "f32"),
     # What TMA cannot take keeps the mma.sync variants: unaligned views.
     ("d160_unaligned", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "unaligned", "mma"),
     ("d512_unaligned", (2, 300, 2, 512), (2, 513, 2, 512), "bfloat16", "unaligned", "d512"),
@@ -137,6 +162,14 @@ KERNEL_CASES = [
     ("d160", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "contiguous", "wide"),
     # SD1.5's head dim at a long sequence, timed for throughput (no model call has it).
     ("d160_4096", (2, 4096, 8, 160), (2, 4096, 8, 160), "bfloat16", "contiguous", "wide"),
+    # SD1.5's calls in float32 (``--force-fp32``), self and 77-key cross-attention.
+    ("sd15_f32_self_4096_d40", SD15_4096, SD15_4096, "float32", "contiguous", "tf32x3"),
+    ("sd15_f32_self_1024_d80", SD15_1024, SD15_1024, "float32", "contiguous", "tf32x3"),
+    ("sd15_f32_self_256_d160", SD15_256, SD15_256, "float32", "contiguous", "tf32x3"),
+    ("sd15_f32_cross_4096x77_d40", SD15_4096, (2, 77, 8, 40), "float32", "contiguous", "tf32x3"),
+    ("sd15_f32_cross_1024x77_d80", SD15_1024, (2, 77, 8, 80), "float32", "contiguous", "tf32x3"),
+    ("sd15_f32_cross_256x77_d160", SD15_256, (2, 77, 8, 160), "float32", "contiguous",
+     "tf32x3"),
 ]
 # Limits on the kernel's error against the plain version computed in f32 on the
 # same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
@@ -150,7 +183,9 @@ KERNEL_CASES = [
 KERNEL_LIMITS = {  # dtype: (atol, rtol, relative L2)
     "bfloat16": (1e-4, 2**-7, 5e-3),
     "float16": (1e-5, 2**-9, 1e-3),
-    "float32": (1e-6, 1e-5, 1e-5),  # only the summation order differs
+    # float32: the scalar kernel differs only in summation order; tf32x3 also drops
+    # the lo·lo products and rounds the low parts to TF32 (about 2^-22 relative each).
+    "float32": (1e-6, 1e-5, 1e-5),
 }
 MAIN_PATH_REL_TOL = 5e-2  # bf16 FLUX-dev forward, kernel vs plain attention
 
@@ -285,7 +320,18 @@ def sdpa_backend(q, k, v) -> str:
         return f"unknown ({type(e).__name__})"
 
 
-def time_variant(fa, variant, q, k, v, iters, plain_iters, peak_flops) -> dict:
+def peak_flops(variant: str) -> float:
+    """The rate that bounds ``variant``'s operations: the f32 rate outside the tensor
+    cores for ``f32``, three passes at the TF32 tensor-core rate for ``tf32x3``, the
+    bf16/f16 rate for the others."""
+    if variant == "f32":
+        return H100_F32_FLOPS
+    if variant == "tf32x3":
+        return H100_TF32_FLOPS / TF32X3_PASSES
+    return H100_BF16_FLOPS
+
+
+def time_variant(fa, variant, q, k, v, iters, plain_iters) -> dict:
     """One timing row: K1's ``variant`` forced on q/k/v, its plain version,
     ``F.scaled_dot_product_attention`` on the same inputs (and the backend it
     took), and the card's bound for the call."""
@@ -294,7 +340,7 @@ def time_variant(fa, variant, q, k, v, iters, plain_iters, peak_flops) -> dict:
     scale = q.shape[-1] ** -0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     bound_ms, bound_by = attention_bound_ms(tuple(q.shape), tuple(k.shape), q.element_size(),
-                                            peak_flops)
+                                            peak_flops(variant))
     return {
         "variant": variant, "shape": list(q.shape), "k_shape": list(k.shape),
         "dtype": str(q.dtype).removeprefix("torch."),
@@ -307,29 +353,76 @@ def time_variant(fa, variant, q, k, v, iters, plain_iters, peak_flops) -> dict:
     }
 
 
-# The cases whose inputs the kernel phase times, by variant: (case, iterations,
-# iterations of the plain version, peak rate of the bound). f32 is timed at the
-# FLUX-dev shape in float32, against the card's f32 rate.
-TIMED = {"sm90": ("flux_dev_1024", 20, 5, H100_BF16_FLOPS),
-         "mma": ("flux_dev_1024", 20, 5, H100_BF16_FLOPS),
-         "wide": ("vae_1024_d512", 20, 3, H100_BF16_FLOPS),
-         "d512": ("vae_1024_d512", 10, 3, H100_BF16_FLOPS),
-         "f32": ("flux_dev_1024", 5, 3, H100_F32_FLOPS)}
+# The cases whose inputs the kernel phase times, by variant: (case, dtype, iterations,
+# iterations of the plain version). tf32x3 and f32 (forced) are timed at the FLUX-dev
+# shape in float32; every bound is against ``peak_flops(variant)``.
+TIMED = {"sm90": ("flux_dev_1024", "bfloat16", 20, 5),
+         "mma": ("flux_dev_1024", "bfloat16", 20, 5),
+         "wide": ("vae_1024_d512", "bfloat16", 20, 3),
+         "d512": ("vae_1024_d512", "bfloat16", 10, 3),
+         "tf32x3": ("flux_dev_1024", "float32", 10, 3),
+         "f32": ("flux_dev_1024", "float32", 5, 3)}
 # Cases timed through several variants, each forced: (variants, iterations,
-# iterations of the plain version).
-THROUGHPUT_TIMED = {"d160_4096": (("wide", "mma"), 20, 3)}
+# iterations of the plain version). The scalar f32 kernel is timed once at the VAE
+# shape in float32 (an fp32 VAE's mid-block call, which tf32x3 does not take).
+THROUGHPUT_TIMED = {"d160_4096": (("wide", "mma"), 20, 3),
+                    "vae_1024_d512_f32": (("f32",), 1, 1)}
 # Cases whose device time per call is read from a profiler window of back-to-back
-# calls (one call is mostly host time there): K1 through the rule, ``mma`` forced and
-# SDPA, each called this many times in the window.
-DEVICE_TIMED = {"sd15_self_256_d160": 50, "sd15_cross_256x77_d160": 50}
+# calls (one call is mostly host time there): K1 through the rule, a variant forced
+# and SDPA, each called this many times in the window: (calls, forced variant).
+DEVICE_TIMED = {"sd15_self_256_d160": (50, "mma"), "sd15_cross_256x77_d160": (50, "mma"),
+                "sd15_f32_self_4096_d40": (20, "f32"), "sd15_f32_self_1024_d80": (20, "f32"),
+                "sd15_f32_self_256_d160": (50, "f32"),
+                "sd15_f32_cross_4096x77_d40": (20, "f32"),
+                "sd15_f32_cross_1024x77_d80": (50, "f32"),
+                "sd15_f32_cross_256x77_d160": (50, "f32")}
 # Cases whose inputs must make the planted tail bugs fail the check.
-TAIL_BUG_CASES = ("ragged_300x513", "d512_ragged_300x513")
+TAIL_BUG_CASES = ("ragged_300x513", "f32", "d512_ragged_300x513")
 # The SD-family shapes timed as the UNets call them, each through the variant the
 # rule picks: (iterations, iterations of the plain version).
 SHAPES_TIMED = {"sdxl_self_4096_d64": (30, 3), "sdxl_self_1024_d64": (50, 5),
                 "sdxl_cross_4096x77_d64": (50, 5), "sdxl_cross_1024x77_d64": (50, 5),
                 "sd15_self_4096_d40": (30, 3), "sd15_self_1024_d80": (50, 5),
-                "sd15_self_256_d160": (50, 5)}
+                "sd15_self_256_d160": (50, 5), "sd15_f32_self_4096_d40": (20, 3),
+                "sd15_f32_self_1024_d80": (50, 5), "sd15_f32_self_256_d160": (50, 5)}
+
+
+def probe_numerics(dev) -> dict:
+    """What tf32x3's numerics rest on, measured on the card (``pa_tf32x3_probe``):
+    the largest relative error of ``ex2.approx.ftz`` (the kernel's exp2) and of
+    ``exp2f`` against float64 over the softmax's arguments [-126, 0], and whether
+    the tensor cores truncate or round a raw f32 word read as a TF32 operand (one
+    ``mma.sync`` product w · 1 with w between two TF32 neighbours, nearer the upper),
+    which tf32x3 relies on: it reads each raw word as its TF32 hi part."""
+    import ctypes
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels import build
+
+    fn = build.load("flash_attention").pa_tf32x3_probe
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ptr, ptr, ctypes.c_int, ptr]
+    fn.restype = ctypes.c_int
+    x = torch.linspace(-126.0, 0.0, 1 << 22, device=dev)
+    fast, precise = torch.empty_like(x), torch.empty_like(x)
+    w = 1.0 + 2.0**-11 + 2.0**-12  # TF32 neighbours: 1 and 1 + 2^-10
+    words = torch.tensor([w, -w], device=dev)
+    products = torch.empty_like(words)
+    rc = fn(x.data_ptr(), fast.data_ptr(), precise.data_ptr(), x.numel(), words.data_ptr(),
+            products.data_ptr(), words.numel(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"the tf32x3 probe failed to launch: CUDA error {rc}")
+    want = torch.exp2(x.double())
+    got = products.tolist()
+    rounded = 1.0 + 2.0**-10
+    return {
+        "exp2_max_rel_err": {name: ((y.double() - want).abs() / want).max().item()
+                             for name, y in (("ex2.approx.ftz", fast), ("exp2f", precise))},
+        "tf32_operand": ("truncates" if got == [1.0, -1.0] else
+                         "rounds" if got == [rounded, -rounded] else f"neither: {got}"),
+    }
 
 
 def loop_ms(fn, iters: int) -> float:
@@ -396,11 +489,11 @@ def kernel_times(prof) -> dict[str, list]:
 
 
 def phase_kernel() -> dict:
-    """Check every ``KERNEL_CASES`` row and the planted tail bugs, then time each
-    variant (``TIMED``), the throughput cases through several variants
-    (``THROUGHPUT_TIMED``), each SD-family shape (``SHAPES_TIMED``) and the device
-    time of the small 160-wide calls (``DEVICE_TIMED``). Returns ``{variant: timing
-    row}``."""
+    """Check every ``KERNEL_CASES`` row and the planted tail bugs, probe tf32x3's
+    numerics (``probe_numerics``), then time each variant (``TIMED``), the
+    throughput cases through several variants (``THROUGHPUT_TIMED``), each SD-family
+    shape (``SHAPES_TIMED``) and the device time of the small calls
+    (``DEVICE_TIMED``). Returns ``{variant: timing row}``."""
     import torch
     import torch.nn.functional as F
 
@@ -444,22 +537,24 @@ def phase_kernel() -> dict:
             c["ok"] for bugs in controls.values() for c in bugs.values()):
         emit({"phase": "kernel", "cases": cases, "controls": controls})
         raise RuntimeError(f"the kernel check accepts a planted tail bug: {controls}")
+    probe = probe_numerics(dev)
+    if probe["tf32_operand"] != "truncates":
+        emit({"phase": "kernel", "cases": cases, "controls": controls, "numerics_probe": probe})
+        raise RuntimeError(f"tf32x3 reads raw f32 words as TF32 hi parts, but this card's "
+                           f"tensor cores do not truncate them: {probe}")
     rows = {}
-    for variant, (case, iters, plain_iters, peak) in TIMED.items():
+    for variant, (case, dtype_name, iters, plain_iters) in TIMED.items():
         q, k, v, err = kept[case]
-        if variant == "f32":
-            q, k, v = q.float(), k.float(), v.float()
-            err = kernel_error(fa.flash_attention(q, k, v), q, k, v)
-            if not err["ok"]:
-                raise RuntimeError(f"the f32 variant disagrees at {case}: {err}")
-            err = err["max_abs_err"]
-        elif variant != fa.kernel_variant(q, k, v):
+        if str(q.dtype) != f"torch.{dtype_name}":
+            q, k, v = (t.to(getattr(torch, dtype_name)) for t in (q, k, v))
+            err = None
+        if err is None or variant != fa.kernel_variant(q, k, v):
             forced = kernel_error(fa._launch(q, k, v, q.shape[-1] ** -0.5, variant), q, k, v)
             if not forced["ok"]:
                 raise RuntimeError(f"the {variant} variant disagrees at {case}: {forced}")
             err = forced["max_abs_err"]
-        rows[variant] = {"case": case, **time_variant(fa, variant, q, k, v, iters, plain_iters,
-                                                      peak), "max_abs_err": err}
+        rows[variant] = {"case": case, **time_variant(fa, variant, q, k, v, iters, plain_iters),
+                         "max_abs_err": err}
     throughput = {}
     for case, (variants, iters, plain_iters) in THROUGHPUT_TIMED.items():
         q, k, v, _ = kept[case]
@@ -469,18 +564,18 @@ def phase_kernel() -> dict:
             if not forced["ok"]:
                 raise RuntimeError(f"the {variant} variant disagrees at {case}: {forced}")
             throughput[case][variant] = {
-                **time_variant(fa, variant, q, k, v, iters, plain_iters, H100_BF16_FLOPS),
+                **time_variant(fa, variant, q, k, v, iters, plain_iters),
                 "max_abs_err": forced["max_abs_err"]}
     shapes = {}
     for case, (iters, plain_iters) in SHAPES_TIMED.items():
         q, k, v, err = kept[case]
         variant = fa.kernel_variant(q, k, v)
-        row = time_variant(fa, variant, q, k, v, iters, plain_iters, H100_BF16_FLOPS)
+        row = time_variant(fa, variant, q, k, v, iters, plain_iters)
         row["loop_ms"] = loop_ms(lambda: fa._launch(q, k, v, q.shape[-1] ** -0.5, variant),
                                  iters)
         shapes[case] = {**row, "max_abs_err": err}
     device = {}
-    for case, calls in DEVICE_TIMED.items():
+    for case, (calls, forced) in DEVICE_TIMED.items():
         q, k, v, _ = kept[case]
         scale = q.shape[-1] ** -0.5
         variant = fa.kernel_variant(q, k, v)
@@ -488,18 +583,19 @@ def phase_kernel() -> dict:
         ms = device_ms({
             "ms": (lambda: fa._launch(q, k, v, scale, variant),
                    lambda name: f"flash_fwd_{variant}" in name),
-            "mma_ms": (lambda: fa._launch(q, k, v, scale, "mma"),
-                       lambda name: "flash_fwd_mma" in name),
+            f"{forced}_ms": (lambda: fa._launch(q, k, v, scale, forced),
+                             lambda name: f"flash_fwd_{forced}" in name),
             "library_ms": (lambda: F.scaled_dot_product_attention(qt, kt, vt),
                            lambda name: not any(f"flash_fwd_{v}" in name for v in fa.VARIANTS)),
         }, calls)
+        shape = (tuple(q.shape), tuple(k.shape), q.element_size())
         device[case] = {
             "variant": variant, **ms, "library_backend": sdpa_backend(qt, kt, vt),
-            "calls": calls, "bound_ms": attention_bound_ms(
-                tuple(q.shape), tuple(k.shape), q.element_size(), H100_BF16_FLOPS)[0]}
-    emit({"phase": "kernel", "cases": cases, "controls": controls, "timed": rows,
-          "timed_throughput": throughput, "timed_shapes": shapes, "device_timed": device,
-          "seconds": time.perf_counter() - start})
+            "calls": calls, "bound_ms": attention_bound_ms(*shape, peak_flops(variant))[0],
+            f"{forced}_bound_ms": attention_bound_ms(*shape, peak_flops(forced))[0]}
+    emit({"phase": "kernel", "cases": cases, "controls": controls, "numerics_probe": probe,
+          "timed": rows, "timed_throughput": throughput, "timed_shapes": shapes,
+          "device_timed": device, "seconds": time.perf_counter() - start})
     return rows
 
 
@@ -1030,6 +1126,103 @@ def phase_sd_samplers() -> dict:
     return total
 
 
+SD15_F32_PER_FORWARD = {"tf32x3": 30}  # head dims 40, 80 and 160, 10 calls each; no f32
+SD15_F32_STEPS = 4
+# The f32 SD1.5 UNet forward through K1 against the same forward on plain attention:
+# both in full f32 (TF32 off), so they differ by tf32x3's error (relative L2 about
+# 1e-6 a call on randn inputs) carried through the UNet, and by summation order.
+SD15_F32_REL_TOL = 1e-4
+
+
+def phase_sd15_f32() -> dict:
+    """SD1.5 at full width in float32 (``sd15_config(dtype=float32)``), TF32 off for
+    matmuls and convolutions (restored after), at 512², CFG ``SD_CFG``, through
+    ``parallelize``: one batch-2 UNet forward through K1 against the same forward on
+    plain attention, then ``dpmpp_2m`` for ``SD15_F32_STEPS`` steps (s/it, peak
+    memory). K1 must launch exactly ``SD15_F32_PER_FORWARD`` per UNet forward in both.
+    Returns K1's launches by variant in the sampler run."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.unet import build_unet, sd15_config
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    dev = torch.device("cuda", 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        t0 = time.perf_counter()
+        unet = build_unet(sd15_config(dtype=torch.float32), device=dev, generator=gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pm = parallelize(unet, [("cuda:0", 100)])
+        noise = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+        ctx = torch.randn((1, 77, 768), generator=gen, device=dev)
+        uctx = torch.randn((1, 77, 768), generator=gen, device=dev)
+
+        # One UNet forward (batch 2, as CFG runs it) through K1 and on plain attention.
+        x = torch.cat([noise, torch.randn((1, 64, 64, 4), generator=gen, device=dev)])
+        t = torch.tensor([999.0, 999.0], device=dev)
+        c = torch.cat([ctx, uctx])
+        pm(x, t, c)  # warm-up, not counted
+        fa.reset_launches()
+        out_k = pm(x, t, c)
+        torch.cuda.synchronize()
+        forward_launches = _launched(fa)
+        attention.set_attention_backend("xla")
+        try:
+            out_p = pm(x, t, c)
+        finally:
+            attention.set_attention_backend("auto")
+        rel = ((out_k - out_p).norm() / out_p.norm()).item()
+        res = {"phase": "sd15_f32_unet_vs_plain_attention", "dtype": str(out_k.dtype),
+               "rel_l2_err": rel, "max_abs_err": (out_k - out_p).abs().max().item(),
+               "tol": SD15_F32_REL_TOL, "finite": bool(torch.isfinite(out_k).all().item()),
+               "k1_launches_by_variant": forward_launches}
+        emit(res)
+        if not (rel <= SD15_F32_REL_TOL and res["finite"]
+                and forward_launches == SD15_F32_PER_FORWARD and out_k.dtype == torch.float32):
+            raise RuntimeError(f"sd15_f32 forward check failed: {res}")
+
+        forwards = [0]
+
+        def counted(x, t, context=None, **kw):
+            forwards[0] += 1
+            return pm(x, t, context, **kw)
+
+        stamps = []
+
+        def on_step(i, latent):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run_sampler(counted, noise, ctx, sampler="dpmpp_2m", steps=SD15_F32_STEPS,
+                          cfg_scale=SD_CFG, uncond_context=uctx, callback=on_step)
+        torch.cuda.synchronize()
+        launches = _launched(fa)
+        step_s = [b - a for a, b in zip([start] + stamps[:-1], stamps)]
+        want = {v: n * forwards[0] for v, n in SD15_F32_PER_FORWARD.items()}
+        res = {"phase": "sd15_f32", "model": "sd15", "dtype": "float32",
+               "n_params": unet.n_params(), "build_s": build_s, "steps": SD15_F32_STEPS,
+               "cfg_scale": SD_CFG, "forwards": forwards[0], "s_per_it": sum(step_s) / len(step_s),
+               "step_s": step_s, "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "k1_launches_by_variant": launches, "k1_launches_expected": want,
+               "latent": list(out.shape), "finite": bool(torch.isfinite(out).all().item())}
+        emit(res)
+        if launches != want or not res["finite"] or res["latent"] != [1, 64, 64, 4]:
+            raise RuntimeError(f"sd15_f32 check failed: {res}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1053,12 +1246,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sampler_launches = phase_sd_samplers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_launches = phase_sd15_f32()
     paths = {"main_path": main_launches, **pipe_launches, "sd_pipeline": sd_launches,
-             "sd_samplers": sampler_launches}
+             "sd_samplers": sampler_launches, "sd15_f32": f32_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",
-               "f32": "flash_attention_f32.cu"}
+               "tf32x3": "flash_attention_tf32x3.cu", "f32": "flash_attention_f32.cu"}
     emit({"kernels": [{
         "name": "flash_attention",
         "variant": variant,

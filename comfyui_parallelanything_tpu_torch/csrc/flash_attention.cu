@@ -9,7 +9,7 @@
 // Bound on an H100 SXM at the FLUX-dev 1024² shape (B=1, S=4608, H=24, D=128):
 // 4·B·H·S²·D = 261 GFLOP per call (0.264 ms at 989 TFLOP/s bf16) against 113 MB of
 // q/k/v/o (0.034 ms at 3.35 TB/s), so the call is bound by tensor-core operations.
-// Every variant keeps the S×S logits out of device memory. Five variants; the
+// Every variant keeps the S×S logits out of device memory. Six variants; the
 // caller names one and exactly that one is launched (see `kernel_variant` in
 // ops/kernels/flash_attention.py for the rule):
 //   - `sm90` (flash_attention_sm90.cuh): bf16/f16, head_dim ≤ 128 and a multiple of
@@ -40,9 +40,15 @@
 //     256 output columns (128 f32 accumulators a thread). Q, K and V tiles of
 //     64 × 512 live in shared memory together (222 KB with S, P and the row
 //     state).
-//   - `f32` (flash_attention_f32.cu): float32 inputs, a scalar-FMA kernel with the
-//     same tiling in full f32 (not on the bf16 main path), head_dim up to 512.
-// The wide and f32 variants are translation units of their own, compiled in
+//   - `tf32x3` (flash_attention_tf32x3.cu): float32, head_dim ≤ 256 and a multiple of
+//     4, 16-byte aligned data and strides, a positive scale: TMA loads, a converter
+//     warpgroup that splits every tile into TF32 high and low parts (V transposed),
+//     and a wgmma consumer warpgroup that takes each product as three TF32 products
+//     (error-compensated TF32), to the scalar kernel's f32 limits.
+//   - `f32` (flash_attention_f32.cu): the float32 calls tf32x3 cannot take
+//     (unaligned views, head_dim % 4 != 0 or in (256, 512], a scale ≤ 0), a
+//     scalar-FMA kernel with the same tiling in full f32.
+// The wide, tf32x3 and f32 variants are translation units of their own, compiled in
 // parallel with this one and linked into the same library.
 // Grids cover at most 65535 batch·head slices (gridDim.y), so larger batches are
 // launched in chunks of whole batch rows.
@@ -67,6 +73,13 @@ extern "C" cudaError_t pa_flash_attention_wide(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, float scale_log2,
     cudaStream_t stream);
+
+// The tf32x3 variant, compiled in flash_attention_tf32x3.cu.
+extern "C" cudaError_t pa_flash_attention_tf32x3(
+    const void* q, const void* k, const void* v, void* o, int batch, int heads, int seq_q,
+    int seq_k, int head_dim, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, float scale_log2, cudaStream_t stream);
 
 namespace {
 
@@ -483,9 +496,10 @@ cudaError_t dispatch_d512(int dtype, int batch, cudaStream_t stream, const Param
 
 // dtype: 0 = bfloat16, 1 = float32, 2 = float16. variant: 0 = mma (head_dim <= 256),
 // 1 = f32, 2 = sm90 (head_dim <= 128), 3 = d512 (bf16/f16, head_dim <= 512), 4 = wide
-// (head_dim in (128, 512]); sm90 and wide also need head_dim % 8 == 0, 16-byte aligned
-// pointers, strides that are positive multiples of 8 and a positive scale. A variant
-// that cannot take the call is refused, never replaced by another. Strides are in
+// (head_dim in (128, 512]), 5 = tf32x3 (float32, head_dim <= 256); sm90 and wide also
+// need head_dim % 8 == 0, tf32x3 head_dim % 4 == 0, and all three 16-byte aligned
+// pointers, strides that are positive multiples of 16 bytes and a positive scale. A
+// variant that cannot take the call is refused, never replaced by another. Strides are in
 // elements; the head dim is contiguous. Launches on `stream`, which must belong to the
 // current device. Returns the CUDA error of the launch (0 on success).
 extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -498,19 +512,24 @@ extern "C" int pa_flash_attention_fwd(const void* q, const void* k, const void* 
   if (dtype < 0 || dtype > 2 || head_dim < 1 || head_dim > kD512 || seq_q < 1 || seq_k < 1 ||
       batch < 1 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
-  if ((variant == 1) != (dtype == 1) || variant < 0 || variant > 4 ||
+  if ((variant == 1 || variant == 5) != (dtype == 1) || variant < 0 || variant > 5 ||
       (variant == 0 && head_dim > 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 2 || variant == 4) {
+  if (variant == 2 || variant == 4 || variant == 5) {
     const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                                  v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-    bool ok = (variant == 2 ? head_dim <= 128 : head_dim > 128) && head_dim % 8 == 0 &&
-              scale > 0.f;
-    for (long long st : strides) ok = ok && st > 0 && st % 8 == 0;
+    const int align = variant == 5 ? 4 : 8;  // elements in 16 bytes
+    bool ok = (variant == 2 ? head_dim <= 128 : variant == 4 ? head_dim > 128 : head_dim <= 256) &&
+              head_dim % align == 0 && scale > 0.f;
+    for (long long st : strides) ok = ok && st > 0 && st % align == 0;
     const void* ptrs[] = {q, k, v, o};
     for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
     if (!ok) return (int)cudaErrorInvalidValue;
+    if (variant == 5)
+      return (int)pa_flash_attention_tf32x3(q, k, v, o, batch, heads, seq_q, seq_k, head_dim,
+                                            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                            v_sh, o_sb, o_ss, o_sh, scale * kLog2e, s);
     const auto launch_tma = variant == 2 ? pa_sm90::launch : pa_flash_attention_wide;
     return (int)launch_tma(q, k, v, o, dtype, batch, heads, seq_q, seq_k, head_dim, q_sb, q_ss,
                            q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,

@@ -1,6 +1,10 @@
-// The `f32` variant of K1 as a translation unit of its own (its fully unrolled
-// scalar loops are most of the library's compile time): it compiles with its own
-// nvcc, beside flash_attention.cu, and links into the same library.
+// The `f32` variant of K1 as a translation unit of its own: it compiles with its own
+// nvcc, beside flash_attention.cu, and links into the same library. It serves the
+// float32 calls tf32x3 cannot take (unaligned views, head dims not a multiple of 4 or
+// above 256, a scale ≤ 0): its one call on a model path is an fp32 VAE's 512-wide
+// head. Its dot-product loops unroll by 16: fully unrolled they made this unit the
+// build's longest by far (PERF.md); at the FLUX shape, which tf32x3 now serves, full
+// unrolls run faster (chip_smoke.py times the kernel forced there and at the VAE's).
 
 #include <math.h>
 #include <stdint.h>
@@ -72,6 +76,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
     for (int i = 0; i < kF32Block / 4; ++i) {
       const int col = my_col + 4 * i;
       float dot = 0.f;
+#pragma unroll 16
       for (int d = 0; d < D_PAD; ++d) dot = fmaf(q_s[my_row * LDQ + d], k_s[col * LDQ + d], dot);
       p_s[my_row * LDP + col] =
           (j * kF32Block + col < p.seq_k) ? dot * p.scale_log2 : -INFINITY;
@@ -97,6 +102,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
     for (int i = 0; i < kPerThread; ++i) {
       const int d = my_col + 4 * i;
       float o = acc[i] * alpha;
+#pragma unroll 16
       for (int c = 0; c < kF32Block; ++c) o = fmaf(p_s[my_row * LDP + c], v_s[c * D_PAD + d], o);
       acc[i] = o;
     }

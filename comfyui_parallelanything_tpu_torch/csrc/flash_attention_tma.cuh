@@ -1,7 +1,7 @@
-// What K1's two TMA variants (`sm90`, flash_attention_sm90.cuh, and `wide`,
-// flash_attention_wide.cuh) share: packing, exp2 and the row max of the online
-// softmax on wgmma accumulators, and the BSHD tensor maps their TMA loads and stores
-// go through.
+// What K1's TMA variants (`sm90`, flash_attention_sm90.cuh, `wide`,
+// flash_attention_wide.cuh, and `tf32x3`, flash_attention_tf32x3.cu) share: packing,
+// exp2 and the row max of the online softmax on wgmma accumulators, and the BSHD
+// tensor maps their TMA loads and stores go through.
 #pragma once
 
 #include <cuda.h>
@@ -91,18 +91,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map over (D, H, S, B) of a BSHD tensor with element strides (sb, ss, sh, 1);
-// boxes of 64 head-dim columns × `box_rows` sequence rows of one (b, h), stored with
-// the 128-byte swizzle. Reads outside the tensor are zero-filled.
+// A 4-D map over (D, H, S, B) of a BSHD tensor with element strides (sb, ss, sh, 1)
+// and `elem_bytes`-byte elements; boxes of `box_cols` head-dim columns (one 128-byte
+// row: 64 16-bit or 32 f32 values) × `box_rows` sequence rows of one (b, h), stored
+// with the 128-byte swizzle. Reads outside the tensor are zero-filled.
 inline bool encode_bshd(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr, int batch,
                         int seq, int heads, int head_dim, long long sb, long long ss,
-                        long long sh, int box_rows) {
+                        long long sh, int box_rows, int elem_bytes = 2,
+                        int box_cols = kBoxCols) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)head_dim, (cuuint64_t)heads, (cuuint64_t)seq,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem_bytes), (cuuint64_t)(ss * elem_bytes),
+                                 (cuuint64_t)(sb * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return enc(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor loads and
-// stores, wgmma shared-memory descriptors and products, register reallocation.
+// stores, wgmma shared-memory descriptors and products (bf16/f16 and TF32), register
+// reallocation.
 // Header-only; every function is a thin wrapper over one or two PTX instructions.
 #pragma once
 
@@ -158,6 +159,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]), \
       "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
 
+#define PA_REGS_16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
 #define PA_REGS_32                                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -294,6 +297,53 @@ __device__ __forceinline__ void wgmma_rs_m64k16(float (&d)[N / 2], const uint32_
   }
 }
 
+// ---------------------------------------------------------------------------
+// TF32: wgmma m64nNk8 (N = 32 or 64) with f32 accumulation, for float32 data split
+// into TF32 high and low parts. TF32 wgmma has no transpose: both shared-memory
+// operands are K-major.
+// ---------------------------------------------------------------------------
+
+// D(64×64, f32) = A(64×8) · B(8×64) + (scale_d ? D : 0), A and B from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n64k8_tf32(float (&d)[32], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " PA_REGS_32
+               ", %32, %33, p, 1, 1;\n}\n"
+               : PA_F8(0), PA_F8(8), PA_F8(16), PA_F8(24)
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64×32, f32) = A(64×8) · B(8×32) + (scale_d ? D : 0), as above.
+__device__ __forceinline__ void wgmma_ss_m64n32k8_tf32(float (&d)[16], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " PA_REGS_16
+               ", %16, %17, p, 1, 1;\n}\n"
+               : PA_F8(0), PA_F8(8)
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64×64, f32) += A(64×8, registers) · B(8×64, shared memory, K-major).
+__device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " PA_REGS_32
+               ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+               : PA_F8(0), PA_F8(8), PA_F8(16), PA_F8(24)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64×32, f32) += A(64×8, registers) · B(8×32, shared memory, K-major).
+__device__ __forceinline__ void wgmma_rs_m64n32k8_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t desc_b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " PA_REGS_16
+               ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+               : PA_F8(0), PA_F8(8)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 #undef PA_WGMMA_RS_N64
 #undef PA_WGMMA_RS_N128
 #undef PA_WGMMA_RS_N192
@@ -304,6 +354,7 @@ __device__ __forceinline__ void wgmma_rs_m64k16(float (&d)[N / 2], const uint32_
 #undef PA_REGS_96
 #undef PA_REGS_64
 #undef PA_REGS_32
+#undef PA_REGS_16
 #undef PA_F8
 
 }  // namespace hopper

@@ -29,7 +29,7 @@ BUILD_DIR = _PACKAGE_DIR.parent / "build" / "kernels"
 
 # Kernel name -> its translation units under csrc/, the entry point's first.
 SOURCES = {"flash_attention": ("flash_attention.cu", "flash_attention_wide.cu",
-                                "flash_attention_f32.cu")}
+                                "flash_attention_tf32x3.cu", "flash_attention_f32.cu")}
 
 COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -10,7 +10,7 @@ call does 4·B·H·S²·D = 261 GFLOP (0.264 ms at 989 TFLOP/s bf16) and must mo
 113 MB of q/k/v/o (0.034 ms at 3.35 TB/s), so it is bound by tensor-core
 operations. The CUDA source (``csrc/flash_attention.cu``) keeps the S×S logits
 out of device memory and reads the BSHD layout in place from strides (no
-fold/transpose/pad copies). It has five variants, and ``kernel_variant`` picks
+fold/transpose/pad copies). It has six variants, and ``kernel_variant`` picks
 one from dtype, shape, strides and alignment before the launch:
 
 - ``sm90`` (``csrc/flash_attention_sm90.cuh``): bf16 or f16, head dim ≤ 128 and a
@@ -30,7 +30,16 @@ one from dtype, shape, strides and alignment before the launch:
 - ``d512``: the same calls with head dim in (256, 512], ``mma.sync`` on 8 warps
   that split the 64 × 512 output tile, with Q, K and V tiles and the block's
   logits in shared memory.
-- ``f32``: float32, a scalar-FMA kernel in full f32, head dims up to 512.
+- ``tf32x3`` (``csrc/flash_attention_tf32x3.cu``): float32 with head dim ≤ 256 and a
+  multiple of 4, every ``data_ptr`` 16-byte aligned, strides of dims 0–2 positive
+  multiples of 4 elements (16 bytes), a positive scale. Error-compensated TF32 on
+  the tensor cores: each operand is split into TF32 high and low parts and each
+  product taken as three TF32 products (``wgmma``), held to the scalar kernel's
+  f32 limits. Bound at the FLUX-dev shape in f32 by operations: 3 × 261 GFLOP at
+  495 TFLOP/s, 1.581 ms. Every float32 call of the UNets and FLUX (head dims 40,
+  64, 80, 128, 160).
+- ``f32``: the float32 calls ``tf32x3`` cannot take (unaligned views, head dim not
+  a multiple of 4 or in (256, 512], a scale ≤ 0), a scalar-FMA kernel in full f32.
 
 ``kernel_takes`` is false, and ``kernel_variant`` answers ``None``, for what no
 variant takes (head dims above 512, float64, a strided head dim, an empty dim,
@@ -48,15 +57,16 @@ import torch
 
 from . import build
 
-VARIANTS = ("sm90", "mma", "f32", "d512", "wide")
+VARIANTS = ("sm90", "mma", "f32", "d512", "wide", "tf32x3")
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 MAX_HEAD_DIM = 512
 MMA_MAX_HEAD_DIM = 256
 SM90_MAX_HEAD_DIM = 128
+TF32X3_MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
-_VARIANT_CODES = {"mma": 0, "f32": 1, "sm90": 2, "d512": 3, "wide": 4}
+_VARIANT_CODES = {"mma": 0, "f32": 1, "sm90": 2, "d512": 3, "wide": 4, "tf32x3": 5}
 _FN = None
 
 
@@ -69,7 +79,9 @@ def reset_launches() -> None:
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
-    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
+    # TMA's rules: a 16-byte aligned start and strides that are multiples of 16 bytes.
+    return t.data_ptr() % 16 == 0 and all(
+        s > 0 and s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
 
 def kernel_takes(q, k, v) -> bool:
@@ -83,16 +95,17 @@ def kernel_takes(q, k, v) -> bool:
 
 def kernel_variant(q, k, v, scale: float | None = None) -> str | None:
     """The variant of K1 that serves a call on these (B, S, H, D) tensors: ``sm90``,
-    ``wide``, ``mma``, ``d512`` or ``f32``, or ``None`` where none takes it
+    ``wide``, ``mma``, ``d512``, ``tf32x3`` or ``f32``, or ``None`` where none takes it
     (``kernel_takes``). Pure Python on dtype, shape, strides, ``data_ptr`` alignment
     and the scale (``None``: the default ``D**-0.5``), so it answers for CPU and meta
     tensors too."""
     if not kernel_takes(q, k, v):
         return None
-    if q.dtype == torch.float32:
-        return "f32"
     d = q.shape[-1]
-    if d % 8 == 0 and (scale is None or scale > 0) and all(_tma_ready(t) for t in (q, k, v)):
+    tma = (scale is None or scale > 0) and all(_tma_ready(t) for t in (q, k, v))
+    if q.dtype == torch.float32:
+        return "tf32x3" if tma and d % 4 == 0 and d <= TF32X3_MAX_HEAD_DIM else "f32"
+    if tma and d % 8 == 0:
         return "sm90" if d <= SM90_MAX_HEAD_DIM else "wide"
     return "d512" if d > MMA_MAX_HEAD_DIM else "mma"
 
@@ -163,16 +176,18 @@ def _launch(q, k, v, scale: float, variant: str) -> torch.Tensor:
         raise ValueError(f"flash_attention kernel cannot take q {tuple(q.shape)}, k {tuple(k.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs a contiguous head dim (stride(-1) == 1)")
-    if (variant == "f32") != (q.dtype == torch.float32) or variant not in _VARIANT_CODES:
+    takes_f32 = variant in ("f32", "tf32x3")
+    if variant not in _VARIANT_CODES or takes_f32 != (q.dtype == torch.float32):
         raise ValueError(f"variant {variant!r} cannot take {q.dtype} inputs")
     if variant == "mma" and head_dim > MMA_MAX_HEAD_DIM:
         raise ValueError(f"the mma variant takes head dims up to {MMA_MAX_HEAD_DIM}, "
                          f"got {head_dim}")
-    if variant in ("sm90", "wide") and kernel_variant(q, k, v, scale) != variant:
-        dims = "head_dim <= 128" if variant == "sm90" else "head_dim in (128, 512]"
-        raise ValueError(f"the {variant} variant needs {dims} and a multiple of 8, "
-                         "16-byte aligned data, strides that are multiples of 8 and a "
-                         "positive scale")
+    if variant in ("sm90", "wide", "tf32x3") and kernel_variant(q, k, v, scale) != variant:
+        dims = {"sm90": "head_dim <= 128 and a multiple of 8",
+                "wide": "head_dim in (128, 512] and a multiple of 8",
+                "tf32x3": "head_dim <= 256 and a multiple of 4"}[variant]
+        raise ValueError(f"the {variant} variant needs {dims}, 16-byte aligned data, "
+                         "strides that are multiples of 16 bytes and a positive scale")
     out = torch.empty((batch, seq_q, heads, head_dim), dtype=q.dtype, device=q.device)
     # The mma and d512 variants' 16-byte row loads need 8-element-aligned rows in
     # every input.

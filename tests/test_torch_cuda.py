@@ -64,12 +64,14 @@ def _no_tf32():
 # The smoke run's cases, plus a 256-wide head, a small f32 case with D=40, a
 # 264-wide head, a single query and key at D=512, and the wide variant past 65535
 # batch·heads; then the wide variant at the edges of its padded widths (136, 192,
-# 384) and in f16 at D=160, and the d512 variant at an unaligned D=264.
+# 384) and in f16 at D=160, and the d512 variant at an unaligned D=264; then
+# tf32x3 at the edges of its head dims (4, 64, 252, 256), a single query and key,
+# and 77 keys at D=128.
 @pytest.mark.parametrize(
     "qshape,kshape,dtype_name,layout,variant",
     [c[1:] for c in chip_smoke.KERNEL_CASES]
     + [((2, 130, 3, 256), (2, 70, 3, 256), "bfloat16", "contiguous", "wide"),
-       ((1, 100, 2, 40), (1, 77, 2, 40), "float32", "contiguous", "f32"),
+       ((1, 100, 2, 40), (1, 77, 2, 40), "float32", "contiguous", "tf32x3"),
        ((2, 65, 3, 264), (2, 129, 3, 264), "bfloat16", "contiguous", "wide"),
        ((1, 1, 1, 512), (1, 1, 1, 512), "bfloat16", "contiguous", "wide"),
        ((65537, 2, 1, 512), (65537, 3, 1, 512), "bfloat16", "contiguous", "wide"),
@@ -77,7 +79,13 @@ def _no_tf32():
        ((2, 130, 3, 192), (2, 200, 3, 192), "bfloat16", "contiguous", "wide"),
        ((2, 130, 3, 384), (2, 200, 3, 384), "bfloat16", "contiguous", "wide"),
        ((2, 256, 8, 160), (2, 77, 8, 160), "float16", "contiguous", "wide"),
-       ((2, 65, 3, 264), (2, 129, 3, 264), "bfloat16", "unaligned", "d512")],
+       ((2, 65, 3, 264), (2, 129, 3, 264), "bfloat16", "unaligned", "d512"),
+       ((2, 130, 3, 4), (2, 70, 3, 4), "float32", "contiguous", "tf32x3"),
+       ((2, 130, 3, 64), (2, 200, 3, 64), "float32", "contiguous", "tf32x3"),
+       ((2, 130, 3, 252), (2, 200, 3, 252), "float32", "contiguous", "tf32x3"),
+       ((2, 130, 3, 256), (2, 200, 3, 256), "float32", "contiguous", "tf32x3"),
+       ((1, 1, 1, 128), (1, 1, 1, 128), "float32", "contiguous", "tf32x3"),
+       ((1, 100, 2, 128), (1, 77, 2, 128), "float32", "contiguous", "tf32x3")],
 )
 def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype_name, layout,
                                               variant):
@@ -119,6 +127,36 @@ def test_mma_variants_forced_on_wide_inputs_match_plain(cuda_device, variant, qs
     assert fa.launches_by_variant[variant] == before + 1
     res = chip_smoke.kernel_error(got, q, k, v)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("d", [40, 128])
+def test_f32_variant_forced_on_tf32x3_inputs_matches_plain(cuda_device, d):
+    # Inputs tf32x3 takes, launched through the scalar f32 kernel that keeps the
+    # float32 calls tf32x3 cannot take: it stays right on the calls it no longer serves.
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = chip_smoke.make_case((2, 300, 4, d), (2, 513, 4, d), "float32", "contiguous", g,
+                                   cuda_device)
+    assert fa.kernel_variant(q, k, v) == "tf32x3"
+    before = fa.launches_by_variant["f32"]
+    got = fa._launch(q, k, v, d ** -0.5, "f32")
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant["f32"] == before + 1
+    res = chip_smoke.kernel_error(got, q, k, v)
+    assert res["ok"], res
+
+
+def test_tf32x3_variant_refuses_what_it_cannot_take(cuda_device):
+    x = torch.zeros((1, 8, 1, 260), device=cuda_device)
+    with pytest.raises(ValueError, match="tf32x3 variant needs"):
+        fa._launch(x, x, x, 0.1, "tf32x3")
+    y = torch.zeros((1, 8, 1, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="positive scale"):
+        fa._launch(y, y, y, -0.1, "tf32x3")
+    u = torch.zeros(8 * 128 + 1, device=cuda_device)[1:].view(1, 8, 1, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch(u, u, u, 0.1, "tf32x3")
+    with pytest.raises(ValueError, match="cannot take"):
+        fa._launch(y.bfloat16(), y.bfloat16(), y.bfloat16(), 0.1, "tf32x3")
 
 
 def test_wide_variant_refuses_what_it_cannot_take(cuda_device):
@@ -307,7 +345,8 @@ def _small_pipeline(device, dtype, vae_base, vae_groups):
 
 def test_small_pipeline_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
     # f32 end to end (TF32 off for matmuls and convolutions): the card's run goes
-    # through K1's f32 variant for the DiT and the VAE and must match the CPU's.
+    # through K1's tf32x3 variant for the DiT (head dim 32) and the VAE (64) and must
+    # match the CPU's.
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     noise = torch.randn((1, 8, 8, 16), generator=torch.Generator().manual_seed(1))
     monkeypatch.setattr("comfyui_parallelanything_tpu_torch.pipelines.initial_noise",
@@ -322,7 +361,8 @@ def test_small_pipeline_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
                             pipe("a horse", init_image=init, denoise=0.5, **kw).cpu())
         launched = dict(fa.launches_by_variant)
     # txt2img: 2 steps × 2 blocks + 1 decode; img2img: 1 encode + 2 steps × 2 + 1 decode.
-    assert launched == {"sm90": 0, "mma": 0, "f32": 4 + 1 + 1 + 4 + 1, "d512": 0, "wide": 0}
+    assert launched == {"sm90": 0, "mma": 0, "f32": 0, "d512": 0, "wide": 0,
+                        "tf32x3": 4 + 1 + 1 + 4 + 1}
     for got, want in zip(images["cuda"], images["cpu"]):
         assert got.shape == (1, 16, 16, 3)
         rel = ((got - want).norm() / want.norm()).item()
@@ -351,7 +391,7 @@ SMALL_UNET = dict(model_channels=80, channel_mult=(1, 2, 4), num_res_blocks=1,
 
 
 @pytest.mark.parametrize("dtype,rel_tol,variants",
-                         [(torch.float32, 1e-4, {"f32": 20}),
+                         [(torch.float32, 1e-4, {"tf32x3": 20}),
                           (torch.bfloat16, 5e-2, {"sm90": 12, "wide": 8})])
 def test_small_unet_sampler_on_the_card_matches_the_cpu(cuda_device, monkeypatch, dtype,
                                                         rel_tol, variants):

@@ -135,7 +135,7 @@ def _unaligned(shape, dtype=torch.bfloat16):
         ("unaligned_d512", "d512"),
         ("negative_scale", "mma"),
         ("negative_scale_d512", "d512"),
-        ("f32", "f32"),
+        ("f32", "tf32x3"),  # every aligned float32 call up to D=256: test_float32_variant_rule
         ("f64", None),
         ("strided_head_dim", None),
     ],
@@ -172,6 +172,106 @@ def test_kernel_variant_rule(case, want):
     assert fa.kernel_variant(q, k, v, scale) == want
 
 
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("d", [4, 8, 40, 64, 80, 100, 128, 160, 164, 252, 256])
+def test_float32_variant_rule_takes_tf32x3(d):
+    # Aligned float32 calls with head dims 4..256 (multiples of 4) go to tf32x3, as
+    # the UNets' and FLUX's float32 calls do (40, 64, 80, 128, 160); the rule answers
+    # on meta tensors.
+    q = k = v = _meta((2, 30, 4, d))
+    assert fa.kernel_variant(q, k, v) == "tf32x3"
+    assert fa.kernel_variant(q, k, v, 0.05) == "tf32x3"
+    # The FLUX single block's strided v, in float32.
+    fused = _meta((1, 16, 7 * 4 * d))
+    v = fused[..., : 3 * 4 * d].reshape(1, 16, 3, 4, d)[:, :, 2]
+    q = k = _meta((1, 16, 4, d))
+    assert fa.kernel_variant(q, k, v) == "tf32x3"
+
+
+@pytest.mark.parametrize(
+    "case,want",
+    [
+        ("unaligned_offset", "f32"),   # 4 bytes past an aligned start
+        ("odd_stride", "f32"),         # a sequence stride of 130 floats (520 bytes)
+        ("d130", "f32"),               # head dim not a multiple of 4
+        ("d42", "f32"),
+        ("d260", "f32"),               # head dims in (256, 512]
+        ("d320", "f32"),
+        ("d512", "f32"),
+        ("zero_scale", "f32"),         # a non-positive scale
+        ("negative_scale", "f32"),
+        ("d520", None),                # what no variant took before takes none now
+        ("strided_head_dim", None),
+    ],
+)
+def test_float32_variant_rule_keeps_f32_for_what_tf32x3_cannot_take(case, want):
+    scale = None
+    if case == "unaligned_offset":
+        q = k = _meta((2, 30, 4, 128))
+        v = torch.empty(2 * 30 * 4 * 128 + 1, device="meta")[1:].view(2, 30, 4, 128)
+        assert v.data_ptr() % 16 == 4
+    elif case == "odd_stride":
+        q = k = _meta((2, 30, 4, 128))
+        v = _meta((2, 30, 4, 130))[..., :128]
+        assert v.stride(2) == 130
+    elif case.startswith("d"):
+        q = k = v = _meta((2, 30, 4, int(case[1:])))
+    elif case.endswith("scale"):
+        q = k = v = _meta((2, 30, 4, 128))
+        scale = 0.0 if case == "zero_scale" else -0.1
+    else:
+        q = k = v = _meta((2, 30, 128, 4)).transpose(2, 3)
+    assert fa.kernel_variant(q, k, v, scale) == want
+
+
+def _tf32(x):
+    # What the tensor cores read from a raw f32 word as a TF32 operand: the word with
+    # its low 13 mantissa bits cut off (truncation, as chip_smoke's probe checks).
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32x3(a, b, passes=3):
+    # a @ b as tf32x3 takes it: each operand's raw word is its hi (read as tf32(x))
+    # and lo = x - tf32(x) (exact, read as tf32(lo)); the products
+    # a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, the small ones first, each TF32 product exact
+    # in f32 and summed in f32; a_lo·b_lo dropped. One pass is plain TF32 (a_hi·b_hi).
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _attention_tf32x3(q, k, v, passes=3):
+    # The kernel's arithmetic on (B, S, H, D): S in tf32x3, the softmax in f32 on
+    # exp2 with the scale folded in after the max, P split as the operands are, and
+    # O divided by the row sum at the end.
+    scale_log2 = q.shape[-1] ** -0.5 * 1.4426950408889634
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    s = _mm_tf32x3(qt, kt.transpose(-1, -2), passes)
+    m = s.amax(-1, keepdim=True) * scale_log2
+    p = torch.exp2(s * scale_log2 - m)
+    o = _mm_tf32x3(p, vt, passes) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", [128, 40, 160])
+def test_tf32x3_arithmetic_holds_the_f32_limits(d):
+    # Before any card: the split tf32x3 uses (hi and lo truncated to TF32) keeps the
+    # kernel inside chip_smoke's unchanged float32 limits at the smoke run's f32 case
+    # shape, and at SD1.5's head dims 40 and 160; plain TF32 (one pass) does not.
+    import chip_smoke
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(d, 2, 300, 513, 4, d))
+    res = chip_smoke.kernel_error(_attention_tf32x3(q, k, v), q, k, v)
+    assert res["ok"], res
+    assert res["rel_l2_err"] < chip_smoke.KERNEL_LIMITS["float32"][2] / 4, res
+    assert not chip_smoke.kernel_error(_attention_tf32x3(q, k, v, passes=1), q, k, v)["ok"]
+
+
 def test_variant_counts_reset_and_cpu_path_launches_nothing():
     fa.reset_launches()
     assert fa.launches == 0 and fa.launches_by_variant == dict.fromkeys(fa.VARIANTS, 0)
@@ -199,24 +299,31 @@ def test_build_key_covers_headers_and_link_flags(tmp_path, monkeypatch):
     assert build.library_path("flash_attention") not in (before, edited)
 
 
+_SD15_CALLS = {((2, 4096, 8, 40), 4096): 5, ((2, 4096, 8, 40), 77): 5,
+               ((2, 1024, 8, 80), 1024): 5, ((2, 1024, 8, 80), 77): 5,
+               ((2, 256, 8, 160), 256): 5, ((2, 256, 8, 160), 77): 5}
+
+
 @pytest.mark.parametrize(
-    "name,hw,want",
-    [("sdxl_config", 128, {("sm90", (2, 4096, 10, 64), 4096): 10,
-                           ("sm90", (2, 4096, 10, 64), 77): 10,
-                           ("sm90", (2, 1024, 20, 64), 1024): 60,
-                           ("sm90", (2, 1024, 20, 64), 77): 60}),
-     ("sd15_config", 64, {("sm90", (2, 4096, 8, 40), 4096): 5, ("sm90", (2, 4096, 8, 40), 77): 5,
-                          ("sm90", (2, 1024, 8, 80), 1024): 5, ("sm90", (2, 1024, 8, 80), 77): 5,
-                          ("wide", (2, 256, 8, 160), 256): 5,
-                          ("wide", (2, 256, 8, 160), 77): 5})],
-    ids=["sdxl-1024", "sd15-512"],
+    "name,dtype,hw,want",
+    [("sdxl_config", torch.bfloat16, 128, {("sm90", (2, 4096, 10, 64), 4096): 10,
+                                           ("sm90", (2, 4096, 10, 64), 77): 10,
+                                           ("sm90", (2, 1024, 20, 64), 1024): 60,
+                                           ("sm90", (2, 1024, 20, 64), 77): 60}),
+     ("sd15_config", torch.bfloat16, 64,
+      {("wide" if q[-1] == 160 else "sm90", q, sk): n for (q, sk), n in _SD15_CALLS.items()}),
+     ("sd15_config", torch.float32, 64,
+      {("tf32x3", q, sk): n for (q, sk), n in _SD15_CALLS.items()})],
+    ids=["sdxl-1024", "sd15-512", "sd15-512-f32"],
 )
-def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name, hw, want):
+def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name, dtype, hw,
+                                                              want):
     # A full-size UNet forward at batch 2 (CFG) on the meta device: shapes and
     # strides only, no memory. Every attention call's q/k/v as the UNet lays them
     # out, through the variant rule: SDXL at 1024² makes 140 calls, all sm90;
     # SD1.5 at 512² makes 20 sm90 (head dims 40, 80) and 10 wide (160) calls, with
-    # no middle transformer (the JAX package's middle_depth gives it none).
+    # no middle transformer (the JAX package's middle_depth gives it none), and in
+    # float32 30 tf32x3 calls.
     from collections import Counter
 
     from comfyui_parallelanything_tpu_torch.models import unet
@@ -228,7 +335,7 @@ def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name,
         return torch.empty_like(q)
 
     monkeypatch.setattr(unet, "attention", spy)
-    cfg = getattr(unet, name)()
+    cfg = getattr(unet, name)(dtype=dtype)
     with torch.device("meta"):
         module = unet.UNet2D(cfg)
         kw = {"y": torch.empty(2, cfg.adm_in_channels)} if cfg.adm_in_channels else {}
@@ -237,11 +344,13 @@ def test_full_size_unet_attention_takes_the_expected_variants(monkeypatch, name,
     assert out.shape == (2, hw, hw, 4)
     assert dict(seen) == want
     # The card's smoke run holds K1 against its plain version at each of these
-    # calls: a contiguous bf16 KERNEL_CASES row with the same variant and shapes.
+    # calls: a contiguous KERNEL_CASES row in the same dtype with the same variant and
+    # shapes.
     import chip_smoke
 
-    held = {(variant, qshape, kshape[1]) for _, qshape, kshape, dtype, layout, variant
-            in chip_smoke.KERNEL_CASES if dtype == "bfloat16" and layout == "contiguous"}
+    held = {(variant, qshape, kshape[1]) for _, qshape, kshape, dtype_name, layout, variant
+            in chip_smoke.KERNEL_CASES
+            if f"torch.{dtype_name}" == str(dtype) and layout == "contiguous"}
     assert set(seen) <= held, set(seen) - held
 
 
