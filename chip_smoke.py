@@ -17,7 +17,8 @@ the error.
    than 65535 batch·heads, the FLUX VAE's 512-wide head at 1024², ragged cases at
    head dims 160, 264, 320 and 512, f16, f32, a single query and key and more than
    65535 batch·heads at D=512, unaligned views at D=160 and 512, every self- and
-   cross-attention call of the SDXL and SD1.5 UNets at their real shapes, and in
+   cross-attention call of the SDXL and SD1.5 UNets at their real shapes, SD3.5's
+   joint (4250 = 4096 image + 154 text tokens) and x-only attention at 1024², and in
    float32 ragged cases at head dims 40, 80, 160 and 256, SD1.5's calls, more than
    65535 batch·heads, an unaligned view and D=512), each through the variant the
    wrapper's ``kernel_variant`` picks, which must be the row's; within limits set
@@ -32,7 +33,8 @@ the error.
    and ``f32`` (forced) at the FLUX-dev shape in float32 against three passes at the
    card's TF32 rate and its f32 rate; then (2, 4096, 8, 160) through ``wide`` and
    ``mma`` forced and ``f32`` once at the VAE shape in float32
-   (``THROUGHPUT_TIMED``), the UNets' shapes (``SHAPES_TIMED``), and the device time
+   (``THROUGHPUT_TIMED``), the UNets' and SD3.5-large's shapes (``SHAPES_TIMED``), and
+   the device time
    per call through the rule's variant, a forced one and SDPA at SD1.5's 160-wide
    bf16 shapes (``mma`` forced) and at all its float32 shapes (``f32`` forced) from
    a profiler window (``DEVICE_TIMED``).
@@ -77,6 +79,25 @@ the error.
    against the same forward on plain attention, then ``dpmpp_2m`` for a few steps
    (s/it, peak memory); K1 launches exactly 30 ``tf32x3`` and no ``f32`` per
    forward (head dims 40, 80 and 160, 10 calls each).
+9. sd15_controlnet — the SD1.5 UNet with a ControlNet of the same config (random
+   zero convolutions: zero ones make it a no-op) at 512² through ``apply_control``
+   → ``parallelize`` → ``run_sampler`` dpmpp_2m/karras, 10 steps, CFG 7.0: exactly
+   28 ``sm90`` + 14 ``wide`` per forward (the base's 20 + 10, the ControlNet
+   trunk's 8 + 4); one composed forward held against plain attention, the residuals
+   at strength 0.5 exactly half those at 1.0; then a 9-channel inpaint UNet through
+   ``apply_inpaint_conditioning``, one forward with 20 ``sm90`` + 10 ``wide``, held
+   against plain attention.
+10. sd3 — ``Sd3Pipeline`` with SD3.5-large at full width and depth (38 blocks,
+   hidden 2432, 38 heads of 64, q/k RMS norm; 8.15 B parameters, the adaLN and final
+   linears in f32), CLIP-L, OpenCLIP-G, T5-XXL padded to 77 tokens (a 154-token
+   context) and the SD3 VAE, random weights from a seeded generator, the MMDiT
+   through ``parallelize``: 1024², batch 1, 8 steps of flow_euler at shift 3, CFG
+   4.5 with a negative prompt (cond ‖ uncond in one batch-2 forward): exactly 38
+   ``sm90`` a step and one ``wide`` for the decode, the image finite,
+   (1, 1024, 1024, 3), in [0, 1]; a batch-2 forward held against plain attention,
+   one step under ``torch.profiler``; then SD3.5-medium (mmdit-x) at full size, one
+   batch-2 forward with exactly 37 ``sm90`` (24 joint + 13 x-only attentions), held
+   against plain attention.
 Then the script's wall time, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -105,6 +126,9 @@ SDXL_1024 = (2, 1024, 20, 64)  # SDXL at 1024², latent level 2 (32²), 1280 wid
 SD15_4096 = (2, 4096, 8, 40)  # SD1.5 at 512², latent level 0 (64²), 320 wide
 SD15_1024 = (2, 1024, 8, 80)  # level 1 (32²), 640 wide
 SD15_256 = (2, 256, 8, 160)  # level 2 (16²), 1280 wide
+SD35L_JOINT = (2, 4250, 38, 64)  # SD3.5-large at 1024²: 154 text + 4096 image tokens
+SD35M_JOINT = (2, 4250, 24, 64)  # SD3.5-medium's joint attention, the same tokens
+SD35M_X = (2, 4096, 24, 64)  # SD3.5-medium's x-only attention (its first 13 blocks)
 # name, q shape, k/v shape, dtype name, layout, the variant that must serve it.
 # Layouts: "contiguous"; "single_block_v", v a strided view of a fused projection
 # as in the FLUX single block (q and k contiguous); "unaligned", every input a
@@ -162,6 +186,12 @@ KERNEL_CASES = [
     ("d160", (2, 300, 4, 160), (2, 513, 4, 160), "bfloat16", "contiguous", "wide"),
     # SD1.5's head dim at a long sequence, timed for throughput (no model call has it).
     ("d160_4096", (2, 4096, 8, 160), (2, 4096, 8, 160), "bfloat16", "contiguous", "wide"),
+    # SD3's joint attention at 1024² (4096 image + 154 text tokens, a ragged 4250 =
+    # 33·128 + 26) after the q/k RMS norm, CFG's batch 2: SD3.5-large's 38 heads and
+    # SD3.5-medium's 24, and SD3.5-medium's x-only self-attention (mmdit-x).
+    ("sd35_large_joint_4250_d64", SD35L_JOINT, SD35L_JOINT, "bfloat16", "contiguous", "sm90"),
+    ("sd35_medium_joint_4250_d64", SD35M_JOINT, SD35M_JOINT, "bfloat16", "contiguous", "sm90"),
+    ("sd35_medium_x_4096_d64", SD35M_X, SD35M_X, "bfloat16", "contiguous", "sm90"),
     # SD1.5's calls in float32 (``--force-fp32``), self and 77-key cross-attention.
     ("sd15_f32_self_4096_d40", SD15_4096, SD15_4096, "float32", "contiguous", "tf32x3"),
     ("sd15_f32_self_1024_d80", SD15_1024, SD15_1024, "float32", "contiguous", "tf32x3"),
@@ -384,7 +414,8 @@ SHAPES_TIMED = {"sdxl_self_4096_d64": (30, 3), "sdxl_self_1024_d64": (50, 5),
                 "sdxl_cross_4096x77_d64": (50, 5), "sdxl_cross_1024x77_d64": (50, 5),
                 "sd15_self_4096_d40": (30, 3), "sd15_self_1024_d80": (50, 5),
                 "sd15_self_256_d160": (50, 5), "sd15_f32_self_4096_d40": (20, 3),
-                "sd15_f32_self_1024_d80": (50, 5), "sd15_f32_self_256_d160": (50, 5)}
+                "sd15_f32_self_1024_d80": (50, 5), "sd15_f32_self_256_d160": (50, 5),
+                "sd35_large_joint_4250_d64": (20, 2)}
 
 
 def probe_numerics(dev) -> dict:
@@ -737,11 +768,11 @@ PIPELINE_PROMPT = "a photograph of an astronaut riding a horse on the moon, high
 PIPELINE_REL_TOL = 5e-2  # bf16 FLUX VAE decode, K1 vs plain attention
 
 
-def synthetic_tokenizers():
+def synthetic_tokenizers(t5_len: int = 512):
     """A CLIP byte-BPE tokenizer over a small synthetic vocab (every byte symbol,
     alone and with ``</w>``, and a few merges) whose BOS/EOS ids are CLIP-L's
-    49406/49407, and a T5-style tokenizer (512 tokens, EOS 1, pad 0) over the same
-    pieces: real tokenizer tables are downloads, which the run may not make."""
+    49406/49407, and a T5-style tokenizer (``t5_len`` tokens, EOS 1, pad 0) over the
+    same pieces: real tokenizer tables are downloads, which the run may not make."""
     from comfyui_parallelanything_tpu_torch.utils.tokenizer import (
         CLIPBPETokenizer,
         JsonTokenizer,
@@ -761,7 +792,7 @@ def synthetic_tokenizers():
         def encode(self, text):
             return type("Encoding", (), {"ids": clip.encode(text)})()
 
-    return clip, JsonTokenizer(_Pieces(), max_len=512, eos_id=1, pad_id=0)
+    return clip, JsonTokenizer(_Pieces(), max_len=t5_len, eos_id=1, pad_id=0)
 
 
 def _timed_span(spans: dict, name: str, fn):
@@ -1223,6 +1254,328 @@ def phase_sd15_f32() -> dict:
     return launches
 
 
+CONTROLNET_STEPS = 10
+# Per UNet forward: the base's 20 sm90 + 10 wide and the ControlNet trunk's 8 + 4
+# (its input blocks; sd15_config() has no middle transformer).
+SD15_CONTROLNET_PER_FORWARD = {"sm90": 28, "wide": 14}
+
+
+def randomize_zero_convs(module, gen) -> None:
+    """A ControlNet's zero convolutions (``ControlNet2D.zero_convs``) set to
+    N(0, 1/fan_in): zero ones make an untrained ControlNet an exact no-op, which
+    would hide what a check of it checks."""
+    import torch
+
+    with torch.no_grad():
+        for conv in module.zero_convs():
+            conv.weight.normal_(0.0, conv.weight[0].numel() ** -0.5, generator=gen)
+
+
+def phase_sd15_controlnet() -> dict:
+    """SD1.5 at full width with a ControlNet of the same config (the public
+    ``control_v11p_sd15_*`` shape; zero convolutions random, not zero) at 512²:
+    ``apply_control`` → ``parallelize`` → ``run_sampler`` dpmpp_2m/karras for
+    ``CONTROLNET_STEPS`` steps at CFG ``SD_CFG``, exactly
+    ``SD15_CONTROLNET_PER_FORWARD`` K1 launches per forward; one composed forward
+    through K1 against plain attention; the residuals at strength 0.5 against 1.0;
+    then a 9-channel inpaint UNet (``apply_inpaint_conditioning``), one forward
+    with exactly ``SD15_PER_FORWARD`` launches against plain attention. Returns K1's
+    launches by variant per path."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.controlnet import (
+        apply_control,
+        build_controlnet,
+    )
+    from comfyui_parallelanything_tpu_torch.models.unet import (
+        apply_inpaint_conditioning,
+        build_unet,
+        sd15_config,
+    )
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    t0 = time.perf_counter()
+    unet = build_unet(sd15_config(), device=dev, generator=gen)
+    cn = build_controlnet(sd15_config(), device=dev, generator=gen)
+    randomize_zero_convs(cn.module, gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hint = torch.rand((1, 512, 512, 3), generator=gen, device=dev)
+    composed = apply_control(unet, cn, hint)
+    pm = parallelize(composed, [("cuda:0", 100)])
+    forwards = [0]
+
+    def counted(x, t, context=None, **kw):
+        forwards[0] += 1
+        return pm(x, t, context, **kw)
+
+    noise = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+    ctx = torch.randn((1, 77, 768), generator=gen, device=dev)
+    uctx = torch.randn((1, 77, 768), generator=gen, device=dev)
+    common = dict(cfg_scale=SD_CFG, uncond_context=uctx)
+    run_sampler(counted, noise, ctx, sampler="euler", steps=1, **common)  # warm-up
+    stamps = []
+
+    def on_step(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    forwards[0] = 0
+    fa.reset_launches()
+    attention._RESOLVED.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = run_sampler(counted, noise, ctx, sampler="dpmpp_2m", karras=True,
+                      steps=CONTROLNET_STEPS, callback=on_step, **common)
+    torch.cuda.synchronize()
+    launches = _launched(fa)
+    step_s = [b - a for a, b in zip([start] + stamps[:-1], stamps)]
+    want = {v: n * forwards[0] for v, n in SD15_CONTROLNET_PER_FORWARD.items()}
+    res = {"phase": "sd15_controlnet", "model": "sd15+controlnet",
+           "n_params": {"unet": unet.n_params(), "controlnet": cn.n_params()},
+           "build_s": build_s, "steps": CONTROLNET_STEPS, "cfg_scale": SD_CFG,
+           "forwards": forwards[0], "s_per_it": sum(step_s) / len(step_s), "step_s": step_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "k1_launches_by_variant": launches, "k1_launches_expected": want,
+           "resolved_backends": list(attention.resolved_backends()),
+           "latent": list(out.shape), "finite": bool(torch.isfinite(out).all().item())}
+    emit(res)
+    if (launches != want or forwards[0] != CONTROLNET_STEPS or not res["finite"]
+            or res["latent"] != [1, 64, 64, 4] or res["resolved_backends"] != ["pallas"]):
+        raise RuntimeError(f"sd15_controlnet check failed: {res}")
+
+    # One composed forward (batch 2, as CFG runs it) through K1 and on plain
+    # attention; the residuals at strength 0.5 against 1.0.
+    x = torch.cat([noise, torch.randn((1, 64, 64, 4), generator=gen, device=dev)])
+    t = torch.tensor([999.0, 999.0], device=dev)
+    c = torch.cat([ctx, uctx])
+    out_k = pm(x, t, c).float()
+    attention.set_attention_backend("xla")
+    try:
+        out_p = pm(x, t, c).float()
+    finally:
+        attention.set_attention_backend("auto")
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    with torch.no_grad():
+        full = composed.module.residuals(x, t, c)
+        half = apply_control(unet, cn, hint, strength=0.5).module.residuals(x, t, c)
+        out_half = apply_control(unet, cn, hint, strength=0.5)(x, t, c).float()
+    flat = [torch.cat([r.float().flatten() for r in d["input"] + d["middle"]])
+            for d in (full, half)]
+    res_change = ((flat[0] - flat[1]).norm() / flat[0].norm()).item()
+    out_change = ((out_k - out_half).norm() / out_k.norm()).item()
+    res = {"phase": "sd15_controlnet_vs_plain_attention", "rel_l2_err": rel,
+           "max_abs_err": (out_k - out_p).abs().max().item(), "tol": SD_REL_TOL,
+           "finite": bool(torch.isfinite(out_k).all().item()),
+           "residual_change_strength_1_to_0.5": res_change,
+           "output_change_strength_1_to_0.5": out_change}
+    emit(res)
+    if not (rel <= SD_REL_TOL and res["finite"] and abs(res_change - 0.5) <= 1e-3
+            and out_change > 0.0):
+        raise RuntimeError(f"sd15_controlnet forward check failed: {res}")
+    pm.cleanup()
+    del pm, composed, cn, unet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The 9-channel inpaint UNet: latent ‖ mask ‖ masked-image latent.
+    unet9 = build_unet(sd15_config(in_channels=9), device=dev, generator=gen)
+    mask = (torch.rand((1, 64, 64, 1), generator=gen, device=dev) > 0.5).float()
+    masked = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+    pm9 = parallelize(apply_inpaint_conditioning(unet9, mask, masked), [("cuda:0", 100)])
+    pm9(x, t, c)  # warm-up, not counted
+    fa.reset_launches()
+    out_k = pm9(x, t, c).float()
+    torch.cuda.synchronize()
+    inpaint_launches = _launched(fa)
+    attention.set_attention_backend("xla")
+    try:
+        out_p = pm9(x, t, c).float()
+    finally:
+        attention.set_attention_backend("auto")
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    res = {"phase": "sd15_inpaint_vs_plain_attention", "in_channels": 9, "rel_l2_err": rel,
+           "max_abs_err": (out_k - out_p).abs().max().item(), "tol": SD_REL_TOL,
+           "finite": bool(torch.isfinite(out_k).all().item()), "out": list(out_k.shape),
+           "k1_launches_by_variant": inpaint_launches}
+    emit(res)
+    if not (rel <= SD_REL_TOL and res["finite"] and inpaint_launches == SD15_PER_FORWARD
+            and res["out"] == [2, 64, 64, 4]):
+        raise RuntimeError(f"sd15_inpaint forward check failed: {res}")
+    pm9.cleanup()
+    return {"sd15_controlnet": launches, "sd15_inpaint": inpaint_launches}
+
+
+SD3_STEPS = 8  # cut from SD3.5-large's published 28 to keep the script in its time
+SD3_CFG = 4.5
+SD3_SHIFT = 3.0
+SD3_T5_TOKENS = 77  # SAI's sd3_infer.py pads T5 to 77, so the context is 77 + 77 tokens
+SD35L_SM90_PER_STEP = 38  # one joint attention a block, cond ‖ uncond in one call
+SD35M_PER_FORWARD = {"sm90": 37}  # 24 joint + 13 x-only attentions
+
+
+def phase_sd3() -> dict:
+    """``Sd3Pipeline`` with SD3.5-large at full width and depth (38 blocks, hidden
+    2432, 38 heads of 64, q/k RMS norm), CLIP-L, OpenCLIP-G, T5-XXL (77 tokens) and
+    the SD3 VAE, random bf16 weights from a seeded generator, the MMDiT through
+    ``parallelize``: 1024², batch 1, ``SD3_STEPS`` steps of flow_euler at shift
+    ``SD3_SHIFT``, CFG ``SD3_CFG`` with a negative prompt; exactly
+    ``SD35L_SM90_PER_STEP`` sm90 launches a step and one wide for the decode. Then one
+    batch-2 MMDiT forward through K1 against plain attention, one step under the
+    profiler, and SD3.5-medium's batch-2 forward (dual attention): exactly
+    ``SD35M_PER_FORWARD``, against plain attention. Returns K1's launches by variant
+    per path."""
+    import copy
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.mmdit import (
+        build_mmdit,
+        sd35_large_config,
+        sd35_medium_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.text_encoders import (
+        build_clip_text,
+        build_t5_encoder,
+        clip_l_config,
+        open_clip_g_config,
+        t5_xxl_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.vae import build_vae, sd3_vae_config
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.pipelines import Sd3Pipeline
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    cfg = sd35_large_config()
+    dit = build_mmdit(cfg, device=dev, generator=gen)
+    clip_l = build_clip_text(clip_l_config(), device=dev, generator=gen)
+    clip_g = build_clip_text(open_clip_g_config(), device=dev, generator=gen)
+    t5 = build_t5_encoder(t5_xxl_config(), device=dev, generator=gen)
+    vae = build_vae(sd3_vae_config(), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tok_l, t5_tok = synthetic_tokenizers(t5_len=SD3_T5_TOKENS)
+    tok_g = copy.copy(tok_l)
+    tok_g.pad_id = 0  # OpenCLIP-G pads with 0, CLIP-L with EOS
+    pm = parallelize(dit, [("cuda:0", 100)])
+    pipe = Sd3Pipeline(dit=pm, vae=vae, clip=clip_l, clip_g=clip_g, tokenizer=tok_l,
+                       tokenizer_g=tok_g, t5=t5, t5_tokenizer=t5_tok)
+
+    def nbytes(module):
+        return sum(p.numel() * p.element_size() for p in module.parameters())
+
+    spans: dict[str, float] = {}
+    pipe.encode_prompt = _timed_span(spans, "encode_s", pipe.encode_prompt)
+    vae.decode = _timed_span(spans, "decode_s", vae.decode)
+    stamps = []
+
+    def on_step(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    kw = dict(height=1024, width=1024, cfg_scale=SD3_CFG, shift=SD3_SHIFT)
+    # Warm-up (encoders, MMDiT, VAE decoder), not counted: one step.
+    pipe(PIPELINE_PROMPT, SD_NEGATIVE, steps=1, **kw)
+    torch.cuda.synchronize()
+    spans.clear()
+    fa.reset_launches()
+    attention._RESOLVED.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    img = pipe(PIPELINE_PROMPT, SD_NEGATIVE, steps=SD3_STEPS,
+               rng=torch.Generator(device=dev).manual_seed(12), callback=on_step, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - start
+    launches = _launched(fa)
+    resolved = list(attention.resolved_backends())
+    step_s = [b - a for a, b in zip([spans["encode_s_end"]] + stamps[:-1], stamps)]
+    res = {
+        "phase": "sd3", "model": "sd3.5-large", "build_s": build_s,
+        "n_params": {"mmdit": dit.n_params(),
+                     "clip_l": sum(p.numel() for p in clip_l.module.parameters()),
+                     "clip_g": sum(p.numel() for p in clip_g.module.parameters()),
+                     "t5_xxl": sum(p.numel() for p in t5.module.parameters()),
+                     "vae": sum(p.numel() for p in vae.module.parameters())},
+        "weight_bytes": {"mmdit": nbytes(dit.module),
+                         "mmdit_f32": sum(p.numel() * 4 for p in dit.module.parameters()
+                                          if p.dtype == torch.float32),
+                         "clip_l": nbytes(clip_l.module), "clip_g": nbytes(clip_g.module),
+                         "t5_xxl": nbytes(t5.module), "vae": nbytes(vae.module)},
+        "steps": SD3_STEPS, "cfg_scale": SD3_CFG, "shift": SD3_SHIFT,
+        "context_tokens": 2 * SD3_T5_TOKENS, "total_s": total,
+        "encode_s": spans["encode_s"], "denoise_s": sum(step_s), "decode_s": spans["decode_s"],
+        "s_per_it": sum(step_s) / len(step_s), "step_s": step_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "k1_launches_by_variant": launches,
+        "k1_launches_expected": {"sm90": SD35L_SM90_PER_STEP * SD3_STEPS, "wide": 1},
+        "resolved_backends": resolved, "image": list(img.shape),
+        "finite": bool(torch.isfinite(img).all().item()),
+        "min": img.min().item(), "max": img.max().item(),
+    }
+    emit(res)
+    if (launches != res["k1_launches_expected"] or resolved != ["pallas"]
+            or res["image"] != [1, 1024, 1024, 3] or not res["finite"]
+            or res["min"] < 0.0 or res["max"] > 1.0):
+        raise RuntimeError(f"sd3 check failed: {res}")
+
+    def forward_vs_plain(model, phase, want_launches):
+        x = torch.randn((2, 128, 128, 16), generator=gen, device=dev)
+        t = torch.tensor([0.75, 0.75], device=dev)
+        ctx = torch.randn((2, 2 * SD3_T5_TOKENS, 4096), generator=gen, device=dev)
+        y = torch.randn((2, 2048), generator=gen, device=dev)
+        fa.reset_launches()
+        out_k = model(x, t, ctx, y=y).float()
+        torch.cuda.synchronize()
+        forward_launches = _launched(fa)
+        attention.set_attention_backend("xla")
+        try:
+            out_p = model(x, t, ctx, y=y).float()
+        finally:
+            attention.set_attention_backend("auto")
+        rel = ((out_k - out_p).norm() / out_p.norm()).item()
+        out = {"phase": phase, "rel_l2_err": rel,
+               "max_abs_err": (out_k - out_p).abs().max().item(), "tol": SD_REL_TOL,
+               "finite": bool(torch.isfinite(out_k).all().item()),
+               "k1_launches_by_variant": forward_launches}
+        emit(out)
+        if not (rel <= SD_REL_TOL and out["finite"] and forward_launches == want_launches):
+            raise RuntimeError(f"{phase} check failed: {out}")
+        return forward_launches
+
+    forward_vs_plain(pm, "sd35_large_vs_plain_attention", {"sm90": SD35L_SM90_PER_STEP})
+    context, y1 = pipe.encode_prompt([PIPELINE_PROMPT])
+    uctx, uy = pipe.encode_prompt([SD_NEGATIVE])
+    noise = torch.randn((1, 128, 128, 16), generator=gen, device=dev)
+    profile_step("sd3_profile", lambda: run_sampler(
+        pm, noise, context, sampler="flow_euler", prediction="flow", steps=1,
+        shift=SD3_SHIFT, cfg_scale=SD3_CFG, uncond_context=uctx, uncond_kwargs={"y": uy},
+        y=y1))
+    pm.cleanup()
+    del pm, pipe, dit, clip_l, clip_g, t5, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    medium = build_mmdit(sd35_medium_config(), device=dev, generator=gen)
+    pm_m = parallelize(medium, [("cuda:0", 100)])
+    medium_launches = forward_vs_plain(pm_m, "sd35_medium_vs_plain_attention",
+                                       SD35M_PER_FORWARD)
+    pm_m.cleanup()
+    return {"sd3": launches, "sd35_medium": medium_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1249,8 +1602,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     f32_launches = phase_sd15_f32()
+    gc.collect()
+    torch.cuda.empty_cache()
+    controlnet_launches = phase_sd15_controlnet()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd3_launches = phase_sd3()
     paths = {"main_path": main_launches, **pipe_launches, "sd_pipeline": sd_launches,
-             "sd_samplers": sampler_launches, "sd15_f32": f32_launches}
+             "sd_samplers": sampler_launches, "sd15_f32": f32_launches, **controlnet_launches,
+             **sd3_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

@@ -10,12 +10,16 @@ layouts (NHWC latents, BSHD attention). Its hand-written CUDA kernels live in
 from .devices.discovery import available_devices, default_device, get_device
 from .parallel.chain import DeviceChain, DeviceLink
 from .parallel.orchestrator import ParallelConfig, ParallelModel, parallelize
+from .pipelines import FluxPipeline, Sd3Pipeline, StableDiffusionPipeline
 
 __all__ = [
     "DeviceChain",
     "DeviceLink",
+    "FluxPipeline",
     "ParallelConfig",
     "ParallelModel",
+    "Sd3Pipeline",
+    "StableDiffusionPipeline",
     "available_devices",
     "default_device",
     "get_device",

@@ -21,7 +21,12 @@ conversion is a rename plus layout changes:
   kernel`` → ``in_1_0_attn.blocks.0.attn1_q.weight``): Conv kernels as the VAE's,
   Dense kernels transposed, the ``DenseGeneral`` q/k/v kernels (C, H, D) flattened
   to (H·D, C) and the o kernels (H, D, C) to (C, H·D), Group/LayerNorm scales
-  renamed to ``weight``.
+  renamed to ``weight``. The ControlNet tree (``hint_{i}``, ``zero_conv_{k}``,
+  ``mid_out`` beside the UNet's trunk names) takes the same function.
+- ``from_jax_mmdit_params`` — the SD3-class MMDiT (``blocks_0/x_attn_in/qkv/kernel``
+  → ``blocks.0.x_attn_in.qkv.weight``): as FLUX's, the ``DenseGeneral`` qkv kernel
+  (hidden, 3, H, D) flattening to the port's fused (3·H·D) output order; the q/k
+  norm scales (``ln_q``, ``ln_k``) and ``pos_embed/table`` keep their names.
 """
 
 from __future__ import annotations
@@ -85,6 +90,11 @@ def _vae_leaf(leaf: str, arr: np.ndarray):
 
 def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flax FLUX parameter tree (nested dicts of numpy arrays) → port state dict."""
+    return _convert(tree, _flux_leaf)
+
+
+def from_jax_mmdit_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``MMDiTModel`` parameter tree → ``mmdit.MMDiTModel`` state dict."""
     return _convert(tree, _flux_leaf)
 
 

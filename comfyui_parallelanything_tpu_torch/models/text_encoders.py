@@ -7,9 +7,9 @@ of ``comfyui_parallelanything_tpu/models/text_encoders.py``).
 - **T5 encoder** (FLUX/WAN context): RMSNorm, relative-position-bucket attention
   bias (shared from layer 0, or one table per layer for UMT5), key mask, unscaled
   logits, tanh-GELU gated FFN.
-- **SDXL conditioning**: ``sdxl_text_conditioning`` and
-  ``sdxl_refiner_text_conditioning`` assemble the UNet's (context, y) pair from
-  the towers' outputs.
+- **SDXL and SD3 conditioning**: ``sdxl_text_conditioning``,
+  ``sdxl_refiner_text_conditioning`` and ``sd3_text_conditioning`` assemble the
+  diffusion model's (context, y) pair from the towers' outputs.
 
 Numerics follow the JAX module: linears and embeddings compute in ``cfg.dtype``
 (weights stored in it, as flax casts them to it before use), CLIP's LayerNorms
@@ -391,3 +391,18 @@ def sdxl_refiner_text_conditioning(g_penultimate, g_pooled, width: int, height: 
     width, crop_y, crop_x and the aesthetic score (→ 2560)."""
     return g_penultimate.float(), _size_embeddings(g_pooled, [height, width, crop_y, crop_x,
                                                               ascore])
+
+
+def sd3_text_conditioning(l_penultimate, g_penultimate, l_pooled, g_pooled,
+                          t5_context=None, context_dim: int = 4096):
+    """SD3's (context, y): the CLIP joint stream (L ⊕ G penultimate, 768 + 1280)
+    zero-padded to ``context_dim`` and joined along the sequence axis with the T5
+    stream when there is one; y = L pooled ⊕ G pooled (2048). All f32."""
+    clip_joint = torch.cat([l_penultimate.float(), g_penultimate.float()], dim=-1)
+    pad = context_dim - clip_joint.shape[-1]
+    if pad < 0:
+        raise ValueError(f"CLIP joint width {clip_joint.shape[-1]} exceeds {context_dim}")
+    context = F.pad(clip_joint, (0, pad))
+    if t5_context is not None:
+        context = torch.cat([context, t5_context.float()], dim=1)
+    return context, torch.cat([l_pooled.float(), g_pooled.float()], dim=-1)

@@ -23,11 +23,17 @@ The forward is staged — ``prepare`` → ``input_step`` → ``middle_step`` →
 ``context``, the skip stack as ``skip_{i}`` and ControlNet residuals as
 ``ctrl_in_{i}``/``ctrl_mid``; ``_unet_pipeline_spec`` describes that staging as
 plain data.
+
+Conditioning beside the UNet: ``apply_inpaint_conditioning`` composes the
+9-channel inpaint-model input (latent ‖ mask ‖ masked-image latent) into one
+``DiffusionModel``, and ``unclip_adm`` builds SD2.x-unCLIP's noise-augmented
+image-embedding vector ``y``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -497,3 +503,118 @@ def build_unet(cfg: UNetConfig, *, device=None, generator: torch.Generator | Non
         init_random_(module, generator)
     return DiffusionModel(module=module, name=name, config=cfg, block_lists=None,
                           pipeline_spec=_unet_pipeline_spec(cfg))
+
+
+class InpaintConditioned(nn.Module):
+    """A 9-channel inpaint UNet with its conditioning channels as buffers: every
+    forward's input becomes ``concat([x, mask, masked_latent], channel)``."""
+
+    def __init__(self, base: nn.Module, mask: torch.Tensor, masked_latent: torch.Tensor):
+        super().__init__()
+        self.base = base
+        self.register_buffer("mask", mask)
+        self.register_buffer("masked", masked_latent)
+
+    @staticmethod
+    def _broadcast(a: torch.Tensor, batch: int) -> torch.Tensor:
+        if a.ndim == 3:
+            a = a[None]
+        if a.shape[0] != batch:
+            if a.shape[0] != 1:
+                raise ValueError(
+                    f"inpaint conditioning batch {a.shape[0]} != latent batch {batch}: pass "
+                    "ONE mask/masked-image (it broadcasts); per-sample conditioning is not "
+                    "supported")
+            a = a.expand(batch, *a.shape[1:])
+        return a
+
+    def forward(self, x, timesteps, context=None, **kwargs):
+        m = self._broadcast(self.mask, x.shape[0]).to(x.dtype)
+        ml = self._broadcast(self.masked, x.shape[0]).to(x.dtype)
+        return self.base(torch.cat([x, m, ml], dim=-1), timesteps, context, **kwargs)
+
+
+def apply_inpaint_conditioning(base: DiffusionModel, mask, masked_latent) -> DiffusionModel:
+    """Compose the sd-inpainting checkpoint's input convention (4 + 1 + 4 channels)
+    into a ``DiffusionModel``: every denoise step's input becomes ``concat([x, mask,
+    masked_latent], channel)``. The conditioning rides the module as buffers, so
+    the composition places through ``parallelize`` like a single model. ``mask`` is
+    1 where content is regenerated, at latent resolution ((1|B, H, W, 1));
+    ``masked_latent`` is the VAE encode of the mask-blanked pixels."""
+    device = next(base.module.parameters()).device
+    module = InpaintConditioned(
+        base.module, torch.as_tensor(mask, dtype=torch.float32).to(device),
+        torch.as_tensor(masked_latent, dtype=torch.float32).to(device))
+    return DiffusionModel(module=module, name=f"{base.name}+inpaint", config=base.config)
+
+
+UNCLIP_NOISE_LEVELS = 1000
+
+
+def unclip_alphas_cumprod() -> torch.Tensor:
+    """The squared-cosine alpha-bar table (``squaredcos_cap_v2``, f32) of the host's
+    ``CLIPEmbeddingNoiseAugmentation``: beta_t = 1 − bar((t+1)/T)/bar(t/T) capped at
+    0.999, with bar(s) = cos²(((s + 0.008)/1.008)·π/2), computed in f64."""
+    n = UNCLIP_NOISE_LEVELS
+    t = torch.arange(n, dtype=torch.float64)
+
+    def bar(s):
+        return torch.cos((s + 0.008) / 1.008 * math.pi / 2.0) ** 2
+
+    betas = torch.clamp(1.0 - bar((t + 1) / n) / bar(t / n), 0.0, 0.999)
+    return torch.cumprod(1.0 - betas, dim=0).float()
+
+
+def unclip_augment(emb: torch.Tensor, aug: float, noise: torch.Tensor, level_dim: int):
+    """One noise augmentation: the level ``round(999·aug)`` (aug clamped to [0, 1]),
+    ``emb`` q-sampled to it with ``noise`` (DDPM over ``unclip_alphas_cumprod``),
+    and the level's ``level_dim``-wide sinusoidal embedding. Returns (noised,
+    level embedding), f32."""
+    n = UNCLIP_NOISE_LEVELS
+    level = int(round((n - 1) * max(0.0, min(1.0, aug))))
+    a = unclip_alphas_cumprod()[level].to(emb.device)
+    noised = torch.sqrt(a) * emb + torch.sqrt(1.0 - a) * noise
+    lvl = torch.full((emb.shape[0],), float(level), dtype=torch.float32, device=emb.device)
+    return noised, timestep_embedding(lvl, level_dim)
+
+
+def unclip_noise(generator: torch.Generator, i: int, shape, device) -> torch.Tensor:
+    """The N(0, 1) draw (f32) of augmentation ``i`` (the tags in order, then the
+    merge): the next draw of ``generator``, which ``unclip_adm`` draws in that order."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def unclip_adm(tags, adm_in_channels: int, generator: torch.Generator | None = None,
+               merge_augmentation: float = 0.05, device=None) -> torch.Tensor:
+    """SD2.x-unCLIP's adm vector from ``unCLIPConditioning`` tags: each tag's CLIP
+    image embeds (the first row) noise-augmented to its ``noise_augmentation``
+    level (``unclip_augment``), joined with the level's sinusoidal embedding,
+    weighted by ``strength`` and summed; with more than one tag the summed embeds
+    are augmented again at ``merge_augmentation`` (the host's noise_augment_merge).
+    Returns (1, adm_in_channels) f32 on ``device`` (default: the first tag's embeds'
+    device when they are a tensor, else ``cuda:0``); the caller broadcasts it to the
+    batch, and CFG's uncond half takes zeros."""
+    if device is None:
+        first = tags[0]["embeds"]
+        device = first.device if torch.is_tensor(first) else default_device()
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    outs = []
+    for i, tag in enumerate(tags):
+        emb = torch.as_tensor(tag["embeds"], dtype=torch.float32).to(device)
+        if emb.ndim == 1:
+            emb = emb[None]
+        emb = emb[:1]
+        noised, lvl_emb = unclip_augment(
+            emb, float(tag.get("noise_augmentation", 0.0)),
+            unclip_noise(generator, i, emb.shape, device), adm_in_channels - emb.shape[-1])
+        outs.append(torch.cat([noised, lvl_emb], dim=-1) * float(tag.get("strength", 1.0)))
+    y = sum(outs)
+    if len(outs) > 1:
+        emb_dim = torch.as_tensor(tags[0]["embeds"]).shape[-1]
+        emb = y[:, :emb_dim]
+        noised, lvl_emb = unclip_augment(
+            emb, merge_augmentation, unclip_noise(generator, len(outs), emb.shape, device),
+            adm_in_channels - emb_dim)
+        y = torch.cat([noised, lvl_emb], dim=-1)
+    return y

@@ -2,13 +2,14 @@
 (counterpart of ``comfyui_parallelanything_tpu/pipelines.py``).
 
 ``StableDiffusionPipeline`` (SD1.5 / SD2.x / SDXL: CLIP context, SDXL's pooled
-and size vector, k-sampler or DDIM sampling with batched CFG) and
-``FluxPipeline`` (T5 context + CLIP-L pooled vector, flow-matching sampling) are
-ported, each with txt2img, img2img and inpainting through ``run_sampler`` and a
-VAE decode. The diffusion model slot takes a bare ``DiffusionModel`` or the
-``ParallelModel`` ``parallelize`` returns, so every sampler step runs over the
-device chain. ``Sd3Pipeline`` and ``WanVideoPipeline`` are not ported yet
-(ROADMAP Queue 1, Nodes and host).
+and size vector, k-sampler or DDIM sampling with batched CFG), ``FluxPipeline``
+(T5 context + CLIP-L pooled vector, flow-matching sampling) and ``Sd3Pipeline``
+(CLIP-L ‖ G joint stream padded into the T5 context, L ⊕ G pooled vector, true
+CFG, flow shift 3) are ported, each with txt2img, img2img and inpainting through
+``run_sampler`` and a VAE decode. The diffusion model slot takes a bare
+``DiffusionModel`` or the ``ParallelModel`` ``parallelize`` returns, so every
+sampler step runs over the device chain. ``WanVideoPipeline`` is not ported yet
+(ROADMAP Queue 1, the other model families).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any
 
 import torch
 
-from .models.text_encoders import sdxl_text_conditioning
+from .models.text_encoders import sd3_text_conditioning, sdxl_text_conditioning
 from .models.vae import images_to_vae_input, vae_output_to_images
 from .ops.resize import resize
 from .sampling.runner import run_sampler
@@ -84,6 +85,22 @@ def _latent_mask_for(mask, init, f: int, height: int, width: int,
     if m.ndim != 4:
         raise ValueError(f"mask rank {m.ndim} does not fit an image latent")
     return resize(m, (m.shape[0], height // f, width // f, 1), method="bilinear")
+
+
+def _start_latents(vae, batch: int, height: int, width: int, rng, init_image, denoise: float,
+                   mask):
+    """What every pipeline hands the sampler from the VAE's side, on the VAE's
+    device: the initial noise (``initial_noise``), the inpainting blend mask or None
+    (``_latent_mask_for``) and the encoded init image or None (``_encode_init``)."""
+    f = vae.spatial_factor
+    device = vae.device
+    noise = initial_noise((batch, height // f, width // f, vae.cfg.z_channels), rng, device)
+    latent_mask = _latent_mask_for(mask, init_image, f, height, width)
+    if latent_mask is not None:
+        latent_mask = latent_mask.to(device)
+    init_latent = _encode_init(vae, init_image, denoise, batch, (height, width),
+                               allow_full_denoise=mask is not None)
+    return noise, latent_mask, init_latent
 
 
 def _model_config_of(model) -> Any:
@@ -170,18 +187,11 @@ class StableDiffusionPipeline:
             if uncond_y is not None:
                 uncond_kwargs = {"y": uncond_y}
 
-        B = len(prompts)
-        device = self.vae.device
-        noise = initial_noise((B, height // f, width // f, self.vae.cfg.z_channels), rng,
-                              device)
         kwargs = {} if y is None else {"y": y}
         if sampler == "flow_euler":
             raise ValueError("flow_euler belongs to FluxPipeline, not the SD family")
-        latent_mask = _latent_mask_for(mask, init_image, f, height, width)
-        if latent_mask is not None:
-            latent_mask = latent_mask.to(device)
-        init_latent = _encode_init(self.vae, init_image, denoise, B, (height, width),
-                                   allow_full_denoise=mask is not None)
+        noise, latent_mask, init_latent = _start_latents(
+            self.vae, len(prompts), height, width, rng, init_image, denoise, mask)
         latents = run_sampler(
             self.unet, noise, context, init_latent=init_latent, denoise=denoise,
             latent_mask=latent_mask,
@@ -254,20 +264,96 @@ class FluxPipeline:
             uncond_context, uncond_pooled = self.encode_prompt(negatives)
             uncond_kwargs = {"y": uncond_pooled}
 
-        B = len(prompts)
-        device = self.vae.device
-        noise = initial_noise((B, height // f, width // f, self.vae.cfg.z_channels), rng,
-                              device)
-        latent_mask = _latent_mask_for(mask, init_image, f, height, width)
-        if latent_mask is not None:
-            latent_mask = latent_mask.to(device)
-        init_latent = _encode_init(self.vae, init_image, denoise, B, (height, width),
-                                   allow_full_denoise=mask is not None)
+        noise, latent_mask, init_latent = _start_latents(
+            self.vae, len(prompts), height, width, rng, init_image, denoise, mask)
         latents = run_sampler(
             self.dit, noise, context, sampler=sampler, prediction="flow", steps=steps,
             shift=shift, guidance=guidance, cfg_scale=cfg_scale if use_cfg else 1.0,
             uncond_context=uncond_context, uncond_kwargs=uncond_kwargs, callback=callback,
             compile_loop=compile_loop, init_latent=init_latent, denoise=denoise,
             latent_mask=latent_mask, **kwargs,
+        )
+        return vae_output_to_images(self.vae.decode(latents))
+
+
+@dataclasses.dataclass
+class Sd3Pipeline:
+    """SD3 / SD3.5 flow-matching text→image: the CLIP-L ‖ CLIP-G joint stream
+    padded into the T5 context, the L ⊕ G pooled vector, true CFG, a large flow
+    shift."""
+
+    dit: Any  # MMDiT-class DiffusionModel or ParallelModel
+    vae: Any  # 16-channel SD3 autoencoder (models.vae.VAE)
+    clip: Any  # CLIP-L TextEncoder
+    clip_g: Any  # OpenCLIP-G TextEncoder
+    tokenizer: Any
+    tokenizer_g: Any = None
+    t5: Any = None  # optional (SD3 runs without T5 at reduced quality)
+    t5_tokenizer: Any = None
+
+    def encode_prompt(self, prompts: list[str]):
+        """Prompts → (context, y): the joint CLIP (and T5) context and the pooled
+        vector, both f32."""
+        ids, _ = self.tokenizer(prompts)
+        _, pen_l, pooled_l = self.clip(ids)
+        ids_g, _ = (self.tokenizer_g or self.tokenizer)(prompts)
+        _, pen_g, pooled_g = self.clip_g(ids_g)
+        t5_ctx = None
+        if self.t5 is not None:
+            if self.t5_tokenizer is None:
+                raise ValueError("t5 encoder set without t5_tokenizer — the CLIP BPE "
+                                 "tokenizer's ids are meaningless to the T5 vocab")
+            t5_ids, t5_mask = self.t5_tokenizer(prompts)
+            t5_ctx = self.t5(t5_ids, mask=t5_mask)
+        ctx_dim = getattr(_model_config_of(self.dit), "context_in_dim", 4096)
+        return sd3_text_conditioning(pen_l, pen_g, pooled_l, pooled_g, t5_ctx,
+                                     context_dim=ctx_dim)
+
+    def __call__(
+        self,
+        prompt: str | list[str],
+        negative_prompt: str | list[str] = "",
+        *,
+        steps: int = 28,
+        sampler: str = "flow_euler",
+        cfg_scale: float = 4.5,
+        shift: float = 3.0,
+        height: int = 1024,
+        width: int = 1024,
+        rng: torch.Generator | None = None,
+        callback=None,
+        init_image=None,
+        denoise: float = 1.0,
+        mask=None,
+        compile_loop: bool = False,
+    ) -> torch.Tensor:
+        """Returns float images (B, height, width, 3) in [0, 1]. CFG runs when
+        ``cfg_scale != 1``, the uncond half on ``negative_prompt`` with its own
+        pooled ``y``. ``rng`` draws the initial noise (a generator seeded with 0
+        when None). img2img and inpainting as ``FluxPipeline``."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        f = self.vae.spatial_factor
+        patch = getattr(_model_config_of(self.dit), "patch_size", 2)
+        unit = f * patch
+        if height % unit or width % unit:
+            raise ValueError(f"height/width must be multiples of {unit}")
+
+        context, y = self.encode_prompt(prompts)
+        use_cfg = cfg_scale != 1.0
+        uncond_context = None
+        uncond_kwargs = None
+        if use_cfg:
+            uncond_context, uncond_y = self.encode_prompt(
+                _match_negatives(prompts, negative_prompt))
+            uncond_kwargs = {"y": uncond_y}
+
+        noise, latent_mask, init_latent = _start_latents(
+            self.vae, len(prompts), height, width, rng, init_image, denoise, mask)
+        latents = run_sampler(
+            self.dit, noise, context, sampler=sampler, prediction="flow", steps=steps,
+            shift=shift, cfg_scale=cfg_scale if use_cfg else 1.0,
+            uncond_context=uncond_context, uncond_kwargs=uncond_kwargs, callback=callback,
+            compile_loop=compile_loop, init_latent=init_latent, denoise=denoise,
+            latent_mask=latent_mask, y=y,
         )
         return vae_output_to_images(self.vae.decode(latents))

@@ -109,7 +109,7 @@ def run_sampler(
     if compile_loop:
         raise NotImplementedError(
             "compile_loop=True, the whole-loop compiled sampler, is not ported yet "
-            "(ROADMAP Queue 1, Serving: sampling/compiled.py)")
+            "(ROADMAP Queue 1, the whole-loop compiled sampler: sampling/compiled.py)")
     if not 0.0 < denoise <= 1.0:
         raise ValueError(f"denoise must be in (0, 1], got {denoise}")
     if latent_mask is not None and init_latent is None:

@@ -1,6 +1,7 @@
 """GPU tests of the PyTorch port: the CUDA kernels against their plain versions, and
-a small FLUX model through ``parallelize`` on the card against the same model on the
-CPU. Every test here needs a CUDA device and skips without one.
+small FLUX, UNet, ControlNet and SD3 models through ``parallelize`` on the card
+against the same models on the CPU. Every test here needs a CUDA device and skips
+without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed; the suite's ``conftest.py`` imports JAX, so on such a machine run
@@ -16,6 +17,7 @@ from comfyui_parallelanything_tpu_torch import parallelize  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models import flux  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops import attention  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from comfyui_parallelanything_tpu_torch.models import controlnet, mmdit  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models import text_encoders, unet, vae  # noqa: E402
 from comfyui_parallelanything_tpu_torch.pipelines import FluxPipeline  # noqa: E402
 from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample  # noqa: E402
@@ -419,4 +421,76 @@ def test_small_unet_sampler_on_the_card_matches_the_cpu(cuda_device, monkeypatch
     assert {v: n for v, n in fa.launches_by_variant.items() if n} == {
         v: 2 * n for v, n in variants.items()}
     rel = ((got.cpu() - want).norm() / want.norm()).item()
+    assert rel <= rel_tol, rel
+
+
+# A small SD3.5-medium-shaped MMDiT: 64-wide heads, q/k RMS norm, a dual-attention
+# block and the pre-only last block.
+SMALL_MMDIT = dict(depth=3, in_channels=16, context_in_dim=64, pooled_dim=32, pos_embed_max=16,
+                   qk_norm=True, x_block_self_attn_layers=(0,))
+
+
+@pytest.mark.parametrize("dtype,rel_tol,variants",
+                         [(torch.float32, 1e-4, {"tf32x3": 4}),
+                          (torch.bfloat16, 3e-2, {"sm90": 4})])
+def test_small_mmdit_sampler_on_the_card_matches_the_cpu(cuda_device, dtype, rel_tol,
+                                                         variants):
+    # flow_euler, 2 steps, CFG (one batch-2 forward a step): 3 joint attentions over
+    # [context ‖ x] (118 = 22 + 96 tokens, ragged) and 1 x-only attention a forward.
+    cfg = mmdit.MMDiTConfig(**SMALL_MMDIT, dtype=dtype)
+    cpu_model = mmdit.build_mmdit(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu_model = mmdit.build_mmdit(cfg, device=cuda_device,
+                                  state_dict=cpu_model.module.state_dict())
+    g = torch.Generator().manual_seed(1)
+    noise = torch.randn((1, 16, 24, 16), generator=g)
+    ctx, uctx = torch.randn((1, 22, 64), generator=g), torch.randn((1, 22, 64), generator=g)
+    y, uy = torch.randn((1, 32), generator=g), torch.randn((1, 32), generator=g)
+    kw = dict(sampler="flow_euler", prediction="flow", steps=2, shift=3.0, cfg_scale=4.5)
+    want = run_sampler(cpu_model, noise, ctx, uncond_context=uctx, uncond_kwargs={"y": uy},
+                       y=y, **kw)
+    pm = parallelize(gpu_model, [("cuda:0", 100)])
+    fa.reset_launches()
+    d = cuda_device
+    got = run_sampler(pm, noise.to(d), ctx.to(d), uncond_context=uctx.to(d),
+                      uncond_kwargs={"y": uy.to(d)}, y=y.to(d), **kw)
+    torch.cuda.synchronize()
+    assert {v: n for v, n in fa.launches_by_variant.items() if n} == {
+        v: 2 * n for v, n in variants.items()}
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    assert rel <= rel_tol, rel
+
+
+@pytest.mark.parametrize("dtype,rel_tol,variants",
+                         [(torch.float32, 1e-4, {"tf32x3": 28}),
+                          (torch.bfloat16, 5e-2, {"sm90": 16, "wide": 12})])
+def test_small_controlnet_forward_on_the_card_matches_the_cpu(cuda_device, monkeypatch, dtype,
+                                                              rel_tol, variants):
+    # SMALL_UNET with a ControlNet of the same config (random zero convolutions) and a
+    # hint resized from 48² to 256², one batch-2 forward: the base's 20 attention
+    # calls (12 at head dims 40 and 80, 8 at 160) and the trunk's 4 transformer blocks
+    # (input levels at 40, 80 and 160, the middle at 160), self + cross each.
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = unet.UNetConfig(**SMALL_UNET, dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    cpu_base = unet.build_unet(cfg, device="cpu", generator=gen)
+    cpu_cn = controlnet.build_controlnet(cfg, device="cpu", generator=gen)
+    chip_smoke.randomize_zero_convs(cpu_cn.module, gen)
+    hint = torch.rand((1, 48, 48, 3), generator=gen)
+    kw = dict(strength=0.8, start_percent=0.0, end_percent=0.9)
+    want_model = controlnet.apply_control(cpu_base, cpu_cn, hint, **kw)
+    gpu_model = controlnet.apply_control(
+        unet.build_unet(cfg, device=cuda_device, state_dict=cpu_base.module.state_dict()),
+        controlnet.build_controlnet(cfg, device=cuda_device,
+                                    state_dict=cpu_cn.module.state_dict()), hint, **kw)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 32, 32, 4), generator=g)
+    t = torch.tensor([700.0, 20.0])
+    ctx = torch.randn((2, 77, 64), generator=g)
+    want = want_model(x, t, ctx)
+    pm = parallelize(gpu_model, [("cuda:0", 100)])
+    fa.reset_launches()
+    got = pm(x.to(cuda_device), t.to(cuda_device), ctx.to(cuda_device))
+    torch.cuda.synchronize()
+    assert {v: n for v, n in fa.launches_by_variant.items() if n} == variants
+    rel = ((got.cpu().float() - want.float()).norm() / want.float().norm()).item()
     assert rel <= rel_tol, rel

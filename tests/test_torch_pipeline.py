@@ -255,8 +255,10 @@ class TestRunSampler:
         _, pdit = dits
         noise, ctx, y, init = (torch.from_numpy(a) for a in _latents(7))
         base = dict(steps=1, y=y)
-        for kw, match in ((dict(sampler="flow_euler", compile_loop=True), "Serving"),
-                          (dict(sampler="dpmpp_2m", compile_loop=True), "Serving"),
+        for kw, match in ((dict(sampler="flow_euler", compile_loop=True),
+                           "whole-loop compiled sampler"),
+                          (dict(sampler="dpmpp_2m", compile_loop=True),
+                           "whole-loop compiled sampler"),
                           (dict(sampler="flow_euler", lora={"a": 1}), "Nodes and host")):
             with pytest.raises(NotImplementedError, match=match):
                 run_sampler(pdit, noise, ctx, **base, **kw)
