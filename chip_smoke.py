@@ -46,7 +46,11 @@ the error.
    (57 per step) and the latent must be finite. One forward is then held against
    the same model on the plain attention path, one step runs at batch 2, and one
    step runs under ``torch.profiler``: the top 10 CUDA kernels by total time, K1's
-   share and the device's busy share.
+   share and the device's busy share. After the pipeline phase the same 4 steps
+   run with ``compile_loop=True`` (the whole loop captured as one CUDA graph,
+   ``sampling/compiled.py``) and eager, in turns (``captured_turns``): s/it, the
+   capture's seconds, peak memory, the captured latent against the eager one, and
+   exactly 57 ``sm90`` a forward per replay.
 5. pipeline — ``FluxPipeline`` from a prompt to a 1024² image: the main path's
    FLUX-dev with CLIP-L, T5-XXL (512 tokens) and the FLUX VAE at full width, random
    weights from a seeded generator, a tokenizer built here over a synthetic vocab;
@@ -65,15 +69,26 @@ the error.
    blocks × self + cross, cond ‖ uncond in one batch-2 call) and one ``wide``
    call for the decode; the image must be finite, (1, 1024, 1024, 3), in [0, 1].
    One UNet forward is held against the same forward on plain attention, and one
-   step runs under ``torch.profiler``.
+   step runs under ``torch.profiler``. Then the pipeline with ``compile_loop=True``
+   against the eager pipeline in turns (s/it from the denoise, s/image, peak
+   memory; 140 ``sm90`` a forward per replay), and one captured denoise under the
+   profiler.
 7. sd_samplers — SD1.5 at full width (``sd15_config()``) at 512², CFG 7.0,
    through ``parallelize`` → ``run_sampler`` with every sampler name but
    ``flow_euler`` (2 steps, 3 for the multistep ones), then an img2img (denoise
    0.5) and an inpaint call: every latent finite, and K1 launches exactly 20
    ``sm90`` + 10 ``wide`` per UNet forward (head dims 40 and 80, and 160; no middle
    transformer, as the JAX package's ``middle_depth`` gives ``sd15_config()``
-   none). Then ``dpmpp_2m`` at 10 steps for its s/it, and one UNet forward held
-   against the same forward on plain attention.
+   none). Then ``dpmpp_2m`` at 10 steps for its s/it, one UNet forward held
+   against the same forward on plain attention and one profiled step. Every call
+   then runs again captured, each within 1e-3 relative L2 of its eager run with the
+   same generator, and ``dpmpp_2m`` over 10 steps captured against eager in turns,
+   then profiled captured.
+   hybrid — the same SD1.5 UNet on ``[("cuda:0", 75), ("cpu", 25)]`` at 512², batch
+   4, CFG 7, 2 euler steps with ``compile_loop=True``, which must run eager: the
+   weights blended from the H100's and the host's roofline specs, each 8-row
+   forward's split, the host group's seconds a step, every sample within 5e-2 of
+   the card alone, and 20 ``sm90`` + 10 ``wide`` per GPU forward only.
 8. sd15_f32 — the same SD1.5 in float32 (what ``--force-fp32`` gives a user), TF32
    off for matmuls and convolutions: one batch-2 UNet forward through K1 held
    against the same forward on plain attention, then ``dpmpp_2m`` for a few steps
@@ -95,7 +110,9 @@ the error.
    4.5 with a negative prompt (cond ‖ uncond in one batch-2 forward): exactly 38
    ``sm90`` a step and one ``wide`` for the decode, the image finite,
    (1, 1024, 1024, 3), in [0, 1]; a batch-2 forward held against plain attention,
-   one step under ``torch.profiler``; then SD3.5-medium (mmdit-x) at full size, one
+   one step under ``torch.profiler``; the 8-step denoise captured against eager in
+   turns, 38 ``sm90`` a forward per replay, its peak memory below the card's; then
+   SD3.5-medium (mmdit-x) at full size, one
    batch-2 forward with exactly 37 ``sm90`` (24 joint + 13 x-only attentions), held
    against plain attention.
 Then the script's wall time, the ``kernels`` line, and last
@@ -200,6 +217,19 @@ KERNEL_CASES = [
     ("sd15_f32_cross_1024x77_d80", SD15_1024, (2, 77, 8, 80), "float32", "contiguous", "tf32x3"),
     ("sd15_f32_cross_256x77_d160", SD15_256, (2, 77, 8, 160), "float32", "contiguous",
      "tf32x3"),
+    # The hybrid phase's GPU group: SD1.5's calls at 7 of CFG's 8 rows (batch 4).
+    ("sd15_hybrid_self_4096_d40", (7, 4096, 8, 40), (7, 4096, 8, 40), "bfloat16", "contiguous",
+     "sm90"),
+    ("sd15_hybrid_self_1024_d80", (7, 1024, 8, 80), (7, 1024, 8, 80), "bfloat16", "contiguous",
+     "sm90"),
+    ("sd15_hybrid_self_256_d160", (7, 256, 8, 160), (7, 256, 8, 160), "bfloat16", "contiguous",
+     "wide"),
+    ("sd15_hybrid_cross_4096x77_d40", (7, 4096, 8, 40), (7, 77, 8, 40), "bfloat16",
+     "contiguous", "sm90"),
+    ("sd15_hybrid_cross_1024x77_d80", (7, 1024, 8, 80), (7, 77, 8, 80), "bfloat16",
+     "contiguous", "sm90"),
+    ("sd15_hybrid_cross_256x77_d160", (7, 256, 8, 160), (7, 77, 8, 160), "bfloat16",
+     "contiguous", "wide"),
 ]
 # Limits on the kernel's error against the plain version computed in f32 on the
 # same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
@@ -483,17 +513,20 @@ def device_ms(fns: dict, calls: int) -> dict[str, float]:
     for fn, _ in fns.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn, _ in fns.values():
-            for _ in range(calls):
-                fn()
-        torch.cuda.synchronize()
-    totals = kernel_times(prof)
-    out = {label: sum(ms for name, (ms, _) in totals.items() if owns(name)) / calls
-           for label, (_, owns) in fns.items()}
-    if not all(out.values()):
-        raise RuntimeError(f"the profiler window shows no device time for some of {out}")
-    return out
+    # The tracer can miss the first kernels of a process's first window: a window in
+    # which some label shows no kernel is measured again, twice at most.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fn, _ in fns.values():
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        totals = kernel_times(prof)
+        out = {label: sum(ms for name, (ms, _) in totals.items() if owns(name)) / calls
+               for label, (_, owns) in fns.items()}
+        if all(out.values()):
+            return out
+    raise RuntimeError(f"the profiler window shows no device time for some of {out}")
 
 
 def kernel_times(prof) -> dict[str, list]:
@@ -724,6 +757,35 @@ def phase_main_path():
     return pm, by_variant
 
 
+def phase_main_path_captured(pm) -> dict:
+    """The main path's 4 FLUX-dev steps (inputs drawn anew, the main path's shapes)
+    with the whole loop captured as a CUDA graph, against the eager loop in turns
+    (``captured_turns``): exactly 57 ``sm90`` a forward, 4 forwards a replay. It runs
+    after the pipeline phase, whose peak memory it would otherwise raise by the
+    capture stream's cuBLAS workspace. Returns K1's launches by variant that the
+    replays made."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    gc.collect()  # the pipeline phase's text towers and VAE, held by reference cycles
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = pm.model_config
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((1, 128, 128, 16), generator=gen, device=dev)
+    ctx = torch.randn((1, 512, cfg.context_in_dim), generator=gen, device=dev)
+    y = torch.randn((1, cfg.vec_in_dim), generator=gen, device=dev)
+    captured = captured_turns(
+        "main_path_captured", lambda c: run_sampler(
+            pm, x, ctx, sampler="flow_euler", steps=STEPS, guidance=3.5, y=y, compile_loop=c),
+        STEPS, {"sm90": (cfg.depth + cfg.depth_single_blocks) * STEPS})
+    compiled.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    return captured["k1_replayed_launches"]
+
+
 def phase_profile(pm, x, ctx, y) -> None:
     """One FLUX-dev step under ``torch.profiler`` (``profile_step``)."""
     from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample
@@ -731,11 +793,13 @@ def phase_profile(pm, x, ctx, y) -> None:
     profile_step("profile", lambda: flow_euler_sample(pm, x, ctx, steps=1, guidance=3.5, y=y))
 
 
-def profile_step(phase: str, step) -> dict:
+def profile_step(phase: str, step, require_k1: bool = True) -> dict:
     """``step()`` under ``torch.profiler``: the top 10 CUDA kernels by total device
     time, K1's share of all kernel time and of the step, and the device's busy share
     (kernel time over the step's wall time, one stream, so kernels do not overlap).
-    Kernel times come from the profiler's trace (its ``kernel`` events)."""
+    Kernel times come from the profiler's trace (its ``kernel`` events). A replayed
+    CUDA graph's kernels are reported only where the tracer sees inside graphs:
+    ``require_k1=False`` records the window without failing when it shows none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -759,9 +823,85 @@ def profile_step(phase: str, step) -> dict:
                    "share_of_kernels": t[0] / kernel_ms} for n, t in top],
     }
     emit(result)
-    if not kernel_ms or k1_calls == 0:
+    if require_k1 and (not kernel_ms or k1_calls == 0):
         raise RuntimeError(f"the profiled step shows no K1 kernel: {result}")
     return result
+
+
+# The captured loop against the eager loop on the same inputs: the same kernels in
+# the same order, so 0 is expected; the limit only allows for a library picking
+# another algorithm under capture.
+CAPTURED_REL_TOL = 1e-3
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def replayed_launches(records) -> dict[str, int]:
+    """K1's launches by variant that cached loops' replays made: each loop's
+    launches recorded at its capture times its replays, summed."""
+    total: dict[str, int] = {}
+    for rec in records:
+        for v, n in rec["captured"].items():
+            total[v] = total.get(v, 0) + n * rec["replays"]
+    return total
+
+
+def captured_turns(phase: str, run, steps: int, per_replay: dict, denoise_of=None) -> dict:
+    """One sampler run, ``run(compile_loop)``, captured by a first call (warm-up,
+    capture, one replay; its seconds and the capture's own), then eager and captured
+    in turns E, C, C, E: each run's seconds, s/it (of ``denoise_of(seconds)`` where
+    the run also encodes and decodes) and peak memory, the graph's pool included;
+    the captured output against the eager one (relative L2 within
+    ``CAPTURED_REL_TOL``, and whether bitwise equal). The one cached loop must have
+    recorded ``per_replay`` K1 launches by variant at its capture and been replayed
+    by each of the three captured calls: a captured call that ran eager fails the
+    phase. ``k1_replayed_launches`` is the captured launches times the replays."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+
+    dev = torch.device("cuda", 0)
+    compiled.clear_compiled_loops()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run(True)
+    torch.cuda.synchronize()
+    capture_call_s = time.perf_counter() - start
+    capture_peak = torch.cuda.max_memory_allocated(dev)
+    runs, outs = [], {}
+    for mode in ("eager", "captured", "captured", "eager"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run(mode == "captured")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        denoise_s = denoise_of(seconds) if denoise_of else seconds
+        runs.append({"mode": mode, "seconds": seconds, "s_per_it": denoise_s / steps,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+        outs.setdefault(mode, out)
+    records = compiled.loop_records()
+    replayed = replayed_launches(records)
+    got, want = outs["captured"], outs["eager"]
+    res = {
+        "phase": phase, "steps": steps, "runs": runs,
+        "capture_call_s": capture_call_s, "capture_call_max_memory_allocated": capture_peak,
+        "loops": records, "rel_l2_vs_eager": rel_l2(got, want),
+        "max_abs_err_vs_eager": (got.float() - want.float()).abs().max().item(),
+        "bitwise_equal": bool(torch.equal(got, want)), "tol": CAPTURED_REL_TOL,
+        "finite": bool(torch.isfinite(got).all().item()),
+        "k1_captured_per_replay": per_replay, "k1_replayed_launches": replayed,
+    }
+    emit(res)
+    if not (len(records) == 1 and records[0]["replays"] == 3
+            and records[0]["captured"] == per_replay and res["finite"]
+            and res["rel_l2_vs_eager"] <= CAPTURED_REL_TOL
+            and replayed == {v: 3 * n for v, n in per_replay.items()}):
+        raise RuntimeError(f"{phase} check failed: {res}")
+    return res
 
 
 PIPELINE_PROMPT = "a photograph of an astronaut riding a horse on the moon, highly detailed"
@@ -1058,7 +1198,27 @@ def phase_sd_pipeline() -> dict:
     profile_step("sd_profile", lambda: run_sampler(
         pm, noise, context, sampler="dpmpp_2m", steps=1, cfg_scale=SD_CFG,
         uncond_context=uctx, uncond_kwargs={"y": uy}, y=y1))
-    return launches
+
+    # The pipeline with its denoise loop captured, against the eager pipeline in turns
+    # (s/it from the denoise: the run less its encode and decode spans).
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+
+    def run_pipe(compile_loop):
+        spans.clear()
+        return pipe(PIPELINE_PROMPT, SD_NEGATIVE, steps=SD_STEPS, compile_loop=compile_loop,
+                    rng=torch.Generator(device=dev).manual_seed(6), **kw)
+
+    captured = captured_turns("sd_pipeline_captured", run_pipe, SD_STEPS,
+                              {"sm90": SDXL_SM90_PER_STEP * SD_STEPS},
+                              denoise_of=lambda s: s - spans["encode_s"] - spans["decode_s"])
+    # One captured denoise (the pipeline's cached loop, replayed) under the profiler.
+    profile_step("sd_profile_captured", lambda: run_sampler(
+        pm, noise, context, sampler="dpmpp_2m", steps=SD_STEPS, cfg_scale=SD_CFG,
+        uncond_context=uctx, uncond_kwargs={"y": uy}, y=y1, compile_loop=True),
+        require_k1=False)
+    compiled.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    return launches, captured["k1_replayed_launches"]
 
 
 SD15_MULTISTEP = ("lms", "dpmpp_2m", "dpmpp_2m_sde", "dpmpp_3m_sde", "uni_pc", "uni_pc_bh2")
@@ -1104,7 +1264,7 @@ def phase_sd_samplers() -> dict:
     calls += [("img2img", dict(sampler="dpmpp_2m", steps=2, init_latent=init, denoise=0.5)),
               ("inpaint", dict(sampler="euler_ancestral", steps=2, init_latent=init,
                                latent_mask=mask))]
-    rows, total = {}, dict.fromkeys(fa.VARIANTS, 0)
+    rows, total, outs = {}, dict.fromkeys(fa.VARIANTS, 0), {}
     for name, kw in calls:
         forwards[0] = 0
         fa.reset_launches()
@@ -1113,6 +1273,7 @@ def phase_sd_samplers() -> dict:
                           **common, **kw)
         torch.cuda.synchronize()
         launched = _launched(fa)
+        outs[name] = out
         want = {v: n * forwards[0] for v, n in SD15_PER_FORWARD.items()}
         rows[name] = {"steps": kw["steps"], "forwards": forwards[0], "seconds":
                       time.perf_counter() - t0, "k1_launches_by_variant": launched,
@@ -1154,7 +1315,51 @@ def phase_sd_samplers() -> dict:
           "finite": bool(torch.isfinite(out_k).all().item())})
     if not rel <= SD_REL_TOL:
         raise RuntimeError(f"SD1.5 UNet forward through K1 disagrees with plain attention: {rel}")
-    return total
+    profile_step("sd15_profile", lambda: run_sampler(pm, noise, ctx, sampler="dpmpp_2m",
+                                                     steps=1, **common))
+
+    # Every call again with its loop captured (same generator seeds): each within
+    # CAPTURED_REL_TOL of its eager run, its capture holding exactly SD15_PER_FORWARD
+    # launches per forward, replayed once.
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+
+    compiled.clear_compiled_loops()
+    captured_rows = {}
+    for name, kw in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_sampler(pm, noise, ctx, rng=torch.Generator(device=dev).manual_seed(8),
+                          compile_loop=True, **common, **kw)
+        torch.cuda.synchronize()
+        rec = compiled.loop_records()[-1]
+        want = {v: n * rows[name]["forwards"] for v, n in SD15_PER_FORWARD.items()}
+        captured_rows[name] = {
+            "seconds": time.perf_counter() - t0, "capture_s": rec["capture_s"],
+            "k1_captured": rec["captured"], "replays": rec["replays"],
+            "rel_l2_vs_eager": rel_l2(got, outs[name]),
+            "bitwise_equal": bool(torch.equal(got, outs[name])),
+            "finite": bool(torch.isfinite(got).all().item())}
+        row = captured_rows[name]
+        if not (rec["sampler"] == kw["sampler"] and rec["captured"] == want
+                and rec["replays"] == 1 and row["finite"]
+                and row["rel_l2_vs_eager"] <= CAPTURED_REL_TOL):
+            emit({"phase": "sd_samplers_captured_each", "runs": captured_rows})
+            raise RuntimeError(f"captured {name} check failed: {row}, want {want}")
+    each = replayed_launches(compiled.loop_records())
+    emit({"phase": "sd_samplers_captured_each", "tol": CAPTURED_REL_TOL, "runs": captured_rows,
+          "k1_replayed_launches": each})
+    captured = captured_turns(
+        "sd_samplers_captured", lambda c: run_sampler(pm, noise, ctx, sampler="dpmpp_2m",
+                                                      steps=10, compile_loop=c, **common),
+        10, {v: 10 * n for v, n in SD15_PER_FORWARD.items()})
+    profile_step("sd15_profile_captured", lambda: run_sampler(
+        pm, noise, ctx, sampler="dpmpp_2m", steps=10, compile_loop=True, **common),
+        require_k1=False)
+    compiled.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    replayed = {v: each.get(v, 0) + captured["k1_replayed_launches"].get(v, 0)
+                for v in set(each) | set(captured["k1_replayed_launches"])}
+    return total, replayed, unet
 
 
 SD15_F32_PER_FORWARD = {"tf32x3": 30}  # head dims 40, 80 and 160, 10 calls each; no f32
@@ -1563,6 +1768,17 @@ def phase_sd3() -> dict:
         pm, noise, context, sampler="flow_euler", prediction="flow", steps=1,
         shift=SD3_SHIFT, cfg_scale=SD3_CFG, uncond_context=uctx, uncond_kwargs={"y": uy},
         y=y1))
+    # The denoise captured against eager, in turns; its peak memory, the graph's pool
+    # included, must stay below the card's.
+    captured = captured_turns("sd3_captured", lambda c: run_sampler(
+        pm, noise, context, sampler="flow_euler", prediction="flow", steps=SD3_STEPS,
+        shift=SD3_SHIFT, cfg_scale=SD3_CFG, uncond_context=uctx, uncond_kwargs={"y": uy},
+        y=y1, compile_loop=c), SD3_STEPS, {"sm90": SD35L_SM90_PER_STEP * SD3_STEPS})
+    card = torch.cuda.get_device_properties(dev).total_memory
+    peak = max([captured["capture_call_max_memory_allocated"]]
+               + [r["max_memory_allocated"] for r in captured["runs"]])
+    if not peak < card:
+        raise RuntimeError(f"sd3 captured peak {peak} B is not below the card's {card} B")
     pm.cleanup()
     del pm, pipe, dit, clip_l, clip_g, t5, vae
     gc.collect()
@@ -1573,7 +1789,94 @@ def phase_sd3() -> dict:
     medium_launches = forward_vs_plain(pm_m, "sd35_medium_vs_plain_attention",
                                        SD35M_PER_FORWARD)
     pm_m.cleanup()
-    return {"sd3": launches, "sd35_medium": medium_launches}
+    return {"sd3": launches, "sd3_captured": captured["k1_replayed_launches"],
+            "sd35_medium": medium_launches}
+
+
+HYBRID_CHAIN = [("cuda:0", 75), ("cpu", 25)]
+HYBRID_BATCH = 4  # CFG makes every forward 8 rows
+HYBRID_STEPS = 2
+HYBRID_STEP_LIMIT_S = 30.0  # above this, one step of the host's share: one step only
+HYBRID_REL_TOL = 5e-2  # per sample against the card alone: bf16 on two devices
+
+
+def hybrid_split(pm, batch: int) -> tuple[int, ...]:
+    """The rows of a ``batch``-row forward each platform group of ``pm`` takes."""
+    from comfyui_parallelanything_tpu_torch.parallel.split import (
+        largest_remainder_split,
+        normalize_weights,
+    )
+
+    return largest_remainder_split(batch, normalize_weights([g.weight for g in pm._groups]))
+
+
+def phase_hybrid(unet) -> dict:
+    """The sd_samplers phase's SD1.5 UNet on a heterogeneous chain, ``HYBRID_CHAIN``
+    with the default ``ParallelConfig``: 512², batch ``HYBRID_BATCH``, CFG ``SD_CFG``,
+    euler for ``HYBRID_STEPS`` steps with ``compile_loop=True``, which must run the
+    eager loop (no loop captured or replayed). The weights blended from the H100's
+    and the host's roofline specs split each forward's rows; every sample within
+    ``HYBRID_REL_TOL`` of the same run on ``[("cuda:0", 100)]``; K1 launched exactly
+    ``SD15_PER_FORWARD`` per GPU-group forward and never for the host's rows (plain
+    attention, bf16 on the host). The host's seconds per step come from hooks on its
+    replica. Returns K1's launches by variant."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    noise = torch.randn((HYBRID_BATCH, 64, 64, 4), generator=gen, device=dev)
+    ctx, uctx = (torch.randn((HYBRID_BATCH, 77, 768), generator=gen, device=dev)
+                 for _ in range(2))
+    common = dict(sampler="euler", cfg_scale=SD_CFG, uncond_context=uctx)
+    t0 = time.perf_counter()
+    pm = parallelize(unet, HYBRID_CHAIN)
+    place_s = time.perf_counter() - t0
+    split = hybrid_split(pm, 2 * HYBRID_BATCH)
+    host = pm._groups[1].replicas[0]
+    host_s = []
+    host.register_forward_pre_hook(lambda m, a: host_s.append(-time.perf_counter()))
+    host.register_forward_hook(lambda m, a, o: host_s.append(host_s.pop() + time.perf_counter()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_sampler(pm, noise, ctx, steps=1, **common)
+    torch.cuda.synchronize()
+    first_step_s = time.perf_counter() - t0
+    steps = HYBRID_STEPS if first_step_s <= HYBRID_STEP_LIMIT_S else 1
+    want = run_sampler(parallelize(unet, [("cuda:0", 100)]), noise, ctx, steps=steps, **common)
+    loops = compiled.loop_records()
+    fa.reset_launches()
+    host_s.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run_sampler(pm, noise, ctx, steps=steps, compile_loop=True, **common)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launched(fa)
+    res = {
+        "phase": "hybrid", "model": "sd15", "chain": HYBRID_CHAIN, "devices": list(pm.devices),
+        "weights": list(pm.weights), "group_weights": [g.weight for g in pm._groups],
+        "rows_per_forward": list(split), "batch": HYBRID_BATCH, "cfg_scale": SD_CFG,
+        "steps": steps, "first_step_s": first_step_s,
+        "steps_cut_to_one": steps != HYBRID_STEPS, "place_s": place_s,
+        "s_per_it": seconds / steps, "host_group_s_per_step": host_s,
+        "ran_eager": compiled.loop_records() == loops,
+        "rel_l2_per_sample": [rel_l2(got[i], want[i]) for i in range(HYBRID_BATCH)],
+        "tol": HYBRID_REL_TOL, "finite": bool(torch.isfinite(got).all().item()),
+        "k1_launches_by_variant": launches,
+        "k1_launches_expected": {v: n * steps for v, n in SD15_PER_FORWARD.items()},
+    }
+    emit(res)
+    if not (res["ran_eager"] and res["finite"] and launches == res["k1_launches_expected"]
+            and len(split) == 2 and split[0] >= 1 and split[1] >= 1 and len(host_s) == steps
+            and max(res["rel_l2_per_sample"]) <= HYBRID_REL_TOL and got.device == dev):
+        raise RuntimeError(f"hybrid check failed: {res}")
+    pm.cleanup()
+    return launches
 
 
 def main() -> int:
@@ -1590,15 +1893,18 @@ def main() -> int:
     rows = phase_kernel()
     pm, main_launches = phase_main_path()
     pipe_launches = phase_pipeline(pm)
+    main_captured = phase_main_path_captured(pm)
     # Free FLUX-dev before the SD-family phases.
     pm.cleanup()
     del pm
     gc.collect()
     torch.cuda.empty_cache()
-    sd_launches = phase_sd_pipeline()
+    sd_launches, sd_captured = phase_sd_pipeline()
     gc.collect()
     torch.cuda.empty_cache()
-    sampler_launches = phase_sd_samplers()
+    sampler_launches, sampler_captured, sd15 = phase_sd_samplers()
+    hybrid_launches = phase_hybrid(sd15)
+    del sd15
     gc.collect()
     torch.cuda.empty_cache()
     f32_launches = phase_sd15_f32()
@@ -1608,8 +1914,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sd3_launches = phase_sd3()
-    paths = {"main_path": main_launches, **pipe_launches, "sd_pipeline": sd_launches,
-             "sd_samplers": sampler_launches, "sd15_f32": f32_launches, **controlnet_launches,
+    # A captured path's launches are those its graphs replayed: K1's launches recorded
+    # at capture times the replays.
+    paths = {"main_path": main_launches, "main_path_captured": main_captured, **pipe_launches,
+             "sd_pipeline": sd_launches, "sd_pipeline_captured": sd_captured,
+             "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
+             "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
              **sd3_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",

@@ -58,6 +58,12 @@ def get_device(device_str: str) -> torch.device:
     raise ValueError(f"No devices available for platform {plat!r} (from {device_str!r})")
 
 
+def device_kind(device: torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``) for a GPU, ``""`` for the
+    host: the key of the roofline platform specs (``utils/roofline.py``)."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else ""
+
+
 def default_device() -> torch.device:
     """``cuda:0``. There is no silent CPU fallback: without a GPU this raises, and
     a caller that wants the CPU passes ``device="cpu"``."""

@@ -124,7 +124,8 @@ def _apply_freeu(cfg: UNetConfig, h: torch.Tensor, skip: torch.Tensor):
         hidden_mean = (hidden_mean - h_min) / torch.clamp(h_max - h_min, min=1e-8)
         scale = ((b - 1.0) * hidden_mean + 1.0).to(h.dtype)
     else:
-        scale = torch.tensor(b, dtype=h.dtype, device=h.device)
+        # A fill kernel, not a host copy, so the up path stays capturable in a graph.
+        scale = torch.full((), b, dtype=h.dtype, device=h.device)
     h = torch.cat([h[:, :half] * scale, h[:, half:]], dim=1)
     return h, _fourier_filter(skip, threshold=1, scale=s)
 

@@ -14,11 +14,15 @@ sigma arithmetic stays in f32.
 
 Per-step noise comes from ``step_noise`` alone: its draw depends only on the
 request generator's seed, the step and the part of the step, never on how many
-draws came before (the JAX package's ``fold_in(rng, i)`` discipline).
+draws came before (the JAX package's ``fold_in(rng, i)`` discipline). The
+whole-loop compiled sampler draws every step's noise before the loop and hands the
+samplers the table through ``noise_table``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 
@@ -393,7 +397,28 @@ class EpsDenoiser:
         return x - sigma * eps
 
 
+# The whole-loop compiled sampler's pre-drawn noise: (steps, parts, *latent) while
+# a loop runs under ``noise_table`` (``sampling/compiled.py``), else None.
+_NOISE_TABLE: contextvars.ContextVar = contextvars.ContextVar("noise_table", default=None)
+
+
+@contextlib.contextmanager
+def noise_table(table: torch.Tensor | None):
+    """Inside the block the samplers' per-step draws read ``table[i, part]``, the
+    ``step_noise`` draws made before the loop, instead of drawing: a captured CUDA
+    graph cannot seed a generator per step, and its replays read the buffer the
+    caller refills."""
+    token = _NOISE_TABLE.set(table)
+    try:
+        yield
+    finally:
+        _NOISE_TABLE.reset(token)
+
+
 def _noise(rng, i, x, part=0):
+    table = _NOISE_TABLE.get()
+    if table is not None:
+        return table[i, part].to(x.dtype)
     return step_noise(rng, i, x.shape, x, part)
 
 

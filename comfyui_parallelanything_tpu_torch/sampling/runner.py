@@ -6,16 +6,29 @@ One table for every sampler name: ``flow_euler`` (the rectified-flow ladder),
 ``k_samplers.py``, each over the KSampler scheduler menu, for eps, v and flow
 models, with combined/area conditioning through ``EpsDenoiser``). img2img
 truncation and noising, ``latent_mask`` re-pinning and explicit ``sigmas`` work on
-every branch that takes them, as in the JAX runner. The whole-loop compiled path
-and per-request LoRA raise ``NotImplementedError`` naming the ROADMAP item that
-ports them; the serving scheduler's continuous-batching seam is not ported, and
-the port's runs are the JAX runner's runs with no scheduler installed.
+every branch that takes them, as in the JAX runner. ``compile_loop=True`` runs
+the whole loop as one captured CUDA graph (``compiled.py``) on every branch; the
+eager loop stays where the JAX runner decides before the loop, from the caller's
+inputs, and each such case is logged: a user callback, combined conditioning,
+and a heterogeneous chain. A capture that fails raises instead of falling back
+(the JAX runner's compile-failure rung does fall back). Per-request LoRA raises
+``NotImplementedError`` naming the ROADMAP item that ports it; the serving
+scheduler's continuous-batching seam is not ported, and the port's runs are the
+JAX runner's runs with no scheduler installed.
 """
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
+from .compiled import (
+    compiled_ddim_sample,
+    compiled_flow_sample,
+    compiled_k_sample,
+    trace_spec_of,
+)
 from .ddim import ddim_sample
 from .flow import flow_euler_sample, flow_timesteps
 from .k_samplers import (
@@ -31,6 +44,22 @@ from .schedules import ddim_timesteps, scaled_linear_schedule
 
 K_SAMPLER_NAMES = tuple(K_SAMPLERS)
 SAMPLER_NAMES = ("ddim", *K_SAMPLER_NAMES, "flow_euler")
+
+logger = logging.getLogger(__name__)
+
+
+def _compiled_spec(model, callback):
+    """The ``TraceSpec`` for the whole-loop compiled path, or None with a logged
+    reason (the caller runs the eager loop)."""
+    if callback is not None:
+        logger.info("compile_loop: a user callback cannot run inside the captured loop; "
+                    "eager path")
+        return None
+    spec = trace_spec_of(model)
+    if spec is None:
+        logger.info("compile_loop: the model cannot run as one captured loop (a "
+                    "heterogeneous chain); eager path")
+    return spec
 
 
 def run_sampler(
@@ -89,7 +118,10 @@ def run_sampler(
     of the stochastic samplers' per-step noise (``k_samplers.step_noise``; a
     generator seeded 0 on the latent's device when None). ``alphas_cumprod`` in
     ``model_kwargs`` replaces the scaled-linear schedule of ddim and the eps/v
-    k-samplers."""
+    k-samplers. ``compile_loop=True`` captures the whole loop as a CUDA graph on
+    first use and replays it after (``compiled.py``; on CPU tensors the same loop
+    body runs uncaptured); it gives up step-OOM demotion, and a failed capture
+    raises."""
     if sampler not in SAMPLER_NAMES:
         raise ValueError(f"unknown sampler {sampler!r} (have {', '.join(SAMPLER_NAMES)})")
     if lora:
@@ -104,12 +136,9 @@ def run_sampler(
         raise ValueError(
             "combined/area conditioning (ConditioningCombine/SetArea) is supported on "
             f"the k-sampler family only, not {sampler!r} — pick any stock sampler name")
-    if multi_cond:
-        compile_loop = False  # multi-cond runs the eager loop, as in the JAX runner
-    if compile_loop:
-        raise NotImplementedError(
-            "compile_loop=True, the whole-loop compiled sampler, is not ported yet "
-            "(ROADMAP Queue 1, the whole-loop compiled sampler: sampling/compiled.py)")
+    if multi_cond and compile_loop:
+        logger.info("compile_loop: multi-cond (Combine/SetArea) runs the eager path")
+        compile_loop = False
     if not 0.0 < denoise <= 1.0:
         raise ValueError(f"denoise must be in (0, 1], got {denoise}")
     if latent_mask is not None and init_latent is None:
@@ -125,6 +154,12 @@ def run_sampler(
                          "sigmas apply to flow_euler and the k-samplers")
     img2img = init_latent is not None and denoise < 1.0
     total = max(steps, int(round(steps / denoise))) if img2img else steps
+    spec = _compiled_spec(model, callback) if compile_loop else None
+    compiled_mask_kw = dict(
+        mask=latent_mask,
+        mask_init=init_latent if latent_mask is not None else None,
+        mask_noise=noise if latent_mask is not None else None,
+    )
 
     def masked_callback(keep_at):
         """Blend the keep region back after each step; the user callback (which
@@ -155,6 +190,11 @@ def run_sampler(
                 # x_t = t·noise + (1-t)·x0 under the v = noise - x0 flow.
                 ts = ts[-(steps + 1):]
                 x = ts[0] * noise + (1.0 - ts[0]) * init_latent
+        if spec is not None:
+                return compiled_flow_sample(
+                spec, x, ts, context, cfg_scale=eff_cfg, uncond_context=uncond_context,
+                uncond_kwargs=uncond_kwargs, guidance=guidance, cfg_rescale=cfg_rescale,
+                **compiled_mask_kw, model_kwargs=model_kwargs)
         return flow_euler_sample(
             model, x, context, steps=steps, shift=shift, guidance=guidance,
             cfg_scale=eff_cfg, uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
@@ -177,6 +217,11 @@ def run_sampler(
             x = torch.sqrt(a0) * init_latent + torch.sqrt(1.0 - a0) * noise
         else:
             ts = ddim_timesteps(steps, acp.shape[0])
+        if spec is not None:
+                return compiled_ddim_sample(
+                spec, x, ts, acp, context, cfg_scale=eff_cfg, uncond_context=uncond_context,
+                uncond_kwargs=uncond_kwargs, prediction=prediction, cfg_rescale=cfg_rescale,
+                **compiled_mask_kw, model_kwargs=model_kwargs)
 
         def ddim_keep(i):
             a = acp[ts[i + 1]] if i + 1 < len(ts) else torch.tensor(1.0)
@@ -232,6 +277,14 @@ def run_sampler(
         x = noise * sigmas[0]
         if mix_init:
             x = init_latent + x
+    if sampler in RNG_SAMPLERS and rng is None:
+        rng = torch.Generator(device=noise.device).manual_seed(0)
+    if spec is not None:
+        return compiled_k_sample(
+            spec, sampler, x, sigmas, context, cfg_scale=eff_cfg,
+            uncond_context=uncond_context, uncond_kwargs=uncond_kwargs, acp=acp,
+            prediction=prediction, cfg_rescale=cfg_rescale, rng=rng, **compiled_mask_kw,
+            model_kwargs=model_kwargs)
     denoiser = EpsDenoiser(
         model, context, cfg_scale=eff_cfg, uncond_context=uncond_context,
         uncond_kwargs=uncond_kwargs, alphas_cumprod=acp, prediction=prediction,
@@ -246,7 +299,5 @@ def run_sampler(
     else:
         cb = masked_callback(lambda i: init_latent + noise * sigmas[i + 1])
     if sampler in RNG_SAMPLERS:
-        if rng is None:
-            rng = torch.Generator(device=noise.device).manual_seed(0)
         return step_fn(denoiser, x, sigmas, rng, callback=cb)
     return step_fn(denoiser, x, sigmas, callback=cb)

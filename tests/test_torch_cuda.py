@@ -1,7 +1,8 @@
-"""GPU tests of the PyTorch port: the CUDA kernels against their plain versions, and
+"""GPU tests of the PyTorch port: the CUDA kernels against their plain versions,
 small FLUX, UNet, ControlNet and SD3 models through ``parallelize`` on the card
-against the same models on the CPU. Every test here needs a CUDA device and skips
-without one.
+against the same models on the CPU, the whole-loop compiled sampler's captured
+graphs against the eager loop, and a ``cuda:0`` + ``cpu`` chain. Every test here
+needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed; the suite's ``conftest.py`` imports JAX, so on such a machine run
@@ -20,6 +21,7 @@ from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
 from comfyui_parallelanything_tpu_torch.models import controlnet, mmdit  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models import text_encoders, unet, vae  # noqa: E402
 from comfyui_parallelanything_tpu_torch.pipelines import FluxPipeline  # noqa: E402
+from comfyui_parallelanything_tpu_torch.sampling import compiled  # noqa: E402
 from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample  # noqa: E402
 from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler  # noqa: E402
 
@@ -494,3 +496,115 @@ def test_small_controlnet_forward_on_the_card_matches_the_cpu(cuda_device, monke
     assert {v: n for v, n in fa.launches_by_variant.items() if n} == variants
     rel = ((got.cpu().float() - want.float()).norm() / want.float().norm()).item()
     assert rel <= rel_tol, rel
+
+
+@pytest.fixture
+def no_loops():
+    yield
+    compiled.clear_compiled_loops()
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _captured_against_eager(pm, forwards, variants, noise, ctx, **kw):
+    """One sampler run eager, then captured twice: the captured runs equal each
+    other and the eager one within 1e-3 relative L2; the capture recorded
+    ``variants`` K1 launches per forward; the second call replays the graph
+    without a launch from Python."""
+    eager = run_sampler(pm, noise, ctx, **kw)
+    fa.reset_launches()
+    first = run_sampler(pm, noise, ctx, compile_loop=True, **kw)
+    (rec,) = [r for r in compiled.loop_records() if r["sampler"] == kw["sampler"]]
+    assert rec["captured"] == {v: forwards * n for v, n in variants.items()}
+    assert rec["replays"] == 1 and rec["device"] == "cuda:0"
+    launched = fa.launches
+    again = run_sampler(pm, noise, ctx, compile_loop=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == launched
+    (rec,) = [r for r in compiled.loop_records() if r["sampler"] == kw["sampler"]]
+    assert rec["replays"] == 2
+    assert torch.equal(first, again)
+    assert _rel(first, eager) <= 1e-3, _rel(first, eager)
+    return first
+
+
+@pytest.mark.parametrize("dtype,variants", [(torch.float32, {"tf32x3": 20}),
+                                            (torch.bfloat16, {"sm90": 12, "wide": 8})])
+def test_small_unet_captured_loop_matches_eager(cuda_device, monkeypatch, no_loops, dtype,
+                                                variants):
+    # SMALL_UNET's 20 attention calls a forward: one graph captures sm90 and wide
+    # (bf16) or tf32x3 (f32). dpmpp_2m and, for the pre-drawn noise table,
+    # euler_ancestral, 3 steps at CFG 5 (one forward a step); then the inpaint blend.
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = unet.UNetConfig(**SMALL_UNET, dtype=dtype)
+    model = unet.build_unet(cfg, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    noise = torch.randn((1, 32, 32, 4), generator=g, device=cuda_device)
+    ctx, uctx = (torch.randn((1, 77, 64), generator=g, device=cuda_device) for _ in range(2))
+    pm = parallelize(model, [("cuda:0", 100)])
+    for sampler in ("dpmpp_2m", "euler_ancestral"):
+        _captured_against_eager(pm, 3, variants, noise, ctx, sampler=sampler, steps=3,
+                                cfg_scale=5.0, uncond_context=uctx,
+                                rng=torch.Generator(device=cuda_device).manual_seed(3))
+    mask = (torch.rand((1, 32, 32, 1), generator=g, device=cuda_device) > 0.5).float()
+    _captured_against_eager(pm, 2, variants, noise, ctx, sampler="euler", steps=2,
+                            init_latent=torch.randn_like(noise), latent_mask=mask)
+
+
+def test_small_flux_captured_loop_matches_eager(cuda_device, no_loops):
+    # flow_euler at guidance 3.5, 3 steps: every attention call of the DiT on sm90.
+    cfg = flux.flux_dev_config(**SMALL, dtype=torch.bfloat16)
+    model = flux.build_flux(cfg, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    noise = torch.randn((1, 32, 32, 4), generator=g, device=cuda_device)
+    ctx = torch.randn((1, 16, 64), generator=g, device=cuda_device)
+    y = torch.randn((1, 32), generator=g, device=cuda_device)
+    pm = parallelize(model, [("cuda:0", 100)])
+    _captured_against_eager(pm, 3, {"sm90": cfg.depth + cfg.depth_single_blocks}, noise, ctx,
+                            sampler="flow_euler", steps=3, guidance=3.5, y=y)
+
+
+def test_cuda_and_cpu_chain_matches_the_card_alone(cuda_device, monkeypatch, no_loops):
+    # SMALL_UNET in f32 on [cuda:0 75, cpu 25], batch 4 at CFG 5 (8 rows a forward):
+    # the CPU group computes its rows with plain attention on the host, only the
+    # GPU group launches K1, and compile_loop=True runs the eager loop here.
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = unet.UNetConfig(**SMALL_UNET, dtype=torch.float32)
+    model = unet.build_unet(cfg, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    noise = torch.randn((4, 32, 32, 4), generator=g, device=cuda_device)
+    ctx, uctx = (torch.randn((4, 77, 64), generator=g, device=cuda_device) for _ in range(2))
+    kw = dict(sampler="euler", steps=2, cfg_scale=5.0, uncond_context=uctx)
+    want = run_sampler(parallelize(model, [("cuda:0", 100)]), noise, ctx, **kw)
+    hybrid = parallelize(model, [("cuda:0", 75), ("cpu", 25)])
+    assert [g.platform for g in hybrid._groups] == ["cuda", "cpu"]
+    assert hybrid.traceable() is None
+    sizes = chip_smoke.hybrid_split(hybrid, 8)
+    assert sizes[0] + sizes[1] == 8 and sizes[1] >= 1, sizes
+    fa.reset_launches()
+    got = run_sampler(hybrid, noise, ctx, compile_loop=True, **kw)
+    torch.cuda.synchronize()
+    assert compiled.loop_records() == []
+    assert fa.launches_by_variant["tf32x3"] == 2 * 20 and fa.launches == 2 * 20
+    assert got.device == cuda_device
+    assert _rel(got, want) <= 1e-4, _rel(got, want)
+
+
+def test_capture_failure_raises_and_names_the_sampler(cuda_device, no_loops):
+    # A host read of a device value inside the loop cannot be captured: the call
+    # raises, naming the sampler and the line, and runs no eager loop in its place.
+    def reads_the_device(x, t, context=None, **kwargs):
+        if float(t[0]) < 0.0:
+            return x
+        return 0.9 * x
+
+    noise = torch.randn((1, 8, 8, 4), device=cuda_device)
+    with pytest.raises(RuntimeError, match=r"euler loop .*test_torch_cuda\.py"):
+        run_sampler(reads_the_device, noise, None, sampler="euler", steps=2, compile_loop=True)
+    assert torch.isfinite(run_sampler(reads_the_device, noise, None, sampler="euler",
+                                      steps=2)).all()

@@ -188,8 +188,12 @@ def test_routing_ladder_and_not_ported_paths(dev_pair, monkeypatch):
     from comfyui_parallelanything_tpu_torch.parallel import chain as chain_mod
 
     monkeypatch.setattr(chain_mod, "get_device", lambda s: torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        parallelize(pm, [("cpu", 50), ("cuda:0", 50)])
+    # A heterogeneous chain runs: two platform groups, each computing its share.
+    hybrid = parallelize(pm, [("cpu", 50), ("cuda:0", 50)])
+    assert [g.platform for g in hybrid._groups] == ["cpu", "cuda"]
+    x3, t3, ctx3, y3 = (torch.from_numpy(a) for a in _inputs(3, seed=5))
+    np.testing.assert_allclose(hybrid(x3, t3, ctx3, y=y3).numpy(),
+                               pm(x3, t3, ctx3, y=y3).numpy(), **TOL)
     with pytest.raises(NotImplementedError, match="streaming"):
         parallelize(pm, chain4, ParallelConfig(hbm_budget_bytes=1))
     monkeypatch.setenv("PA_PLANNER", "1")

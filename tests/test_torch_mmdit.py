@@ -370,12 +370,11 @@ class TestSd3Pipeline:
             dataclasses.replace(pp, t5_tokenizer=None).encode_prompt(["hello"])
 
     def test_compile_loop_names_the_compiled_sampler_item(self, sd3_pipes):
-        # The whole-loop compiled sampler is the next item to port; the error names
-        # it (and not the serving tier) for every sampler family.
+        # The whole-loop compiled sampler is ported: for both sampler families the
+        # pipeline's compile_loop=True runs it (on the CPU, the same loop body
+        # uncaptured) and gives the eager pipeline's image.
         _, pp = sd3_pipes
         for sampler in ("flow_euler", "euler"):
-            with pytest.raises(NotImplementedError) as err:
-                pp("hello", steps=1, height=16, width=16, sampler=sampler, compile_loop=True)
-            msg = str(err.value)
-            assert "ROADMAP Queue 1, the whole-loop compiled sampler" in msg
-            assert "sampling/compiled.py" in msg and "Serving" not in msg
+            kw = dict(steps=1, height=16, width=16, sampler=sampler)
+            np.testing.assert_array_equal(pp("hello", compile_loop=True, **kw).numpy(),
+                                          pp("hello", **kw).numpy())

@@ -372,8 +372,8 @@ class TestRunSampler:
                 (dict(sampler="euler", denoise=1.5), ValueError, "denoise"),
                 (dict(sampler="euler", latent_mask=x), ValueError, "init_latent"),
                 (dict(sampler="nope"), ValueError, "unknown sampler"),
-                (dict(sampler="euler", compile_loop=True), NotImplementedError,
-                 "whole-loop compiled sampler"),
+                (dict(sampler="euler", compile_loop=True, latent_mask=x), ValueError,
+                 "init_latent"),
                 (dict(sampler="ddim", lora={"a": 1}), NotImplementedError, "Nodes and host")):
             with pytest.raises(exc, match=match):
                 prunner.run_sampler(pmodel, x, ctx, steps=2, **kw)
