@@ -115,6 +115,23 @@ the error.
    SD3.5-medium (mmdit-x) at full size, one
    batch-2 forward with exactly 37 ``sm90`` (24 joint + 13 x-only attentions), held
    against plain attention.
+11. pipeline_placement — after the main path's captured run, the same FLUX-dev on
+   ``[("cuda:0", 97), ("cpu", 3)]`` with the default ``ParallelConfig``: the
+   blended weights give the host the last single block, so batch-1 sampling places
+   the blocks as a pipeline; 4 steps (one when the first passes 30 s) with exactly
+   56 ``sm90`` a step, the latent within 5e-2 of the card alone, the host stage's
+   and every hop's seconds, the seconds to place the stages and peak memory; then
+   a batch-2 step with ``pipeline_microbatches=2`` (2 × 56 ``sm90``); with more
+   than one card, batch 1 over every card (57 ``sm90``, within 1e-3 of one card),
+   else a ``skipped`` line.
+12. checkpoint — after FLUX-dev is freed: a FLUX-dev state dict in the public BFL
+   layout made on the card (fp8 block weights) with a rank-16 kohya LoRA over every
+   block's qkv, proj, MLP, linear1 and linear2, through ``load_flux_checkpoint`` →
+   ``parallelize`` → 4 steps: the bake's and the load's seconds, peak memory, s/it,
+   exactly 57 ``sm90`` a step, a forward against plain attention, and the baked
+   latent within 2e-2 of ``run_sampler(..., lora=factors)`` on the unbaked model.
+``hybrid`` also prints ``hybrid_rows``: the GPU group's rows of one CFG forward
+against the same rows of the 8-row forward on the card alone.
 Then the script's wall time, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -1810,6 +1827,47 @@ def hybrid_split(pm, batch: int) -> tuple[int, ...]:
     return largest_remainder_split(batch, normalize_weights([g.weight for g in pm._groups]))
 
 
+class _row_trace:
+    """Record, in call order, every leaf module's first input and output at batch
+    row ``row`` (where their dim0 is the batch) while the context is open."""
+
+    def __init__(self, module, row: int):
+        self.module, self.row, self.calls, self.handles = module, row, [], []
+
+    def __enter__(self):
+        import torch
+
+        def record(name):
+            def hook(m, args, out):
+                x = args[0] if args and isinstance(args[0], torch.Tensor) else None
+                if isinstance(out, torch.Tensor) and out.ndim and out.shape[0] > self.row:
+                    self.calls.append((name, None if x is None or x.shape[0] != out.shape[0]
+                                       else x[self.row].clone(), out[self.row].clone()))
+            return hook
+
+        self.handles = [m.register_forward_hook(record(n))
+                        for n, m in self.module.named_modules() if not list(m.children())]
+        return self.calls
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def _first_divergence(got: list, want: list) -> dict | None:
+    """The first leaf-module call whose output row differs between two traced
+    forwards, whether its input row already differed (then the difference came from
+    an op between modules, e.g. the attention function), and both rows' relative L2."""
+    import torch
+
+    for (name, x_g, y_g), (_, x_w, y_w) in zip(got, want):
+        if not torch.equal(y_g, y_w):
+            same_in = x_g is not None and x_w is not None and torch.equal(x_g, x_w)
+            return {"module": name, "input_equal": same_in, "rel_l2_out": rel_l2(y_g, y_w),
+                    "rel_l2_in": None if same_in or x_g is None else rel_l2(x_g, x_w)}
+    return None
+
+
 def phase_hybrid(unet) -> dict:
     """The sd_samplers phase's SD1.5 UNet on a heterogeneous chain, ``HYBRID_CHAIN``
     with the default ``ParallelConfig``: 512², batch ``HYBRID_BATCH``, CFG ``SD_CFG``,
@@ -1848,6 +1906,23 @@ def phase_hybrid(unet) -> dict:
     first_step_s = time.perf_counter() - t0
     steps = HYBRID_STEPS if first_step_s <= HYBRID_STEP_LIMIT_S else 1
     want = run_sampler(parallelize(unet, [("cuda:0", 100)]), noise, ctx, steps=steps, **common)
+    # The GPU group's rows of one CFG forward against the same rows of the 8-row
+    # forward on the card alone: the same replica and inputs, only the batch differs.
+    n_gpu = split[0]
+    xr = torch.randn((2 * HYBRID_BATCH, 64, 64, 4), generator=gen, device=dev)
+    tr = torch.full((2 * HYBRID_BATCH,), 500.0, device=dev)
+    cr = torch.cat([ctx, uctx])
+    gpu_replica = pm._groups[0].replicas[0]
+    with torch.no_grad(), _row_trace(gpu_replica, n_gpu - 1) as calls_full:
+        full = gpu_replica(xr, tr, cr)
+    with torch.no_grad(), _row_trace(gpu_replica, n_gpu - 1) as calls_part:
+        part = gpu_replica(xr[:n_gpu], tr[:n_gpu], cr[:n_gpu])
+    rows = {"phase": "hybrid_rows", "gpu_rows": n_gpu,
+            "rel_l2_per_row": [rel_l2(part[i], full[i]) for i in range(n_gpu)],
+            "bitwise_equal_per_row": [bool(torch.equal(part[i], full[i])) for i in range(n_gpu)],
+            "last_row_first_divergence": _first_divergence(calls_part, calls_full)}
+    del calls_full, calls_part
+    emit(rows)
     loops = compiled.loop_records()
     fa.reset_launches()
     host_s.clear()
@@ -1879,6 +1954,353 @@ def phase_hybrid(unet) -> dict:
     return launches
 
 
+# -- pipeline placement (batch 1 over cuda:0 + cpu) and the checkpoint path ---------
+
+PIPE_CHAIN = [("cuda:0", 97), ("cpu", 3)]
+PIPE_STEPS = 4
+PIPE_STEP_LIMIT_S = 30.0  # above this, one step: the host's block sets each step
+PIPE_REL_TOL = 5e-2  # against the card alone: one block in bf16 on the host's kernels
+MULTI_GPU_REL_TOL = 1e-3  # every block on a card: the same kernels, other devices
+LORA_RANK = 16
+LORA_REL_TOL = 2e-2  # baked (f32 merge, one bf16 rounding) against W + B·A in bf16
+
+
+def _flux_inputs(cfg, batch: int, seed: int):
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((batch, 128, 128, 16), generator=gen, device=dev),
+            torch.randn((batch, 512, cfg.context_in_dim), generator=gen, device=dev),
+            torch.randn((batch, cfg.vec_in_dim), generator=gen, device=dev))
+
+
+class _HopClock:
+    """Wraps a runner's ``_hop``: every hop that changes device, timed between two
+    synchronisations, so a hop's seconds are its copy's alone."""
+
+    def __init__(self, runner):
+        import torch
+
+        self.seconds = {"to_cpu": [], "to_cuda": []}
+        hop = runner._hop
+
+        def timed(carry, device):
+            src = next(v.device for v in carry.values() if isinstance(v, torch.Tensor))
+            if src == device:
+                return hop(carry, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = hop(carry, device)
+            torch.cuda.synchronize()
+            self.seconds["to_cpu" if device.type == "cpu" else "to_cuda"].append(
+                time.perf_counter() - t0)
+            return out
+
+        runner._hop = timed
+
+
+def _stage_hooks(stage) -> list:
+    """Seconds of each forward of the stage's own blocks, summed per call of the
+    first block's pre-hook to the last block's hook."""
+    spans: list[float] = []
+    s, e = stage.range
+    blocks = [stage.module.double_blocks[i] if i < len(stage.module.double_blocks)
+              else stage.module.single_blocks[i - len(stage.module.double_blocks)]
+              for i in range(s, e)]
+    blocks[0].register_forward_pre_hook(lambda m, a: spans.append(-time.perf_counter()))
+    blocks[-1].register_forward_hook(
+        lambda m, a, o: spans.append(spans.pop() + time.perf_counter()))
+    return spans
+
+
+def phase_pipeline_placement(pm) -> dict:
+    """The main path's FLUX-dev over ``PIPE_CHAIN`` with the default
+    ``ParallelConfig``: the blended weights give the host one of the 57 segments (the
+    last single block), so batch-1 sampling (1024², ``flow_euler_sample``, guidance
+    3.5) places the blocks as a pipeline: 56 ``sm90`` a step on the card, the host's
+    block in bf16 on plain attention. ``PIPE_STEPS`` steps, or one when the first
+    exceeds ``PIPE_STEP_LIMIT_S``; the latent within ``PIPE_REL_TOL`` of the same
+    steps on the card alone; the host stage's and each hop's seconds, the seconds to
+    place the stages, peak device memory. Then one batch-2 step with
+    ``pipeline_microbatches=2`` (2 × 56 ``sm90``) against a batch-2 step on the card
+    alone, and, where the machine has more than one card, batch 1 over every card.
+    Returns K1's launches by path."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import ParallelConfig, parallelize
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample
+
+    dev = torch.device("cuda", 0)
+    cfg = pm.model_config
+    n_seg = cfg.depth + cfg.depth_single_blocks
+    x, ctx, y = _flux_inputs(cfg, 1, 15)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pp = parallelize(pm, PIPE_CHAIN)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner = pp._get_pipeline_runner()
+    place_s = time.perf_counter() - t0
+    ranges = [list(r) for r in runner.ranges]
+    host = [st for st in runner.stages if st.range == runner.ranges[-1]]  # the "cpu" link's
+    if runner.ranges[-1] != (n_seg - 1, n_seg) or len(host) != 1 \
+            or host[0].device.type != "cpu":
+        raise RuntimeError(f"expected the host to hold the last segment: {ranges}")
+    hops = _HopClock(runner)
+    host_s = _stage_hooks(host[0])
+    sample = lambda model, steps, xs=(x, ctx, y): flow_euler_sample(  # noqa: E731
+        model, xs[0], xs[1], steps=steps, guidance=3.5, y=xs[2])
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample(pp, 1)
+    torch.cuda.synchronize()
+    first_step_s = time.perf_counter() - t0
+    steps = PIPE_STEPS if first_step_s <= PIPE_STEP_LIMIT_S else 1
+    want = sample(parallelize(pm, [("cuda:0", 100)]), steps)
+    host_s.clear()
+    for spans in hops.seconds.values():
+        spans.clear()
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sample(pp, steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launched(fa)
+    res = {
+        "phase": "pipeline_placement", "model": "flux-dev", "chain": PIPE_CHAIN,
+        "weights": list(pp.weights), "stage_ranges": ranges,
+        "stage_devices": [str(st.device) for st in runner.stages],
+        "host_segments": list(host[0].labels),
+        "batch": 1, "steps": steps, "steps_cut_to_one": steps != PIPE_STEPS,
+        "first_step_s": first_step_s, "parallelize_s": setup_s, "stage_place_s": place_s,
+        "s_per_it": seconds / steps, "host_stage_s_per_step": host_s, "hop_s": hops.seconds,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "rel_l2_vs_card_alone": rel_l2(got, want), "tol": PIPE_REL_TOL,
+        "finite": bool(torch.isfinite(got).all().item()),
+        "k1_launches_by_variant": launches, "k1_launches_expected": {"sm90": (n_seg - 1) * steps},
+    }
+    emit(res)
+    if not (res["finite"] and launches == res["k1_launches_expected"] and len(host_s) == steps
+            and len(hops.seconds["to_cpu"]) == steps and res["rel_l2_vs_card_alone"] <= PIPE_REL_TOL
+            and got.device == dev and tuple(got.shape) == tuple(x.shape)):
+        raise RuntimeError(f"pipeline_placement check failed: {res}")
+    paths = {"pipeline_placement": launches}
+
+    pp.cleanup()  # frees its host replica before the next chain places one
+    del pp, runner
+    gc.collect()
+    x2, ctx2, y2 = _flux_inputs(cfg, 2, 16)
+    want2 = sample(parallelize(pm, [("cuda:0", 100)]), 1, (x2, ctx2, y2))
+    mb = parallelize(pm, PIPE_CHAIN, ParallelConfig(pipeline_microbatches=2))
+    mb_hops = _HopClock(mb._get_pipeline_runner())
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got2 = sample(mb, 1, (x2, ctx2, y2))
+    torch.cuda.synchronize()
+    mb_launches = _launched(fa)
+    res = {"phase": "pipeline_placement_microbatch", "batch": 2, "microbatches": 2,
+           "s_per_it": time.perf_counter() - t0, "stage_ranges": [
+               list(r) for r in mb._pipeline_runner.ranges], "hop_s": mb_hops.seconds,
+           "rel_l2_vs_card_alone": rel_l2(got2, want2), "tol": PIPE_REL_TOL,
+           "finite": bool(torch.isfinite(got2).all().item()),
+           "k1_launches_by_variant": mb_launches,
+           "k1_launches_expected": {"sm90": 2 * (n_seg - 1)}}
+    emit(res)
+    if not (res["finite"] and mb_launches == res["k1_launches_expected"]
+            and res["rel_l2_vs_card_alone"] <= PIPE_REL_TOL):
+        raise RuntimeError(f"pipeline_placement_microbatch check failed: {res}")
+    paths["pipeline_placement_microbatch"] = mb_launches
+    mb.cleanup()
+    del mb
+    gc.collect()
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "multi_gpu_pipeline", "multi_gpu_pipeline": "skipped", "cards": cards})
+        return paths
+    chain = [(f"cuda:{i}", 100 / cards) for i in range(cards)]
+    want = sample(parallelize(pm, [("cuda:0", 100)]), 1)
+    multi = parallelize(pm, chain)
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sample(multi, 1)
+    torch.cuda.synchronize()
+    multi_launches = _launched(fa)
+    res = {"phase": "multi_gpu_pipeline", "cards": cards, "chain": chain,
+           "stage_ranges": [list(r) for r in multi._pipeline_runner.ranges],
+           "s_per_it": time.perf_counter() - t0, "rel_l2_vs_one_card": rel_l2(got, want),
+           "tol": MULTI_GPU_REL_TOL, "k1_launches_by_variant": multi_launches,
+           "k1_launches_expected": {"sm90": n_seg}}
+    emit(res)
+    if not (multi_launches == res["k1_launches_expected"]
+            and res["rel_l2_vs_one_card"] <= MULTI_GPU_REL_TOL):
+        raise RuntimeError(f"multi_gpu_pipeline check failed: {res}")
+    paths["multi_gpu_pipeline"] = multi_launches
+    multi.cleanup()
+    return paths
+
+
+def public_flux_state_dict(cfg, gen, device):
+    """A FLUX state dict in the public BFL layout at ``cfg``'s full size, random from
+    ``gen`` on ``device``: the block linears' weights in ``float8_e4m3fn`` (as the
+    public fp8 files ship them), N(0, 1/fan_in) before the cast; the rest in bf16
+    (biases N(0, 0.02²), QK-norm scales one)."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.models.convert import flux_key_map
+    from comfyui_parallelanything_tpu_torch.models.flux import FluxModel
+
+    with torch.device("meta"):
+        like = FluxModel(cfg).state_dict()
+    sd = {}
+    for dst, src in flux_key_map(cfg).items():
+        shape = like[dst].shape
+        if src.endswith(".scale"):
+            sd[src] = torch.ones(shape, dtype=torch.bfloat16, device=device)
+            continue
+        t = torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
+        if len(shape) == 2:
+            t = t.mul_(shape[1] ** -0.5)
+            if src.startswith(("double_blocks.", "single_blocks.")):
+                t = t.to(torch.float8_e4m3fn)
+        else:
+            t = t.mul_(0.02)
+        sd[src] = t
+    return sd
+
+
+def kohya_lora(sd, rank: int, gen, device):
+    """A rank-``rank`` kohya LoRA (``lora_unet_…`` with ``lora_down``/``lora_up``/
+    ``alpha``, bf16) over every block's qkv, proj, MLP, ``linear1`` and ``linear2``;
+    each delta about 5 % of its weight's scale (alpha = rank: scale 1)."""
+    import torch
+
+    lora = {}
+    for key, w in sd.items():
+        if not (key.startswith(("double_blocks.", "single_blocks.")) and key.endswith(
+                (".qkv.weight", ".proj.weight", "_mlp.0.weight", "_mlp.2.weight",
+                 ".linear1.weight", ".linear2.weight"))):
+            continue
+        out_dim, in_dim = w.shape
+        name = "lora_unet_" + key[: -len(".weight")].replace(".", "_")
+        lora[f"{name}.lora_down.weight"] = torch.randn(
+            (rank, in_dim), generator=gen, device=device).mul_(in_dim ** -0.5).bfloat16()
+        lora[f"{name}.lora_up.weight"] = torch.randn(
+            (out_dim, rank), generator=gen, device=device).mul_(0.05 * rank ** -0.5).bfloat16()
+        lora[f"{name}.alpha"] = torch.tensor(float(rank))
+    return lora
+
+
+def phase_checkpoint() -> dict:
+    """FLUX-dev from a state dict in the public layout (fp8 block weights, built on
+    the card from a seeded generator) with a rank-16 kohya LoRA, through
+    ``load_flux_checkpoint(..., lora=...)`` → ``parallelize([("cuda:0", 100)])`` →
+    4 steps at batch 1, 1024²: 57 ``sm90`` a step, one forward within
+    ``MAIN_PATH_REL_TOL`` of plain attention, and the baked model's latent within
+    ``LORA_REL_TOL`` of ``run_sampler(..., lora=factors)`` on the unbaked model
+    (the factors from ``extract_lora_factors`` with the converter's key map, so they
+    reach every LoRA target). Runs after the main path's model is freed. Returns
+    K1's launches by path."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.convert import bake_lora, flux_key_map
+    from comfyui_parallelanything_tpu_torch.models.flux import flux_dev_config
+    from comfyui_parallelanything_tpu_torch.models.loader import load_flux_checkpoint
+    from comfyui_parallelanything_tpu_torch.models.lora import extract_lora_factors
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    dev = torch.device("cuda", 0)
+    cfg = flux_dev_config()
+    per_step = cfg.depth + cfg.depth_single_blocks
+    gen = torch.Generator(device=dev).manual_seed(17)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sd = public_flux_state_dict(cfg, gen, dev)
+    lora = kohya_lora(sd, LORA_RANK, gen, dev)
+    torch.cuda.synchronize()
+    fp8_bytes = sum(t.numel() * t.element_size() for t in sd.values()
+                    if t.dtype == torch.float8_e4m3fn)
+    baked_view = bake_lora(sd, lora)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for key in baked_view.deltas:  # every merge once, each freed as it is made
+        baked_view[key]
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    del baked_view
+    t0 = time.perf_counter()
+    model = load_flux_checkpoint(sd, cfg, lora=lora, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated(dev)
+    pm = parallelize(model, [("cuda:0", 100)])
+    x, ctx, y = _flux_inputs(cfg, 1, 18)
+    kw = dict(sampler="flow_euler", steps=STEPS, guidance=3.5, y=y)
+    run_sampler(pm, x, ctx, **dict(kw, steps=1))  # warm-up
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baked = run_sampler(pm, x, ctx, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launched(fa)
+    t = torch.full((1,), 0.5, device=dev)
+    g = torch.full((1,), 3.5, device=dev)
+    out_k = pm(x, t, ctx, y=y, guidance=g).float()
+    attention.set_attention_backend("xla")
+    try:
+        out_p = pm(x, t, ctx, y=y, guidance=g).float()
+    finally:
+        attention.set_attention_backend("auto")
+    pm.cleanup()
+    del pm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain = load_flux_checkpoint(sd, cfg, device=dev)
+    factors = extract_lora_factors(lora, plain.module,
+                                   aliases={v: k for k, v in flux_key_map(cfg).items()})
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    runtime = run_sampler(parallelize(plain, [("cuda:0", 100)]), x, ctx, lora=factors, **kw)
+    torch.cuda.synchronize()
+    runtime_launches = _launched(fa)
+    res = {
+        "phase": "checkpoint", "model": "flux-dev", "fp8_bytes": fp8_bytes,
+        "lora_rank": LORA_RANK, "lora_targets": len(factors),
+        "lora_pairs": sum(k.endswith(".alpha") for k in lora),
+        "bake_s": bake_s, "load_s": load_s, "load_max_memory_allocated": load_peak,
+        "steps": STEPS, "s_per_it": seconds / STEPS,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "finite": bool(torch.isfinite(baked).all().item()),
+        "rel_l2_vs_plain_attention": rel_l2(out_k, out_p), "plain_tol": MAIN_PATH_REL_TOL,
+        "rel_l2_baked_vs_runtime_lora": rel_l2(baked, runtime), "lora_tol": LORA_REL_TOL,
+        "k1_launches_by_variant": launches, "k1_runtime_lora_launches": runtime_launches,
+        "k1_launches_expected": {"sm90": per_step * STEPS},
+    }
+    emit(res)
+    if not (res["finite"] and launches == res["k1_launches_expected"]
+            and runtime_launches == res["k1_launches_expected"]
+            and res["lora_targets"] == res["lora_pairs"]
+            and res["rel_l2_vs_plain_attention"] <= MAIN_PATH_REL_TOL
+            and res["rel_l2_baked_vs_runtime_lora"] <= LORA_REL_TOL):
+        raise RuntimeError(f"checkpoint check failed: {res}")
+    del plain, factors, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"checkpoint": launches, "checkpoint_runtime_lora": runtime_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1894,11 +2316,13 @@ def main() -> int:
     pm, main_launches = phase_main_path()
     pipe_launches = phase_pipeline(pm)
     main_captured = phase_main_path_captured(pm)
-    # Free FLUX-dev before the SD-family phases.
+    placement_launches = phase_pipeline_placement(pm)
+    # Free FLUX-dev before the checkpoint and SD-family phases.
     pm.cleanup()
     del pm
     gc.collect()
     torch.cuda.empty_cache()
+    checkpoint_launches = phase_checkpoint()
     sd_launches, sd_captured = phase_sd_pipeline()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1920,7 +2344,7 @@ def main() -> int:
              "sd_pipeline": sd_launches, "sd_pipeline_captured": sd_captured,
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
              "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
-             **sd3_launches}
+             **sd3_launches, **placement_launches, **checkpoint_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

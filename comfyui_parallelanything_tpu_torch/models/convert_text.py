@@ -20,17 +20,15 @@ from __future__ import annotations
 from collections.abc import Mapping
 from typing import Any
 
-import numpy as np
 import torch
 
+from .convert import to_tensor
 from .text_encoders import CLIPTextConfig, T5Config
 
 
 def to_f32(t: Any) -> torch.Tensor:
     """A checkpoint tensor (torch or numpy, any float dtype) as an f32 CPU tensor."""
-    if torch.is_tensor(t):
-        return t.detach().to("cpu", torch.float32)
-    return torch.from_numpy(np.asarray(t, dtype=np.float32))
+    return to_tensor(t, torch.float32, "cpu")
 
 
 def _linear(out: dict, sd: Mapping, key: str, dst: str, bias: bool = True) -> None:

@@ -327,24 +327,31 @@ def build_flux(
     generator: torch.Generator | None = None,
     state_dict: dict | None = None,
     name: str = "flux",
+    assign: bool = False,
 ) -> DiffusionModel:
     """Build a FLUX DiffusionModel on ``device`` (default ``cuda:0``).
 
     Weights come from ``state_dict`` (e.g. ``convert_jax.from_jax_params``) or,
     without one, from ``init_random_`` with ``generator``. The module is created
     without memory and then materialised on the device, so no host copy of the
-    weights is ever made.
+    weights is ever made. ``assign=True`` takes the state dict's tensors as the
+    parameters instead of copying them (``convert.convert_flux_checkpoint`` gives
+    each its parameter's dtype), so the weights are never held twice.
     """
     device = torch.device(device) if device is not None else default_device()
     if state_dict is None and generator is None:
         raise ValueError("need a generator to initialise (or pass state_dict=)")
     with torch.device("meta"):
         module = FluxModel(cfg)
-    module = module.to_empty(device=device).eval()
-    if state_dict is not None:
-        module.load_state_dict(state_dict)
+    if assign and state_dict is not None:
+        module.load_state_dict(state_dict, assign=True)
+        module = module.to(device).eval()
     else:
-        init_random_(module, generator)
+        module = module.to_empty(device=device).eval()
+        if state_dict is not None:
+            module.load_state_dict(state_dict)
+        else:
+            init_random_(module, generator)
     return DiffusionModel(
         module=module,
         name=name,

@@ -7,8 +7,13 @@ device that already holds the module reuses it, so a one-GPU chain never copies
 the weights. ``ParallelModel`` routes each call by the JAX package's hand ladder
 (its ``PA_PLANNER=0`` routing):
 
-- ``batch == 1`` on more than one device → pipeline block placement (not ported
-  yet; a model without a pipeline spec runs single-device);
+- ``pipeline_microbatches = k > 1`` and ``batch >= k`` on more than one device,
+  for a model with a pipeline spec → the batch padded to k equal microbatches,
+  each run through the pipeline runner, the padding sliced off;
+- ``batch == 1`` on more than one device → pipeline block placement
+  (``parallel/pipeline.py``, built on the first such call over every device in
+  chain order with the chain's blended weights); a model without a pipeline spec
+  runs single-device;
 - no ``workload_split``, one device, or ``batch < devices`` without
   ``pad_small_batches`` → single device (the lead replica);
 - otherwise → data parallel. Within a platform group the batch is padded to a
@@ -32,12 +37,14 @@ survivors' weights are renormalised.
 
 ``traceable()`` is the whole-loop compiled sampler's handle
 (``sampling/compiled.py``): ``None`` for a heterogeneous chain, whose host-side
-scatter cannot live in one captured graph.
+scatter cannot live in one captured graph. A homogeneous chain's captured loop
+runs data parallel at every batch, batch 1 included, as the JAX ``traceable()``
+gives it; a chain with a host stage runs the eager loop, which takes the pipeline.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: the auto-parallel planner, ``weight_sharding`` other than ``"replicate"``
-(fsdp, weight streaming), ``tensor_parallel > 1``, ``pipeline_microbatches``, and
-batch==1 pipeline placement.
+item: the auto-parallel planner (so the stage carve is always the
+weight-proportional one), ``weight_sharding`` other than ``"replicate"`` (fsdp,
+weight streaming) and ``tensor_parallel > 1``.
 """
 
 from __future__ import annotations
@@ -73,9 +80,6 @@ from .split import (
 
 logger = logging.getLogger(__name__)
 
-_TODO_PIPELINE = "batch==1 pipeline placement (ROADMAP Queue 1, Pipeline placement)"
-
-
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet")
 
@@ -95,11 +99,12 @@ class ParallelConfig:
     ``reactivate_after``    — after a step-OOM demotion, try the parallel path
         again once this many single-device steps have run (None: stay demoted
         until ``reactivate()`` or ``rebalance()``)
-    ``weight_sharding``, ``tensor_parallel``, ``pipeline_microbatches``,
-    ``hbm_budget_bytes`` — only their defaults are ported; other values raise
-    ``NotImplementedError`` (``hbm_budget_bytes`` is the budget a replica must fit
-    before weight streaming would take over; None reads
-    ``devices.memory.usable_hbm_bytes``).
+    ``pipeline_microbatches`` — k > 1 streams a batch >= k through the pipeline
+        stages as k microbatches (0 or 1: off)
+    ``weight_sharding``, ``tensor_parallel``, ``hbm_budget_bytes`` — only their
+    defaults are ported; other values raise ``NotImplementedError``
+    (``hbm_budget_bytes`` is the budget a replica must fit before weight streaming
+    would take over; None reads ``devices.memory.usable_hbm_bytes``).
     """
 
     workload_split: bool = True
@@ -222,6 +227,7 @@ class ParallelModel:
         self._groups = groups
         self.weights = weights
         self._pipeline_spec = pipeline_spec
+        self._pipeline_runner = None  # built on the first pipeline call
         # The wrapped model's own config (FluxConfig, ...), distinct from ``config``.
         self.model_config = model_config
         self.active = True
@@ -264,9 +270,18 @@ class ParallelModel:
         batch = batch_size_of(x)
         n = self.n_devices
         try:
+            mb = self.config.pipeline_microbatches
+            if mb > 1 and self.config.workload_split and batch >= mb and n > 1:
+                runner = self._get_pipeline_runner()
+                if runner is not None:
+                    return self._pipeline_microbatch(runner, mb, batch, x, timesteps,
+                                                     context, kwargs)
             if batch == 1 and self.config.workload_split and n > 1:
-                if self._pipeline_spec is not None:
-                    raise _not_ported(_TODO_PIPELINE)
+                # Pipeline block placement (reference 1295-1305); a model with no
+                # stages runs single-device (1156-1166).
+                runner = self._get_pipeline_runner()
+                if runner is not None:
+                    return runner(x, timesteps, context, **kwargs)
                 return self.single(x, timesteps, context, **kwargs)
             if not self.config.workload_split or n <= 1:
                 return self.single(x, timesteps, context, **kwargs)
@@ -331,6 +346,33 @@ class ParallelModel:
                 outs[i] = slice_padded(out, parts[i][1], padded)
         return outs[0] if len(outs) == 1 else concat_results(outs)
 
+    def _pipeline_microbatch(self, runner, mb, batch, x, timesteps, context, kwargs):
+        """The batch through the stage chain as ``mb`` microbatches of one shape:
+        padded to ``mb * ceil(batch / mb)`` rows (repeating the last row), split
+        evenly, the padding sliced off the concatenated output."""
+        padded = -(-batch // mb) * mb
+        chunks = zip(*(_chunk_tree(v, batch, padded, mb)
+                       for v in (x, timesteps, context, dict(kwargs))))
+        outs = [runner(xi, ti, ci, **ki) for xi, ti, ci, ki in chunks]
+        return slice_padded(concat_results(outs), batch, padded)
+
+    def _get_pipeline_runner(self):
+        """Build the stage-placement runner on the first pipeline call, over every
+        device in chain order with the chain's weights (the planner's byte-balanced
+        carve is not ported). A stage reuses what the placed
+        replicas already hold on its device. A model that cannot pipeline is
+        remembered, so later calls do not retry."""
+        if self._pipeline_runner is None and self._pipeline_spec is not None:
+            from .pipeline import build_pipeline_runner
+
+            devices = [d for g in self._groups for d in g.devices]
+            self._pipeline_runner = build_pipeline_runner(
+                self._pipeline_spec, self._module, devices, list(self.weights),
+                residents=self._replicas)
+            if self._pipeline_runner is None:
+                self._pipeline_spec = None
+        return self._pipeline_runner
+
     # -- whole-loop compilation handle (sampling/compiled.py) ---------------------
 
     def traceable(self):
@@ -357,6 +399,7 @@ class ParallelModel:
         self.active = False
         self._demoted = True
         self._steps_demoted = 0
+        self._pipeline_runner = None
         lead = self._groups[0].replicas[:1]
         for g in self._groups:
             g.replicas = []
@@ -406,6 +449,7 @@ class ParallelModel:
         for g in self._groups:
             g.device_weights = [next(it) for _ in g.device_weights]
         self.weights = tuple(new)
+        self._pipeline_runner = None  # stage ranges follow the weights: rebuild lazily
         return self.weights
 
     def cleanup(self) -> None:
@@ -420,6 +464,7 @@ class ParallelModel:
         self.active = False
         for g in self._groups:
             g.replicas = []
+        self._pipeline_runner = None
         clear_compiled_loops()
         _release_memory(self.config.purge_cache)
         logger.info("parallel teardown complete")
@@ -456,8 +501,6 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
         )
     if config.tensor_parallel > 1:
         raise _not_ported("tensor_parallel > 1 (ROADMAP Queue 1, fsdp / tp)")
-    if config.pipeline_microbatches > 1:
-        raise _not_ported("pipeline_microbatches (ROADMAP Queue 1, Pipeline placement)")
     if not isinstance(chain, DeviceChain):
         chain = DeviceChain.from_pairs(chain)
     if isinstance(model, ParallelModel):

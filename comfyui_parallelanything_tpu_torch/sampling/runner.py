@@ -11,8 +11,9 @@ the whole loop as one captured CUDA graph (``compiled.py``) on every branch; the
 eager loop stays where the JAX runner decides before the loop, from the caller's
 inputs, and each such case is logged: a user callback, combined conditioning,
 and a heterogeneous chain. A capture that fails raises instead of falling back
-(the JAX runner's compile-failure rung does fall back). Per-request LoRA raises
-``NotImplementedError`` naming the ROADMAP item that ports it; the serving
+(the JAX runner's compile-failure rung does fall back). Per-request LoRA
+(``lora=``, a factor map from ``models/lora.py``) runs the eagerly merged model
+(``lora_model``) on every branch, as the JAX runner's inline legs do; the serving
 scheduler's continuous-batching seam is not ported, and the port's runs are the
 JAX runner's runs with no scheduler installed.
 """
@@ -121,13 +122,15 @@ def run_sampler(
     k-samplers. ``compile_loop=True`` captures the whole loop as a CUDA graph on
     first use and replays it after (``compiled.py``; on CPU tensors the same loop
     body runs uncaptured); it gives up step-OOM demotion, and a failed capture
-    raises."""
+    raises. ``lora`` maps parameter paths to ``(a, b)`` factor pairs
+    (``models/lora.py``: ``W + b @ a``); the sampler drives the merged model, and a
+    ``ParallelModel`` then runs unsharded on its lead device."""
     if sampler not in SAMPLER_NAMES:
         raise ValueError(f"unknown sampler {sampler!r} (have {', '.join(SAMPLER_NAMES)})")
     if lora:
-        raise NotImplementedError(
-            "per-request LoRA is not ported yet (ROADMAP Queue 1, Nodes and host: "
-            "models/lora.py)")
+        from ..models.lora import lora_model
+
+        model = lora_model(model, dict(lora))
     use_cfg = cfg_scale != 1.0 and uncond_context is not None
     eff_cfg = cfg_scale if use_cfg else 1.0
     multi_cond = (bool(extra_conds) or cond_area is not None

@@ -595,6 +595,53 @@ def test_cuda_and_cpu_chain_matches_the_card_alone(cuda_device, monkeypatch, no_
     assert _rel(got, want) <= 1e-4, _rel(got, want)
 
 
+def test_small_flux_pipeline_over_cuda_and_cpu_matches_the_card_alone(cuda_device, no_loops):
+    # SMALL in f32 on [cuda:0 50, cpu 50] at batch 1: the blocks placed as a
+    # pipeline, the card's stage launching K1 for its blocks only, the host's
+    # stage on plain attention; the carry hops to the host and back.
+    cfg = flux.flux_dev_config(**SMALL, dtype=torch.float32)
+    model = flux.build_flux(cfg, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((1, 32, 32, 4), generator=g, device=cuda_device)
+    ctx = torch.randn((1, 16, 64), generator=g, device=cuda_device)
+    y = torch.randn((1, 32), generator=g, device=cuda_device)
+    want = flow_euler_sample(parallelize(model, [("cuda:0", 100)]), x, ctx, steps=2,
+                             guidance=3.5, y=y)
+    pp = parallelize(model, [("cuda:0", 50), ("cpu", 50)])
+    fa.reset_launches()
+    got = flow_euler_sample(pp, x, ctx, steps=2, guidance=3.5, y=y)
+    torch.cuda.synchronize()
+    runner = pp._pipeline_runner
+    assert [st.device.type for st in runner.stages] == ["cuda", "cpu"]
+    on_card = runner.stages[0].range[1] - runner.stages[0].range[0]
+    assert 0 < on_card < cfg.depth + cfg.depth_single_blocks
+    assert fa.launches == fa.launches_by_variant["tf32x3"] == 2 * on_card
+    assert got.device == cuda_device
+    assert _rel(got, want) <= 1e-4, _rel(got, want)
+
+
+def test_small_fp8_flux_checkpoint_converts_on_the_card(cuda_device):
+    # A public-layout dict with fp8 block weights, on the card: every converted
+    # tensor stays there in its parameter's dtype, equal to the CPU conversion.
+    from comfyui_parallelanything_tpu_torch.models.convert import convert_flux_checkpoint
+    from comfyui_parallelanything_tpu_torch.models.loader import load_flux_checkpoint
+
+    cfg = flux.flux_dev_config(**SMALL)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    sd = chip_smoke.public_flux_state_dict(cfg, gen, cuda_device)
+    lora = chip_smoke.kohya_lora(sd, 4, gen, cuda_device)
+    assert sd["single_blocks.0.linear1.weight"].dtype == torch.float8_e4m3fn
+    got = convert_flux_checkpoint(sd, cfg, lora)
+    want = convert_flux_checkpoint({k: v.cpu() for k, v in sd.items()}, cfg,
+                                   {k: v.cpu() for k, v in lora.items()})
+    for k, v in want.items():
+        assert got[k].device == cuda_device and got[k].dtype == v.dtype, k
+        torch.testing.assert_close(got[k].cpu().float(), v.float(), rtol=1e-2, atol=1e-3)
+    model = load_flux_checkpoint(sd, cfg, lora=lora, device=cuda_device)
+    assert all(p.device == cuda_device for p in model.module.parameters())
+
+
 def test_capture_failure_raises_and_names_the_sampler(cuda_device, no_loops):
     # A host read of a device value inside the loop cannot be captured: the call
     # raises, naming the sampler and the line, and runs no eager loop in its place.

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -176,15 +178,20 @@ def test_routing_ladder_and_not_ported_paths(dev_pair, monkeypatch):
     x, t, ctx, y = (torch.from_numpy(a) for a in _inputs(1, seed=3))
     chain4 = DeviceChain.even([f"cpu:{i}" for i in range(4)])
     ppm = parallelize(pm, chain4)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        ppm(x, t, ctx, y=y)  # batch==1 on 4 devices with a pipeline spec
+    # batch==1 on 4 devices with a pipeline spec: the blocks placed as a pipeline
+    np.testing.assert_allclose(ppm(x, t, ctx, y=y).numpy(), pm(x, t, ctx, y=y).numpy(), **TOL)
+    assert ppm._pipeline_runner is not None and ppm._pipeline_runner.n_stages == 2
     single = parallelize(pm, chain4, ParallelConfig(workload_split=False))
     np.testing.assert_allclose(single(x, t, ctx, y=y).numpy(), pm(x, t, ctx, y=y).numpy(), **TOL)
     assert parallelize(pm, [("cpu", 0)]) is pm  # unusable chain: model unchanged
-    for cfg in (ParallelConfig(weight_sharding="fsdp"), ParallelConfig(tensor_parallel=2),
-                ParallelConfig(pipeline_microbatches=2)):
+    for cfg in (ParallelConfig(weight_sharding="fsdp"), ParallelConfig(tensor_parallel=2)):
         with pytest.raises(NotImplementedError):
             parallelize(pm, chain4, cfg)
+    x2, t2, ctx2, y2 = (torch.from_numpy(a) for a in _inputs(2, seed=4))
+    mb = parallelize(pm, chain4, ParallelConfig(pipeline_microbatches=2))
+    np.testing.assert_allclose(mb(x2, t2, ctx2, y=y2).numpy(), pm(x2, t2, ctx2, y=y2).numpy(),
+                               **TOL)
+    assert mb._pipeline_runner is not None
     from comfyui_parallelanything_tpu_torch.parallel import chain as chain_mod
 
     monkeypatch.setattr(chain_mod, "get_device", lambda s: torch.device("cpu"))

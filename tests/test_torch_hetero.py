@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from comfyui_parallelanything_tpu.parallel import split as jax_split  # noqa: E402
 from comfyui_parallelanything_tpu.utils import roofline as jax_roofline  # noqa: E402
 from comfyui_parallelanything_tpu_torch import ParallelConfig, parallelize  # noqa: E402

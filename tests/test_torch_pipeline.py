@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -251,8 +253,8 @@ class TestRunSampler:
     def test_what_is_not_ported_raises(self, dits):
         # Every sampler name runs now (tests/test_torch_samplers.py), and so does the
         # whole-loop compiled path (on the CPU the same loop body, uncaptured: equal
-        # to the eager loop); per-request LoRA is still to be ported, and combined
-        # conditioning on flow_euler is refused as the JAX runner refuses it.
+        # to the eager loop) and per-request LoRA (the merged model drives the loop);
+        # combined conditioning on flow_euler is refused as the JAX runner refuses it.
         _, pdit = dits
         noise, ctx, y, init = (torch.from_numpy(a) for a in _latents(7))
         base = dict(steps=1, y=y)
@@ -260,8 +262,13 @@ class TestRunSampler:
             np.testing.assert_array_equal(
                 run_sampler(pdit, noise, ctx, sampler=sampler, compile_loop=True, **base).numpy(),
                 run_sampler(pdit, noise, ctx, sampler=sampler, **base).numpy())
-        with pytest.raises(NotImplementedError, match="Nodes and host"):
-            run_sampler(pdit, noise, ctx, sampler="flow_euler", lora={"a": 1}, **base)
+        from comfyui_parallelanything_tpu_torch.models.lora import lora_model
+
+        w = pdit._lead_replica().img_in.weight
+        lora = {"img_in.weight": (torch.full((1, w.shape[1]), 0.1), torch.ones(w.shape[0], 1))}
+        np.testing.assert_array_equal(
+            run_sampler(pdit, noise, ctx, sampler="flow_euler", lora=lora, **base).numpy(),
+            run_sampler(lora_model(pdit, lora), noise, ctx, sampler="flow_euler", **base).numpy())
         for kw, match in ((dict(sampler="nope"), "unknown sampler"),
                           (dict(sampler="flow_euler", denoise=0.0), "denoise"),
                           (dict(sampler="flow_euler", latent_mask=noise), "init_latent"),

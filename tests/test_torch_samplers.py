@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -374,7 +376,7 @@ class TestRunSampler:
                 (dict(sampler="nope"), ValueError, "unknown sampler"),
                 (dict(sampler="euler", compile_loop=True, latent_mask=x), ValueError,
                  "init_latent"),
-                (dict(sampler="ddim", lora={"a": 1}), NotImplementedError, "Nodes and host")):
+                (dict(sampler="ddim", lora={"a": 1}), TypeError, "addressable")):
             with pytest.raises(exc, match=match):
                 prunner.run_sampler(pmodel, x, ctx, steps=2, **kw)
         for kw in (dict(sampler="ddim", extra_conds=[{"context": jnp.asarray(ctx.numpy())}]),
