@@ -130,6 +130,20 @@ the error.
    ``parallelize`` → 4 steps: the bake's and the load's seconds, peak memory, s/it,
    exactly 57 ``sm90`` a step, a forward against plain attention, and the baked
    latent within 2e-2 of ``run_sampler(..., lora=factors)`` on the unbaked model.
+13. graph — the port's graph host (``host.run_workflow`` on ``cuda:0``) at full
+   width, on files written to a temp directory from seeded generators (SD1.5 with its
+   bundled VAE in the ldm layout, CLIP-L in the HF layout, each held by a round trip
+   through the port's converters; CLIP tables over the synthetic vocab; an ESRGAN x4
+   in RealESRGAN_x4plus's layout), with this script's own safetensors writer. First
+   K1 at the new shapes the graphs give it (SD1.5 at 1024², the VAE at batch 8),
+   checked and timed. Then ``workflow_sd15_txt2img`` (512², batch 8, 28 dpmpp_2m
+   steps, CFG 7.5), ``workflow_sd15_hiresfix`` (20 steps at 512², 2× latent
+   upscale, 14 steps at 1024², decode, ESRGAN ×4 in 256 tiles to 4096²) and the
+   txt2img graph with ``quantize="int8"`` at 4 steps, each with only its paths, its
+   chain (one ``cuda:0`` link) and its save node changed: seconds per node, s/it,
+   peak memory and exactly 20 ``sm90`` + 10 ``wide`` per UNet forward plus one
+   ``wide`` per decode; the txt2img latent against a direct ``run_sampler``, the int8
+   run's weight bytes and latent against bf16's.
 ``hybrid`` also prints ``hybrid_rows``: the GPU group's rows of one CFG forward
 against the same rows of the 8-row forward on the card alone.
 Then the script's wall time, the ``kernels`` line, and last
@@ -2301,6 +2315,495 @@ def phase_checkpoint() -> dict:
     return {"checkpoint": launches, "checkpoint_runtime_lora": runtime_launches}
 
 
+# ---------------------------------------------------------------------------
+# The graph phase's synthetic files: the port's modules written out in the public
+# layouts its loaders read (inverses of its converters), with this script's own
+# safetensors writer. Also used by the CPU graph tests.
+# ---------------------------------------------------------------------------
+
+SAFETENSORS_DTYPE_NAMES = {"float64": "F64", "float32": "F32", "float16": "F16",
+                           "bfloat16": "BF16", "int64": "I64", "int32": "I32",
+                           "int8": "I8", "uint8": "U8"}
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """A .safetensors file: the 8-byte little-endian header length, the JSON header
+    (dtype, shape and byte range of each tensor, in key order), then each tensor's
+    raw bytes (no ``safetensors`` package needed)."""
+    import struct
+
+    import torch
+
+    header, blobs, offset = {}, [], 0
+    for key in sorted(tensors):
+        t = tensors[key].detach().contiguous().cpu()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[key] = {"dtype": SAFETENSORS_DTYPE_NAMES[str(t.dtype).removeprefix("torch.")],
+                       "shape": list(t.shape), "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+class _KeyProbe(dict):
+    """A state dict that holds every key: each read returns a one-element tensor
+    holding the read's index, so a converter's output names the source key each
+    parameter came from."""
+
+    def __init__(self):
+        super().__init__()
+        self.read: list[str] = []
+
+    def __contains__(self, key):
+        return True
+
+    def __getitem__(self, key):
+        import torch
+
+        self.read.append(key)
+        return torch.tensor([float(len(self.read) - 1)])
+
+
+def ldm_unet_layout(cfg, state: dict, convert=None) -> dict:
+    """A UNet (or, with ``convert``, a ControlNet) state dict of the port in the ldm
+    layout its converter reads: the converter run on a ``_KeyProbe`` maps each port
+    parameter to its ldm name."""
+    from comfyui_parallelanything_tpu_torch.models.convert_unet import (
+        convert_sd_unet_checkpoint,
+    )
+
+    probe = _KeyProbe()
+    names = (convert or convert_sd_unet_checkpoint)(probe, cfg)
+    src = {k: probe.read[int(v.item())] for k, v in names.items()}
+    missing = set(state) - set(src)
+    if missing:
+        raise RuntimeError(f"the converter does not produce {sorted(missing)[:4]}")
+    return {src[k]: v for k, v in state.items()}
+
+
+_VAE_LDM_RENAMES = [
+    (r"^encoder\.down_(\d+)_block_(\d+)\.", r"encoder.down.\1.block.\2."),
+    (r"^encoder\.down_(\d+)_downsample\.", r"encoder.down.\1.downsample."),
+    (r"^decoder\.up_(\d+)_block_(\d+)\.", r"decoder.up.\1.block.\2."),
+    (r"^decoder\.up_(\d+)_upsample\.", r"decoder.up.\1.upsample."),
+    (r"\.mid_block_(\d)\.", r".mid.block_\1."),
+    (r"\.mid_attn_1\.", r".mid.attn_1."),
+]
+
+
+def ldm_vae_layout(state: dict) -> dict:
+    """An ``AutoencoderKL`` state dict of the port in the ldm layout."""
+    import re
+
+    out = {}
+    for key, v in state.items():
+        for pat, rep in _VAE_LDM_RENAMES:
+            key = re.sub(pat, rep, key)
+        out[key] = v
+    return out
+
+
+def hf_clip_layout(state: dict) -> dict:
+    """A ``CLIPTextModel`` state dict of the port in the HF ``text_model.*`` layout."""
+    import re
+
+    table = [(r"^tok_emb\.weight$", "text_model.embeddings.token_embedding.weight"),
+             (r"^pos_emb$", "text_model.embeddings.position_embedding.weight"),
+             (r"^final_ln\.", "text_model.final_layer_norm."),
+             (r"^text_proj\.weight$", "text_projection.weight")]
+    layer = {"ln1": "layer_norm1", "ln2": "layer_norm2", "q": "self_attn.q_proj",
+             "k": "self_attn.k_proj", "v": "self_attn.v_proj", "out": "self_attn.out_proj",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    out = {}
+    for key, v in state.items():
+        m = re.match(r"^layers\.(\d+)\.(\w+)\.(weight|bias)$", key)
+        if m:
+            out[f"text_model.encoder.layers.{m[1]}.{layer[m[2]]}.{m[3]}"] = v
+            continue
+        for pat, rep in table:
+            if re.match(pat, key):
+                out[re.sub(pat, rep, key)] = v
+                break
+        else:
+            raise KeyError(f"no HF CLIP name for {key}")
+    return out
+
+
+def check_round_trip(written: dict, convert, state: dict, what: str) -> None:
+    """Converting the dict about to be written must give back ``state`` bitwise."""
+    import torch
+
+    got = convert(written)
+    if set(got) != set(state):
+        raise RuntimeError(f"{what}: the round trip changes the keys: "
+                           f"{sorted(set(got) ^ set(state))[:4]}")
+    for k, v in state.items():
+        if not torch.equal(got[k].to(v.dtype).cpu(), v.cpu()):
+            raise RuntimeError(f"{what}: the round trip changes {k}")
+
+
+def write_clip_tables(directory) -> tuple[str, str]:
+    """``vocab.json`` and ``merges.txt`` over ``synthetic_tokenizers``' vocab (the
+    CLIP byte-BPE tables the graph's ``TPUCLIPLoader`` reads through its
+    ``vocab_path`` + ``merges_path`` route). Returns their paths."""
+    import os
+
+    clip, _ = synthetic_tokenizers(t5_len=8)
+    vocab_path = os.path.join(directory, "vocab.json")
+    merges_path = os.path.join(directory, "merges.txt")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        json.dump(clip.vocab, f)
+    ranked = sorted(clip.ranks, key=clip.ranks.get)
+    with open(merges_path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        f.writelines(f"{a} {b}\n" for a, b in ranked)
+    return vocab_path, merges_path
+
+
+def write_sd15_files(directory, unet, vae, clip, dtype=None) -> dict:
+    """The SD1.5 graph's files: the checkpoint (``model.diffusion_model.*`` plus the
+    bundled ``first_stage_model.*`` VAE, in the ldm layout) and the CLIP-L tower (HF
+    layout), each held by a round trip through the port's converters before it is
+    written; ``dtype`` casts floating tensors (None keeps each module's). Returns
+    ``{"ckpt": path, "clip": path}``."""
+    import os
+
+    from comfyui_parallelanything_tpu_torch.models.convert_text import (
+        convert_clip_text_checkpoint,
+    )
+    from comfyui_parallelanything_tpu_torch.models.convert_unet import (
+        convert_sd_unet_checkpoint,
+        strip_prefix,
+    )
+    from comfyui_parallelanything_tpu_torch.models.convert_vae import convert_vae_checkpoint
+
+    def cast(sd):
+        return {k: (v.to(dtype) if dtype is not None and v.is_floating_point() else v)
+                for k, v in sd.items()}
+
+    unet_state = cast(unet.module.state_dict())
+    vae_state = cast(vae.module.state_dict())
+    clip_state = cast(clip.module.state_dict())
+    ckpt = {f"model.diffusion_model.{k}": v
+            for k, v in ldm_unet_layout(unet.config, unet_state).items()}
+    ckpt.update({f"first_stage_model.{k}": v for k, v in ldm_vae_layout(vae_state).items()})
+    check_round_trip(ckpt, lambda sd: convert_sd_unet_checkpoint(strip_prefix(sd), unet.config),
+                     unet_state, "unet")
+    check_round_trip(ckpt, lambda sd: convert_vae_checkpoint(sd, vae.cfg), vae_state, "vae")
+    clip_sd = hf_clip_layout(clip_state)
+    check_round_trip(clip_sd, lambda sd: convert_clip_text_checkpoint(sd, clip.cfg),
+                     clip_state, "clip")
+    paths = {"ckpt": os.path.join(directory, "sd15.safetensors"),
+             "clip": os.path.join(directory, "clip_l.safetensors")}
+    write_safetensors(paths["ckpt"], ckpt)
+    write_safetensors(paths["clip"], clip_sd)
+    return paths
+
+
+def write_upscaler_file(path, upscaler) -> None:
+    """An ESRGAN model in the modern RRDBNet layout (the port's own names), held by a
+    round trip through ``convert_upscale_checkpoint``."""
+    from comfyui_parallelanything_tpu_torch.models.upscale import convert_upscale_checkpoint
+
+    state = upscaler.module.state_dict()
+    check_round_trip(state, lambda sd: convert_upscale_checkpoint(sd)[0], state, "esrgan")
+    write_safetensors(path, state)
+
+
+GRAPH_CHAIN_PCT = 100.0
+GRAPH_REL_TOL = 1e-3  # the graph's latent against a direct run_sampler (predicted bitwise)
+GRAPH_INT8_STEPS = 4
+GRAPH_INT8_REL_TOL = 0.2  # int8 weights against bf16's, 4 steps (PERF.md, before the run)
+GRAPH_INT8_BYTES = (0.45, 0.60)  # resident UNet weight bytes, int8 over bf16
+# SD1.5's K1 calls at 1024² (the hi-res pass, CFG's batch 2) and the VAE's at the
+# txt2img graph's batch 8: held against the plain version and timed in this phase.
+GRAPH_K1_SHAPES = {
+    "sd15_self_16384_d40": ((2, 16384, 8, 40), (2, 16384, 8, 40), 10, 1),
+    "sd15_self_4096_d80": ((2, 4096, 8, 80), (2, 4096, 8, 80), 20, 2),
+    "sd15_self_1024_d160": ((2, 1024, 8, 160), (2, 1024, 8, 160), 50, 5),
+    "sd15_cross_16384x77_d40": ((2, 16384, 8, 40), (2, 77, 8, 40), 20, 2),
+    "sd15_cross_4096x77_d80": ((2, 4096, 8, 80), (2, 77, 8, 80), 50, 5),
+    "sd15_cross_1024x77_d160": ((2, 1024, 8, 160), (2, 77, 8, 160), 50, 5),
+    "sd15_vae_512_b8_d512": ((8, 4096, 1, 512), (8, 4096, 1, 512), 10, 1),
+}
+
+
+def graph_k1_shapes(fa) -> dict:
+    """K1 at ``GRAPH_K1_SHAPES``, each through the variant the rule picks: the check
+    against the plain version (``KERNEL_LIMITS``), then the timing row (K1, plain,
+    SDPA, the bound, and K1 over back-to-back calls)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    for name, (qshape, kshape, iters, plain_iters) in GRAPH_K1_SHAPES.items():
+        q, k, v = make_case(qshape, kshape, "bfloat16", "contiguous", gen, dev)
+        variant = fa.kernel_variant(q, k, v)
+        res = kernel_error(fa.flash_attention(q, k, v), q, k, v)
+        if not res["ok"]:
+            raise RuntimeError(f"flash_attention disagrees with its plain version at {name}: "
+                               f"{res}")
+        row = time_variant(fa, variant, q, k, v, iters, plain_iters)
+        row["loop_ms"] = loop_ms(lambda: fa._launch(q, k, v, q.shape[-1] ** -0.5, variant),
+                                 iters)
+        rows[name] = {**row, **res}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def graph_world(directory) -> dict:
+    """The graph phase's files, from seeded generators on the card: full-width SD1.5
+    (``sd15_config()``, bf16) with its bundled kl-f8 VAE, CLIP-L, the CLIP tables and
+    an ESRGAN x4 model in RealESRGAN_x4plus's layout (23 RRDBs, 64 features, growth
+    32). Returns their paths."""
+    import os
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.models import (
+        build_clip_text,
+        build_unet,
+        build_vae,
+        clip_l_config,
+        sd15_config,
+        sd_vae_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.upscale import UpscaleConfig, build_upscaler
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    unet = build_unet(sd15_config(), device=dev, generator=gen)
+    vae = build_vae(sd_vae_config(), device=dev, generator=gen)
+    clip = build_clip_text(clip_l_config(), device=dev, generator=gen)
+    paths = write_sd15_files(directory, unet, vae, clip)
+    del unet, vae, clip
+    paths["vocab"], paths["merges"] = write_clip_tables(directory)
+    esrgan = build_upscaler(UpscaleConfig(nf=64, nb=23, gc=32, scale=4), device=dev,
+                            generator=gen)
+    paths["esrgan"] = os.path.join(directory, "RealESRGAN_x4plus.safetensors")
+    write_upscaler_file(paths["esrgan"], esrgan)
+    del esrgan
+    torch.cuda.empty_cache()
+    return paths
+
+
+def graph_example(name: str, paths: dict) -> dict:
+    """An ``examples/`` graph with only the file paths, the chain (one
+    ``ParallelDevice`` ``cuda:0`` at 100) and the save node changed (removed: the
+    CPU tests hold ``TPUSaveImage``); widths, batches, steps and samplers as
+    shipped."""
+    import os
+
+    with open(os.path.join("examples", f"{name}.json")) as f:
+        wf = json.load(f)
+    wf["checkpoint"]["inputs"]["ckpt_path"] = paths["ckpt"]
+    clip = wf["clip"]["inputs"]
+    clip.pop("tokenizer_json")
+    clip.update(encoder_path=paths["clip"], vocab_path=paths["vocab"],
+                merges_path=paths["merges"])
+    del wf["dev1"], wf["save"]
+    wf["dev0"]["inputs"].update(device_id="cuda:0", percentage=GRAPH_CHAIN_PCT)
+    wf["parallel"]["inputs"]["parallel_devices"] = ["dev0", 0]
+    if "esrgan" in wf:
+        wf["esrgan"]["inputs"]["ckpt_path"] = paths["esrgan"]
+    return wf
+
+
+def run_graph(wf: dict, cache, fa) -> dict:
+    """One ``host.run_workflow`` on ``cuda:0``: each node's seconds (a synchronise
+    before every clock read), the nodes served from ``cache``, the UNet's forwards
+    (a global forward hook on ``UNet2D``), K1's launches (the counts set to 0 just
+    before the run and read just after) and the peak device memory."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.host import run_workflow
+    from comfyui_parallelanything_tpu_torch.models.unet import UNet2D
+
+    dev = torch.device("cuda", 0)
+    seconds, cached, forwards = {}, [], [0]
+    clock = {"node": None, "t": 0.0}
+
+    def on_node(nid):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if clock["node"] is not None:
+            seconds[clock["node"]] = now - clock["t"]
+        clock.update(node=nid, t=now)
+
+    def count(module, args, out):
+        if isinstance(module, UNet2D):
+            forwards[0] += 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    fa.reset_launches()
+    try:
+        results = run_workflow(wf, outputs=cache, on_node=on_node, on_cached=cached.extend)
+        torch.cuda.synchronize()
+        seconds[clock["node"]] = time.perf_counter() - clock["t"]
+    finally:
+        hook.remove()
+    return {"results": results, "node_seconds": seconds, "cached": cached,
+            "unet_forwards": forwards[0], "launches": _launched(fa),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _graph_row(name: str, run: dict, steps: dict, want_launches: dict) -> dict:
+    """The printed row of one graph run; raises when K1's launches are not exactly
+    ``want_launches``."""
+    sps = {node: run["node_seconds"][node] / n for node, n in steps.items()}
+    row = {"phase": "graph", "run": name, "node_seconds": run["node_seconds"],
+           "cached_nodes": run["cached"], "s_per_it": sps, "unet_forwards":
+           run["unet_forwards"], "k1_launches_by_variant": run["launches"],
+           "peak_gb": run["peak_gb"]}
+    if run["launches"] != want_launches:
+        emit(row)
+        raise RuntimeError(f"{name}: K1 launched {run['launches']}, want {want_launches}")
+    return row
+
+
+def phase_graph() -> dict:
+    """The port's graph host on the card at full width (``host.run_workflow`` on
+    ``cuda:0``): ``workflow_sd15_txt2img`` (512², batch 8, 28 dpmpp_2m/karras steps,
+    CFG 7.5), ``workflow_sd15_hiresfix`` (20 steps at 512², a 2× latent upscale, 14
+    steps at 1024² with denoise 0.55, the decode at 1024², ESRGAN ×4 in 256 tiles)
+    and the txt2img graph with ``quantize="int8"`` at ``GRAPH_INT8_STEPS`` steps, on
+    ``graph_world``'s files (written to a temp directory). Each run prints its
+    seconds per node, the samplers' s/it, peak memory and K1's launches, which must
+    be exactly 20 ``sm90`` + 10 ``wide`` per UNet forward plus one ``wide`` per
+    decode (``decode_maybe_tiled`` with tile 0 decodes whole: one mid-block
+    attention). The txt2img latent is held against a direct ``run_sampler`` with
+    the graph's model, conditioning and seeded noise (``GRAPH_REL_TOL``); the int8
+    run's UNet bytes against bf16's (``GRAPH_INT8_BYTES``) and its latent against a
+    direct bf16 run of the same steps (``GRAPH_INT8_REL_TOL``); the ESRGAN image must
+    be 4× the decode. Before the graphs, K1 at the new shapes they give it
+    (``GRAPH_K1_SHAPES``). Returns K1's launches by run."""
+    import tempfile
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import nodes
+    from comfyui_parallelanything_tpu_torch.host import WorkflowCache
+    from comfyui_parallelanything_tpu_torch.models.quantize import param_bytes
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.k_samplers import broadcast_cond_batch
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    start = time.perf_counter()
+    shapes = graph_k1_shapes(fa)
+    emit({"phase": "graph", "k1_shapes": shapes})
+    dev = torch.device("cuda", 0)
+    per_forward = SD15_PER_FORWARD
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = graph_world(tmp)
+        world_s = time.perf_counter() - t0
+        cache = WorkflowCache()
+
+        wf = graph_example("workflow_sd15_txt2img", paths)
+        steps = wf["sampler"]["inputs"]["steps"]
+        run = run_graph(wf, cache, fa)
+        res = run["results"]
+        want = {v: n * steps for v, n in per_forward.items()}
+        want["wide"] += 1  # the decode
+        row = _graph_row("graph_txt2img", run, {"sampler": steps}, want)
+        launches["graph_txt2img"] = run["launches"]
+        # The same sampling through run_sampler directly, from the graph's own model,
+        # conditioning and seed.
+        inp = wf["sampler"]["inputs"]
+        latent = res["latent"][0]["samples"]
+        batch = latent.shape[0]
+        pm = res["parallel"][0]
+        pos, neg = res["positive"][0], res["negative"][0]
+
+        def direct(model, n):
+            noise = nodes.initial_noise(inp["seed"], latent.shape, dev)
+            return run_sampler(
+                model, noise, broadcast_cond_batch(pos["context"], batch),
+                sampler=inp["sampler_name"], steps=n, cfg_scale=inp["cfg"],
+                uncond_context=broadcast_cond_batch(neg["context"], batch),
+                uncond_kwargs={"y": broadcast_cond_batch(neg["pooled"], batch)},
+                rng=nodes.seed_generator(inp["seed"], dev), scheduler=inp["scheduler"],
+                y=broadcast_cond_batch(pos["pooled"], batch))
+
+        out = res["sampler"][0]["samples"]
+        image = res["decode"][0]
+        ref = direct(pm, steps)
+        row.update(latent_shape=list(out.shape), image_shape=list(image.shape),
+                   latent_vs_direct_rel_l2=_rel_l2(out, ref),
+                   latent_bitwise=bool(torch.equal(out, ref)),
+                   finite=bool(torch.isfinite(image).all().item()), world_s=world_s)
+        del ref
+        emit(row)
+        if row["latent_vs_direct_rel_l2"] > GRAPH_REL_TOL or not row["finite"]:
+            raise RuntimeError(f"graph_txt2img: {row}")
+        ref_int8 = direct(pm, GRAPH_INT8_STEPS)
+        bf16_bytes = param_bytes(pm._module)
+        del pm, res, pos, neg, out, image
+
+        wf = graph_example("workflow_sd15_hiresfix", paths)
+        s1, s2 = wf["sampler"]["inputs"]["steps"], wf["hires_pass"]["inputs"]["steps"]
+        run = run_graph(wf, cache, fa)
+        res = run["results"]
+        want = {v: n * (s1 + s2) for v, n in per_forward.items()}
+        want["wide"] += 1
+        row = _graph_row("graph_hiresfix", run, {"sampler": s1, "hires_pass": s2}, want)
+        launches["graph_hiresfix"] = run["launches"]
+        image, final = res["decode"][0], res["final_upscale"][0]
+        row.update(hires_latent_shape=list(res["hires_pass"][0]["samples"].shape),
+                   image_shape=list(image.shape), final_shape=list(final.shape),
+                   finite=bool(torch.isfinite(final).all().item()))
+        emit(row)
+        side = 2 * wf["latent"]["inputs"]["width"]  # the 2× latent upscale, decoded
+        if (tuple(final.shape) != (1, 4 * side, 4 * side, 3)
+                or tuple(image.shape) != (1, side, side, 3) or not row["finite"]):
+            raise RuntimeError(f"graph_hiresfix: {row}")
+        # Nothing of the bf16 graphs may outlive their cache entries into the int8
+        # run's peak: the int8 checkpoint node evicts them.
+        del run, res, image, final
+
+        wf = graph_example("workflow_sd15_txt2img", paths)
+        wf["checkpoint"]["inputs"]["quantize"] = "int8"
+        wf["sampler"]["inputs"]["steps"] = GRAPH_INT8_STEPS
+        run = run_graph(wf, cache, fa)
+        res = run["results"]
+        want = {v: n * GRAPH_INT8_STEPS for v, n in per_forward.items()}
+        want["wide"] += 1
+        row = _graph_row("graph_int8", run, {"sampler": GRAPH_INT8_STEPS}, want)
+        launches["graph_int8"] = run["launches"]
+        qm = res["parallel"][0]
+        out = res["sampler"][0]["samples"]
+        row.update(unet_bytes=param_bytes(qm._module), bf16_unet_bytes=bf16_bytes,
+                   int8_bytes_ratio=param_bytes(qm._module) / bf16_bytes,
+                   int8_dtypes=sorted({str(p.dtype) for p in qm._module.parameters()}),
+                   latent_vs_bf16_rel_l2=_rel_l2(out, ref_int8),
+                   finite=bool(torch.isfinite(res["decode"][0]).all().item()),
+                   seconds=time.perf_counter() - start)
+        emit(row)
+        lo, hi = GRAPH_INT8_BYTES
+        if (not lo <= row["int8_bytes_ratio"] <= hi
+                or row["latent_vs_bf16_rel_l2"] > GRAPH_INT8_REL_TOL or not row["finite"]):
+            raise RuntimeError(f"graph_int8: {row}")
+        for value in list(cache.results):
+            cache.evict(value)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 def main() -> int:
     import torch
 
@@ -2338,13 +2841,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sd3_launches = phase_sd3()
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_launches = phase_graph()
     # A captured path's launches are those its graphs replayed: K1's launches recorded
     # at capture times the replays.
     paths = {"main_path": main_launches, "main_path_captured": main_captured, **pipe_launches,
              "sd_pipeline": sd_launches, "sd_pipeline_captured": sd_captured,
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
              "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
-             **sd3_launches, **placement_launches, **checkpoint_launches}
+             **sd3_launches, **placement_launches, **checkpoint_launches, **graph_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

@@ -27,6 +27,8 @@ conversion is a rename plus layout changes:
   → ``blocks.0.x_attn_in.qkv.weight``): as FLUX's, the ``DenseGeneral`` qkv kernel
   (hidden, 3, H, D) flattening to the port's fused (3·H·D) output order; the q/k
   norm scales (``ln_q``, ``ln_k``) and ``pos_embed/table`` keep their names.
+- ``from_jax_upscale_params`` — the ESRGAN ``RRDBNet`` (``body_0/rdb1/conv1/kernel``
+  → ``body.0.rdb1.conv1.weight``): Conv kernels as the VAE's.
 """
 
 from __future__ import annotations
@@ -127,3 +129,13 @@ def from_jax_unet_params(tree: Mapping) -> dict[str, torch.Tensor]:
         key = f"{module}/{name}".replace("/", ".")
         state[key] = torch.from_numpy(np.array(value, copy=True))
     return state
+
+
+_UPSCALE_BODY = re.compile(r"(^|/)body_(\d+)/")
+
+
+def from_jax_upscale_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``RRDBNet`` tree (``body_3/rdb1/conv2/kernel``) → ``upscale.RRDBNet``
+    state dict (``body.3.rdb1.conv2.weight``): Conv kernels as the VAE's."""
+    return _convert({_UPSCALE_BODY.sub(r"\1body.\2/", p): a
+                     for p, a in _flatten(tree).items()}, _vae_leaf)

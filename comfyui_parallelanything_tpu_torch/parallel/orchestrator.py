@@ -24,7 +24,8 @@ the weights. ``ParallelModel`` routes each call by the JAX package's hand ladder
   before any forward is issued, the GPU groups' forwards are issued before the
   host computes its share, and the outputs are gathered on the lead device in
   chain order;
-- ``torch.cuda.OutOfMemoryError`` during a step → drop every replica but the lead
+- an out-of-memory error during a step (``is_out_of_memory``: a CUDA OOM, or the
+  host allocator's failure on a ``cpu`` link) → drop every replica but the lead
   and run single-device until ``reactivate()``/``rebalance()``, or for
   ``reactivate_after`` steps. Any other error propagates.
 
@@ -79,6 +80,21 @@ from .split import (
 )
 
 logger = logging.getLogger(__name__)
+
+# The host allocator's message for a failed allocation: torch raises it as a plain
+# RuntimeError, not as torch.cuda.OutOfMemoryError.
+HOST_OOM_MESSAGE = "DefaultCPUAllocator: can't allocate memory"
+
+
+def is_out_of_memory(err: BaseException) -> bool:
+    """True for an out-of-memory error on any device of a chain: a CUDA OOM, or the
+    CPU allocator's ``RuntimeError`` (counterpart of the JAX package's
+    ``_is_resource_exhausted``, which tests the message on every platform). Any
+    other ``RuntimeError`` is not one."""
+    if isinstance(err, torch.cuda.OutOfMemoryError):
+        return True
+    return isinstance(err, RuntimeError) and HOST_OOM_MESSAGE in str(err)
+
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet")
@@ -262,7 +278,9 @@ class ParallelModel:
                     self.reactivate()
                     logger.warning("reactivate: parallel execution resumed after %d "
                                    "single-device step(s)", ran)
-                except torch.cuda.OutOfMemoryError:
+                except Exception as e:
+                    if not is_out_of_memory(e):
+                        raise
                     self._steps_demoted = 0  # still too tight: retry in another N
             if not self.active:
                 self._steps_demoted += 1
@@ -288,7 +306,9 @@ class ParallelModel:
             if batch < n and not self.config.pad_small_batches:
                 return self.single(x, timesteps, context, **kwargs)
             return self._data_parallel(batch, x, timesteps, context, kwargs)
-        except torch.cuda.OutOfMemoryError as e:
+        except Exception as e:
+            if not is_out_of_memory(e):
+                raise
             logger.warning("step-oom: %s; freeing replicas, demoting to single-device", e)
             self._demote()
             return self.single(x, timesteps, context, **kwargs)
@@ -432,8 +452,9 @@ class ParallelModel:
         if self._demoted and not self._cleaned:
             try:
                 self.reactivate()
-            except torch.cuda.OutOfMemoryError:
-                pass
+            except Exception as e:
+                if not is_out_of_memory(e):
+                    raise
         if not self.config.auto_memory_balance and not self.config.auto_speed_balance:
             return self.weights
         base = normalize_weights([w for g in self._groups for w in g.user_weights])
@@ -541,7 +562,9 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
             for g in groups:
                 g.place(module)
             break
-        except torch.cuda.OutOfMemoryError:
+        except Exception as e:
+            if not is_out_of_memory(e):
+                raise
             g = groups[-1]
             if len(g.devices) > 1:
                 logger.warning("setup-oom: dropped %s, retrying", g.drop_last_device())
@@ -560,3 +583,11 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
                 "hybrid" if len(groups) > 1 else groups[0].platform)
     return ParallelModel(module, chain, config, groups, final,
                          pipeline_spec=pipeline_spec, model_config=wrapped_config)
+
+
+def model_config_of(model) -> Any:
+    """The wrapped model's own config (``UNetConfig``, ``FluxConfig``, ...), whether
+    ``model`` is a ``DiffusionModel`` or a ``ParallelModel`` (whose ``config`` is the
+    ``ParallelConfig`` and whose ``model_config`` is the model's)."""
+    cfg = getattr(model, "model_config", None)
+    return cfg if cfg is not None else getattr(model, "config", None)

@@ -63,6 +63,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..parallel.orchestrator import is_out_of_memory
 from ..parallel.split import concat_results, pad_leaf, partition_kwargs, slice_padded
 from ..parallel.split import static_kwargs_key, tree_map
 from . import k_samplers
@@ -270,9 +271,9 @@ class _Loop:
             with torch.cuda.stream(torch.cuda.current_stream(self.device)), \
                     torch.cuda.graph(graph, stream=_side_stream(self.device)), torch.no_grad():
                 out = self.body(self.replica, self.static)
-        except torch.cuda.OutOfMemoryError:
-            raise
         except Exception as e:
+            if is_out_of_memory(e):
+                raise
             raise RuntimeError(
                 f"compile_loop: capturing the {self.label} loop as a CUDA graph on "
                 f"{self.device} failed at {_culprit(e)}") from e

@@ -16,6 +16,16 @@ and a heterogeneous chain. A capture that fails raises instead of falling back
 (``lora_model``) on every branch, as the JAX runner's inline legs do; the serving
 scheduler's continuous-batching seam is not ported, and the port's runs are the
 JAX runner's runs with no scheduler installed.
+
+Every eager loop reports each step through ``utils/progress.report_progress``
+(the progress hook, the latent preview hook, and the cooperative interrupt,
+which raises ``Interrupted`` between steps), as the JAX runner's
+``with_progress`` does. The captured loop is one CUDA graph replay: like the JAX
+whole-loop XLA program it has no step boundaries, so it reports no steps, sends
+no previews and cannot be interrupted mid-loop (the graph host still checks the
+interrupt before and after the sampler node). A model's ``sampler_prefs`` dict
+(set by schedule patch nodes such as RescaleCFG) supplies ``cfg_rescale`` when
+the caller leaves it at 0.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from .compiled import (
     compiled_k_sample,
     trace_spec_of,
 )
+from ..utils.progress import report_progress
 from .ddim import ddim_sample
 from .flow import flow_euler_sample, flow_timesteps
 from .k_samplers import (
@@ -127,6 +138,11 @@ def run_sampler(
     ``ParallelModel`` then runs unsharded on its lead device."""
     if sampler not in SAMPLER_NAMES:
         raise ValueError(f"unknown sampler {sampler!r} (have {', '.join(SAMPLER_NAMES)})")
+    # Model-level sampler preferences (patch nodes, e.g. RescaleCFG): defaults
+    # only, an explicit caller value wins.
+    prefs = getattr(model, "sampler_prefs", None) or {}
+    if cfg_rescale == 0.0:
+        cfg_rescale = float(prefs.get("cfg_rescale", 0.0))
     if lora:
         from ..models.lora import lora_model
 
@@ -180,6 +196,16 @@ def run_sampler(
 
         return cb
 
+    def with_progress(cb, n_steps):
+        """Per-step progress, latent preview and cooperative interrupt on the eager
+        loops (``utils/progress.report_progress``), then ``cb``."""
+
+        def cb2(i, x):
+            report_progress(i + 1, n_steps, latent=x)
+            return cb(i, x) if cb is not None else None
+
+        return cb2
+
     if sampler == "flow_euler":
         if sigmas is not None:
             ts = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
@@ -201,8 +227,8 @@ def run_sampler(
         return flow_euler_sample(
             model, x, context, steps=steps, shift=shift, guidance=guidance,
             cfg_scale=eff_cfg, uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
-            callback=masked_callback(
-                lambda i: (1.0 - ts[i + 1]) * init_latent + ts[i + 1] * noise),
+            callback=with_progress(masked_callback(
+                lambda i: (1.0 - ts[i + 1]) * init_latent + ts[i + 1] * noise), len(ts) - 1),
             ts=ts, cfg_rescale=cfg_rescale, **model_kwargs,
         )
 
@@ -233,7 +259,7 @@ def run_sampler(
         return ddim_sample(
             model, x, context, steps=steps, cfg_scale=eff_cfg,
             uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
-            callback=masked_callback(ddim_keep), ts=ts, alphas_cumprod=acp,
+            callback=with_progress(masked_callback(ddim_keep), len(ts)), ts=ts, alphas_cumprod=acp,
             prediction=prediction, cfg_rescale=cfg_rescale, **model_kwargs,
         )
 
@@ -301,6 +327,7 @@ def run_sampler(
             lambda i: (1.0 - sigmas[i + 1]) * init_latent + sigmas[i + 1] * noise)
     else:
         cb = masked_callback(lambda i: init_latent + noise * sigmas[i + 1])
+    cb = with_progress(cb, len(sigmas) - 1)
     if sampler in RNG_SAMPLERS:
         return step_fn(denoiser, x, sigmas, rng, callback=cb)
     return step_fn(denoiser, x, sigmas, callback=cb)

@@ -655,3 +655,86 @@ def test_capture_failure_raises_and_names_the_sampler(cuda_device, no_loops):
         run_sampler(reads_the_device, noise, None, sampler="euler", steps=2, compile_loop=True)
     assert torch.isfinite(run_sampler(reads_the_device, noise, None, sampler="euler",
                                       steps=2)).all()
+
+
+# The node graph on the card: the shipped txt2img graph on a tiny SD1.5 world
+# (f32, written in the public layouts by chip_smoke's writers) through the port's
+# host on cuda:0 against the same graph on the CPU, and an int8 model on the card.
+GRAPH_UNET = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                  transformer_depth=(1, 0), attention_levels=(0,), num_heads=4,
+                  norm_groups=8, context_dim=48, dtype=torch.float32)
+GRAPH_VAE = dict(z_channels=4, base_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                 norm_groups=8, dtype=torch.float32)
+GRAPH_CLIP = dict(hidden_size=48, num_layers=2, num_heads=4, max_len=16,
+                  dtype=torch.float32)
+
+
+def _tiny_graph(tmp_path, monkeypatch, device_id):
+    import json
+
+    from comfyui_parallelanything_tpu_torch import models
+
+    cfgs = (unet.UNetConfig(**GRAPH_UNET), vae.VAEConfig(**GRAPH_VAE),
+            text_encoders.CLIPTextConfig(**GRAPH_CLIP))
+    monkeypatch.setattr(models, "sd15_config", lambda: cfgs[0])
+    monkeypatch.setattr(models, "sd_vae_config", lambda: cfgs[1])
+    monkeypatch.setattr(text_encoders, "clip_l_config", lambda: cfgs[2])
+    gen = torch.Generator().manual_seed(0)
+    paths = chip_smoke.write_sd15_files(
+        str(tmp_path), unet.build_unet(cfgs[0], device="cpu", generator=gen),
+        vae.build_vae(cfgs[1], device="cpu", generator=gen),
+        text_encoders.build_clip_text(cfgs[2], device="cpu", generator=gen))
+    paths["vocab"], paths["merges"] = chip_smoke.write_clip_tables(str(tmp_path))
+    paths["esrgan"] = ""
+    wf = chip_smoke.graph_example("workflow_sd15_txt2img", paths)
+    wf["clip"]["inputs"]["max_len"] = GRAPH_CLIP["max_len"]
+    wf["dev0"]["inputs"]["device_id"] = device_id
+    wf["latent"]["inputs"].update(width=32, height=32, batch_size=2)
+    wf["sampler"]["inputs"]["steps"] = 2
+    return json.loads(json.dumps(wf))
+
+
+@pytest.fixture
+def no_tf32_convs():
+    # f32 convolutions in full f32 on the card, as on the host.
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def test_txt2img_graph_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeypatch,
+                                                   no_tf32_convs):
+    from comfyui_parallelanything_tpu_torch.host import run_workflow
+
+    fa.reset_launches()
+    got = run_workflow(_tiny_graph(tmp_path, monkeypatch, "cuda:0"))
+    torch.cuda.synchronize()
+    assert got["sampler"][0]["samples"].device.type == "cuda"
+    # Attention runs through K1: tf32x3 (f32) in the UNet's one transformer level and
+    # the VAE's mid-block, two forwards (CFG in one batch) and one decode.
+    assert fa.launches_by_variant["tf32x3"] > 0
+    want = run_workflow(_tiny_graph(tmp_path, monkeypatch, "cpu"), device="cpu")
+    for node in ("positive", "sampler"):
+        a = got[node][0]["context" if node == "positive" else "samples"].cpu()
+        b = want[node][0]["context" if node == "positive" else "samples"]
+        assert chip_smoke._rel_l2(a, b) < 1e-3, node
+    assert chip_smoke._rel_l2(got["decode"][0].cpu(), want["decode"][0]) < 1e-3
+
+
+def test_int8_unet_on_the_card_matches_the_cpu(cuda_device, no_tf32_convs):
+    from comfyui_parallelanything_tpu_torch.models.quantize import quantize_model
+
+    cfg = unet.UNetConfig(**GRAPH_UNET)
+    gen = torch.Generator().manual_seed(1)
+    host = quantize_model(unet.build_unet(cfg, device="cpu", generator=gen), min_size=256)
+    card = unet.build_unet(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    card = quantize_model(card, min_size=256)
+    card.module.to(cuda_device)
+    assert {p.dtype for p in card.module.parameters()} == {torch.int8, torch.float32}
+    assert all(p.device.type == "cuda" for p in card.module.parameters())
+    x = torch.randn(2, 8, 8, 4, generator=gen)
+    t = torch.tensor([900.0, 20.0])
+    ctx = torch.randn(2, 5, 48, generator=gen)
+    got = card(x.to(cuda_device), t.to(cuda_device), ctx.to(cuda_device)).cpu()
+    assert chip_smoke._rel_l2(got, host(x, t, ctx)) < 1e-4
