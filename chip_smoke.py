@@ -2521,8 +2521,10 @@ GRAPH_REL_TOL = 1e-3  # the graph's latent against a direct run_sampler (predict
 GRAPH_INT8_STEPS = 4
 GRAPH_INT8_REL_TOL = 0.2  # int8 weights against bf16's, 4 steps (PERF.md, before the run)
 GRAPH_INT8_BYTES = (0.45, 0.60)  # resident UNet weight bytes, int8 over bf16
-# SD1.5's K1 calls at 1024² (the hi-res pass, CFG's batch 2) and the VAE's at the
-# txt2img graph's batch 8: held against the plain version and timed in this phase.
+# SD1.5's K1 calls at the shapes the graphs give it and no earlier phase checks:
+# 1024² (the hi-res pass, CFG's batch 2), 512² at the txt2img graph's batch 8 with
+# CFG in one batch (16), and the VAE's at batch 8. Each is held against the plain
+# version and timed in this phase.
 GRAPH_K1_SHAPES = {
     "sd15_self_16384_d40": ((2, 16384, 8, 40), (2, 16384, 8, 40), 10, 1),
     "sd15_self_4096_d80": ((2, 4096, 8, 80), (2, 4096, 8, 80), 20, 2),
@@ -2530,6 +2532,12 @@ GRAPH_K1_SHAPES = {
     "sd15_cross_16384x77_d40": ((2, 16384, 8, 40), (2, 77, 8, 40), 20, 2),
     "sd15_cross_4096x77_d80": ((2, 4096, 8, 80), (2, 77, 8, 80), 50, 5),
     "sd15_cross_1024x77_d160": ((2, 1024, 8, 160), (2, 77, 8, 160), 50, 5),
+    "sd15_b16_self_4096_d40": ((16, 4096, 8, 40), (16, 4096, 8, 40), 10, 1),
+    "sd15_b16_self_1024_d80": ((16, 1024, 8, 80), (16, 1024, 8, 80), 20, 2),
+    "sd15_b16_self_256_d160": ((16, 256, 8, 160), (16, 256, 8, 160), 50, 5),
+    "sd15_b16_cross_4096x77_d40": ((16, 4096, 8, 40), (16, 77, 8, 40), 20, 2),
+    "sd15_b16_cross_1024x77_d80": ((16, 1024, 8, 80), (16, 77, 8, 80), 50, 5),
+    "sd15_b16_cross_256x77_d160": ((16, 256, 8, 160), (16, 77, 8, 160), 50, 5),
     "sd15_vae_512_b8_d512": ((8, 4096, 1, 512), (8, 4096, 1, 512), 10, 1),
 }
 
@@ -2657,10 +2665,6 @@ def run_graph(wf: dict, cache, fa) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
-def _rel_l2(got, want) -> float:
-    return ((got.float() - want.float()).norm() / want.float().norm()).item()
-
-
 def _graph_row(name: str, run: dict, steps: dict, want_launches: dict) -> dict:
     """The printed row of one graph run; raises when K1's launches are not exactly
     ``want_launches``."""
@@ -2744,7 +2748,7 @@ def phase_graph() -> dict:
         image = res["decode"][0]
         ref = direct(pm, steps)
         row.update(latent_shape=list(out.shape), image_shape=list(image.shape),
-                   latent_vs_direct_rel_l2=_rel_l2(out, ref),
+                   latent_vs_direct_rel_l2=rel_l2(out, ref),
                    latent_bitwise=bool(torch.equal(out, ref)),
                    finite=bool(torch.isfinite(image).all().item()), world_s=world_s)
         del ref
@@ -2790,7 +2794,7 @@ def phase_graph() -> dict:
         row.update(unet_bytes=param_bytes(qm._module), bf16_unet_bytes=bf16_bytes,
                    int8_bytes_ratio=param_bytes(qm._module) / bf16_bytes,
                    int8_dtypes=sorted({str(p.dtype) for p in qm._module.parameters()}),
-                   latent_vs_bf16_rel_l2=_rel_l2(out, ref_int8),
+                   latent_vs_bf16_rel_l2=rel_l2(out, ref_int8),
                    finite=bool(torch.isfinite(res["decode"][0]).all().item()),
                    seconds=time.perf_counter() - start)
         emit(row)

@@ -343,7 +343,9 @@ def run_workflow(workflow: Any, class_mappings: dict[str, type] | None = None,
 
     def compute_signatures() -> dict[str, str]:
         """Per-node content signature over (class_type, literal inputs, upstream
-        signatures), over the whole graph; raises on cycles."""
+        signatures, and the host's device where the node takes the hidden
+        ``DEVICE``: it decides where the node places its outputs), over the whole
+        graph; raises on cycles."""
         sigs: dict[str, str] = {}
 
         def visit(nid, spec, cls, links, hidden):
@@ -354,7 +356,9 @@ def run_workflow(workflow: Any, class_mappings: dict[str, type] | None = None,
                     canon[name] = ["__link__", sigs[dep], idx]
                 else:
                     canon[name] = v
-            blob = json.dumps([spec.get("class_type"), canon], sort_keys=True, default=repr)
+            placed = device if "DEVICE" in hidden.values() else None
+            blob = json.dumps([spec.get("class_type"), canon, placed], sort_keys=True,
+                              default=repr)
             sigs[nid] = hashlib.sha1(blob.encode()).hexdigest()
 
         for root in graph:

@@ -125,6 +125,8 @@ class DoubleBlock(nn.Module):
         for s in ("img", "txt"):
             setattr(self, f"{s}_mod", Modulation(cfg, 2))
             setattr(self, f"{s}_attn_qkv", nn.Linear(hidden, 3 * hidden, dtype=dt))
+            # int8 scales shared over q/k/v and heads, as the reference's
+            getattr(self, f"{s}_attn_qkv").int8_row_groups = 3 * cfg.num_heads
             setattr(self, f"{s}_attn_norm", QKNorm(cfg.head_dim))
             setattr(self, f"{s}_attn_proj", nn.Linear(hidden, hidden, dtype=dt))
             setattr(self, f"{s}_mlp_in", nn.Linear(hidden, mlp_dim, dtype=dt))

@@ -123,6 +123,7 @@ class _StreamAttnIn(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, dtype=cfg.dtype)
+        self.qkv.int8_row_groups = 3 * cfg.num_heads  # int8 scales shared over q/k/v heads
         if cfg.qk_norm:
             self.ln_q = nn.Parameter(torch.ones(cfg.head_dim))
             self.ln_k = nn.Parameter(torch.ones(cfg.head_dim))

@@ -7,7 +7,12 @@ Symmetric per-output-channel int8: ``w ≈ q · scale`` with
 least ``min_size`` (2**16) elements quantize; norms, biases and small tables keep
 their dtype. A torch ``Linear``/``Conv`` weight holds its output channel on axis
 0 (flax's kernels hold it last), so the port reduces over every axis but 0, and a
-weight converted from the JAX package gets the JAX scales exactly.
+weight converted from the JAX package gets the JAX scales exactly. The one layout
+that differs: the reference's attention projections are ``DenseGeneral`` kernels
+whose output axes are (H, D) or (3, H, D), and its last-axis rule gives one scale
+per head-dim index, shared by every head (and by q, k and v). The port's model
+marks such a ``Linear`` with ``int8_row_groups`` (H or 3·H, the blocks its rows
+fall into), and its rows share one scale per index within a block.
 
 Each quantized weight becomes a parametrization (``torch.nn.utils.parametrize``):
 the module holds the int8 payload (``parametrizations.<name>.original``) and its
@@ -33,13 +38,17 @@ class Dequantize(nn.Module):
     """The parametrization of one quantized weight: int8 ``q`` → ``q · scale`` in
     ``dtype`` (the weight's dtype before quantization)."""
 
-    def __init__(self, scale: torch.Tensor, dtype: torch.dtype):
+    def __init__(self, scale: torch.Tensor, dtype: torch.dtype, groups: int = 1):
         super().__init__()
         self.register_buffer("scale", scale)
         self.dtype = dtype
+        self.groups = groups
 
     def forward(self, q: torch.Tensor) -> torch.Tensor:
-        return (q.to(torch.float32) * self.scale).to(self.dtype)
+        if self.groups == 1:
+            return (q.to(torch.float32) * self.scale).to(self.dtype)
+        w = q.to(torch.float32).unflatten(0, (self.groups, -1)) * self.scale
+        return w.flatten(0, 1).to(self.dtype)
 
 
 def int8_eligible(shape, min_size: int = INT8_MIN_SIZE) -> bool:
@@ -50,15 +59,20 @@ def int8_eligible(shape, min_size: int = INT8_MIN_SIZE) -> bool:
     return len(shape) >= 2 and size >= min_size
 
 
-def quantize_tensor(w: torch.Tensor, channel_axis: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(q, scale)`` of one weight: int8 ``q`` of ``w``'s shape, f32 ``scale`` of the
-    same rank with size 1 on every axis but ``channel_axis``."""
+def quantize_tensor(w: torch.Tensor, groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(q, scale)`` of one weight: int8 ``q`` of ``w``'s shape and f32 ``scale``, one
+    per output channel (axis 0). With ``groups`` > 1 the rows are ``groups`` blocks
+    of the same channels, and ``scale`` is that of ``w`` viewed as
+    ``(groups, rows // groups, ...)``: size 1 on every axis but the second."""
     wf = w.detach().to(torch.float32)
+    if groups > 1:
+        wf = wf.unflatten(0, (groups, -1))
+    channel_axis = 1 if groups > 1 else 0
     reduce = tuple(i for i in range(wf.ndim) if i != channel_axis)
     absmax = wf.abs().amax(dim=reduce, keepdim=True)
     scale = torch.clamp(absmax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    return q.reshape(w.shape), scale
 
 
 def quantize_module(module: nn.Module, min_size: int = INT8_MIN_SIZE) -> nn.Module:
@@ -72,10 +86,11 @@ def quantize_module(module: nn.Module, min_size: int = INT8_MIN_SIZE) -> nn.Modu
             if p.is_floating_point() and int8_eligible(p.shape, min_size):
                 targets.append((mod, name, p))
     for mod, name, p in targets:
-        q, scale = quantize_tensor(p)
+        groups = getattr(mod, "int8_row_groups", 1) if name == "weight" else 1
+        q, scale = quantize_tensor(p, groups)
         delattr(mod, name)
         mod.register_parameter(name, nn.Parameter(q, requires_grad=False))
-        parametrize.register_parametrization(mod, name, Dequantize(scale, p.dtype),
+        parametrize.register_parametrization(mod, name, Dequantize(scale, p.dtype, groups),
                                              unsafe=True)
     return module
 

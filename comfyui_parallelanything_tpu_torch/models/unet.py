@@ -216,6 +216,8 @@ class TransformerBlock(nn.Module):
             setattr(self, f"{n}_q", nn.Linear(channels, inner, bias=False, dtype=dt))
             setattr(self, f"{n}_k", nn.Linear(kv_in, inner, bias=False, dtype=dt))
             setattr(self, f"{n}_v", nn.Linear(kv_in, inner, bias=False, dtype=dt))
+            for p in "qkv":  # int8 scales shared across heads, as the reference's
+                getattr(self, f"{n}_{p}").int8_row_groups = self.heads
             setattr(self, f"{n}_o", nn.Linear(inner, channels, dtype=dt))
         self.LayerNorm_0 = LayerNorm(channels, out_dtype=dt)
         self.LayerNorm_1 = LayerNorm(channels, out_dtype=dt)

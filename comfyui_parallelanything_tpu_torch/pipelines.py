@@ -22,6 +22,7 @@ import torch
 from .models.text_encoders import sd3_text_conditioning, sdxl_text_conditioning
 from .models.vae import images_to_vae_input, vae_output_to_images
 from .ops.resize import resize
+from .parallel.orchestrator import model_config_of
 from .sampling.runner import run_sampler
 
 
@@ -101,13 +102,6 @@ def _start_latents(vae, batch: int, height: int, width: int, rng, init_image, de
     init_latent = _encode_init(vae, init_image, denoise, batch, (height, width),
                                allow_full_denoise=mask is not None)
     return noise, latent_mask, init_latent
-
-
-def _model_config_of(model) -> Any:
-    """The wrapped model's own config, whether ``model`` is bare or a
-    ``ParallelModel`` (whose ``config`` is the ParallelConfig)."""
-    cfg = getattr(model, "model_config", None)
-    return cfg if cfg is not None else getattr(model, "config", None)
 
 
 @dataclasses.dataclass
@@ -195,7 +189,7 @@ class StableDiffusionPipeline:
         latents = run_sampler(
             self.unet, noise, context, init_latent=init_latent, denoise=denoise,
             latent_mask=latent_mask,
-            prediction=getattr(_model_config_of(self.unet), "prediction", "eps"),
+            prediction=getattr(model_config_of(self.unet), "prediction", "eps"),
             sampler=sampler, steps=steps, cfg_scale=cfg_scale if use_cfg else 1.0,
             uncond_context=uncond_context, uncond_kwargs=uncond_kwargs, rng=rng,
             karras=karras, scheduler=scheduler, callback=callback,
@@ -250,7 +244,7 @@ class FluxPipeline:
         denoise."""
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         f = self.vae.spatial_factor
-        patch = getattr(_model_config_of(self.dit), "patch_size", 2)
+        patch = getattr(model_config_of(self.dit), "patch_size", 2)
         unit = f * patch  # VAE factor × DiT patchify
         if height % unit or width % unit:
             raise ValueError(f"height/width must be multiples of {unit}")
@@ -305,7 +299,7 @@ class Sd3Pipeline:
                                  "tokenizer's ids are meaningless to the T5 vocab")
             t5_ids, t5_mask = self.t5_tokenizer(prompts)
             t5_ctx = self.t5(t5_ids, mask=t5_mask)
-        ctx_dim = getattr(_model_config_of(self.dit), "context_in_dim", 4096)
+        ctx_dim = getattr(model_config_of(self.dit), "context_in_dim", 4096)
         return sd3_text_conditioning(pen_l, pen_g, pooled_l, pooled_g, t5_ctx,
                                      context_dim=ctx_dim)
 
@@ -333,7 +327,7 @@ class Sd3Pipeline:
         when None). img2img and inpainting as ``FluxPipeline``."""
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         f = self.vae.spatial_factor
-        patch = getattr(_model_config_of(self.dit), "patch_size", 2)
+        patch = getattr(model_config_of(self.dit), "patch_size", 2)
         unit = f * patch
         if height % unit or width % unit:
             raise ValueError(f"height/width must be multiples of {unit}")

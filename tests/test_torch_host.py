@@ -432,6 +432,49 @@ def test_hidden_device_input_defaults_to_the_card():
     assert phost.run_workflow(wf, {"Probe": _DeviceProbe}, device="cpu")["d"] == ("cpu",)
 
 
+def test_cache_keys_each_placed_output_by_its_device():
+    # One cache across two devices: a node taking the hidden DEVICE, and every node
+    # downstream of it, runs again on the other device; a node that does not take it
+    # stays banked.
+    calls = []
+
+    class Lit:
+        RETURN_TYPES = ("X",)
+        FUNCTION = "go"
+
+        def go(self):
+            calls.append("lit")
+            return ("lit",)
+
+    class Placed(_DeviceProbe):
+        def go(self, device=None):
+            calls.append(device)
+            return (device,)
+
+    class Use:
+        RETURN_TYPES = ("X",)
+        FUNCTION = "go"
+
+        @classmethod
+        def INPUT_TYPES(cls):
+            return {"required": {"x": ("X", {})}}
+
+        def go(self, x):
+            calls.append(f"use {x}")
+            return (f"used on {x}",)
+
+    classes = {"Lit": Lit, "Placed": Placed, "Use": Use}
+    wf = {"l": {"class_type": "Lit", "inputs": {}},
+          "p": {"class_type": "Placed", "inputs": {}},
+          "u": {"class_type": "Use", "inputs": {"x": ["p", 0]}}}
+    cache = phost.WorkflowCache()
+    assert phost.run_workflow(wf, classes, outputs=cache, device="cpu")["u"] == ("used on cpu",)
+    assert phost.run_workflow(wf, classes, outputs=cache, device="cpu:1")["u"] == (
+        "used on cpu:1",)
+    assert phost.run_workflow(wf, classes, outputs=cache, device="cpu:1")["p"] == ("cpu:1",)
+    assert calls == ["lit", "cpu", "use cpu", "cpu:1", "use cpu:1"]
+
+
 @pytest.mark.parametrize("device_id", ["tpu:0", "cuda:banana", "gpu", "cpu:8"])
 def test_a_device_the_port_does_not_have_raises(device_id):
     # The JAX node passes it on and parallelize drops it; the port's node refuses it.
