@@ -134,7 +134,7 @@ the error.
    width, on files written to a temp directory from seeded generators (SD1.5 with its
    bundled VAE in the ldm layout, CLIP-L in the HF layout, each held by a round trip
    through the port's converters; CLIP tables over the synthetic vocab; an ESRGAN x4
-   in RealESRGAN_x4plus's layout), with this script's own safetensors writer. First
+   in RealESRGAN_x4plus's layout), with the port's safetensors writer. First
    K1 at the new shapes the graphs give it (SD1.5 at 1024², the VAE at batch 8),
    checked and timed. Then ``workflow_sd15_txt2img`` (512², batch 8, 28 dpmpp_2m
    steps, CFG 7.5), ``workflow_sd15_hiresfix`` (20 steps at 512², 2× latent
@@ -144,6 +144,20 @@ the error.
    peak memory and exactly 20 ``sm90`` + 10 ``wide`` per UNet forward plus one
    ``wide`` per decode; the txt2img latent against a direct ``run_sampler``, the int8
    run's weight bytes and latent against bf16's.
+14. graph_stock — the stock-name shims (``nodes_compat.py``) on the same files, the
+   checkpoint rewritten with its CLIP-L bundled as
+   ``$PA_MODELS_DIR/checkpoints/v1-5-pruned-emaonly.safetensors`` and the tokenizer
+   tables given through ``PA_CLIP_VOCAB`` + ``PA_CLIP_MERGES``:
+   ``workflow_stock_sd15_txt2img`` as shipped but its ``SaveImage`` (1024², batch 4,
+   20 dpmpp_2m/karras steps, CFG 7, ``FreeU_V2``): exactly 400 ``sm90`` + 201 ``wide``,
+   the latent against a direct ``run_sampler`` with the graph's FreeU model, the
+   device memory the ``FreeU_V2`` node adds under 1 % of the UNet's bytes; then
+   ``workflow_sd15_inpaint_outpaint`` (the ``graph`` phase's rewrite, its ``source``
+   pre-seeded with a seeded 512² image, no save): a finite (1, 512, 640, 3) paste equal
+   to the padded source wherever the pad mask is 0, exactly 400 ``sm90`` + 202
+   ``wide`` (the VAE encode's and decode's mid-block calls). Their new K1 shapes are
+   in ``GRAPH_K1_SHAPES``, checked one batch element at a time where the plain
+   version's logits would not fit.
 ``hybrid`` also prints ``hybrid_rows``: the GPU group's rows of one CFG forward
 against the same rows of the 8-row forward on the card alone.
 Then the script's wall time, the ``kernels`` line, and last
@@ -422,22 +436,25 @@ def peak_flops(variant: str) -> float:
     return H100_BF16_FLOPS
 
 
-def time_variant(fa, variant, q, k, v, iters, plain_iters) -> dict:
-    """One timing row: K1's ``variant`` forced on q/k/v, its plain version,
-    ``F.scaled_dot_product_attention`` on the same inputs (and the backend it
+def time_variant(fa, variant, q, k, v, iters, plain_iters, plain_batch=None) -> dict:
+    """One timing row: K1's ``variant`` forced on q/k/v, its plain version (on the
+    first ``plain_batch`` batch elements when given: ``plain_batch`` is then in the
+    row), ``F.scaled_dot_product_attention`` on the same inputs (and the backend it
     took), and the card's bound for the call."""
     import torch.nn.functional as F
 
     scale = q.shape[-1] ** -0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pq, pk, pv = (t[:plain_batch] for t in (q, k, v)) if plain_batch else (q, k, v)
     bound_ms, bound_by = attention_bound_ms(tuple(q.shape), tuple(k.shape), q.element_size(),
                                             peak_flops(variant))
     return {
         "variant": variant, "shape": list(q.shape), "k_shape": list(k.shape),
         "dtype": str(q.dtype).removeprefix("torch."),
         "ms": time_ms(lambda: fa._launch(q, k, v, scale, variant), iters=iters),
-        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=plain_iters,
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(pq, pk, pv), iters=plain_iters,
                             warmup=1),
+        **({"plain_batch": plain_batch} if plain_batch else {}),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters),
         "library_backend": sdpa_backend(qt, kt, vt),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2317,39 +2334,10 @@ def phase_checkpoint() -> dict:
 
 # ---------------------------------------------------------------------------
 # The graph phase's synthetic files: the port's modules written out in the public
-# layouts its loaders read (inverses of its converters), with this script's own
-# safetensors writer. Also used by the CPU graph tests.
+# layouts its loaders read (inverses of its converters), written with the port's
+# safetensors writer (``models.loader.save_safetensors``). Also used by the CPU
+# graph tests.
 # ---------------------------------------------------------------------------
-
-SAFETENSORS_DTYPE_NAMES = {"float64": "F64", "float32": "F32", "float16": "F16",
-                           "bfloat16": "BF16", "int64": "I64", "int32": "I32",
-                           "int8": "I8", "uint8": "U8"}
-
-
-def write_safetensors(path, tensors: dict) -> None:
-    """A .safetensors file: the 8-byte little-endian header length, the JSON header
-    (dtype, shape and byte range of each tensor, in key order), then each tensor's
-    raw bytes (no ``safetensors`` package needed)."""
-    import struct
-
-    import torch
-
-    header, blobs, offset = {}, [], 0
-    for key in sorted(tensors):
-        t = tensors[key].detach().contiguous().cpu()
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
-        header[key] = {"dtype": SAFETENSORS_DTYPE_NAMES[str(t.dtype).removeprefix("torch.")],
-                       "shape": list(t.shape), "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
-    head = json.dumps(header, separators=(",", ":")).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)))
-        f.write(head)
-        for raw in blobs:
-            f.write(raw)
-
 
 class _KeyProbe(dict):
     """A state dict that holds every key: each read returns a one-element tensor
@@ -2477,6 +2465,7 @@ def write_sd15_files(directory, unet, vae, clip, dtype=None) -> dict:
     from comfyui_parallelanything_tpu_torch.models.convert_text import (
         convert_clip_text_checkpoint,
     )
+    from comfyui_parallelanything_tpu_torch.models.loader import save_safetensors
     from comfyui_parallelanything_tpu_torch.models.convert_unet import (
         convert_sd_unet_checkpoint,
         strip_prefix,
@@ -2501,19 +2490,20 @@ def write_sd15_files(directory, unet, vae, clip, dtype=None) -> dict:
                      clip_state, "clip")
     paths = {"ckpt": os.path.join(directory, "sd15.safetensors"),
              "clip": os.path.join(directory, "clip_l.safetensors")}
-    write_safetensors(paths["ckpt"], ckpt)
-    write_safetensors(paths["clip"], clip_sd)
+    save_safetensors(paths["ckpt"], ckpt)
+    save_safetensors(paths["clip"], clip_sd)
     return paths
 
 
 def write_upscaler_file(path, upscaler) -> None:
     """An ESRGAN model in the modern RRDBNet layout (the port's own names), held by a
     round trip through ``convert_upscale_checkpoint``."""
+    from comfyui_parallelanything_tpu_torch.models.loader import save_safetensors
     from comfyui_parallelanything_tpu_torch.models.upscale import convert_upscale_checkpoint
 
     state = upscaler.module.state_dict()
     check_round_trip(state, lambda sd: convert_upscale_checkpoint(sd)[0], state, "esrgan")
-    write_safetensors(path, state)
+    save_safetensors(path, state)
 
 
 GRAPH_CHAIN_PCT = 100.0
@@ -2539,7 +2529,44 @@ GRAPH_K1_SHAPES = {
     "sd15_b16_cross_1024x77_d80": ((16, 1024, 8, 80), (16, 77, 8, 80), 50, 5),
     "sd15_b16_cross_256x77_d160": ((16, 256, 8, 160), (16, 77, 8, 160), 50, 5),
     "sd15_vae_512_b8_d512": ((8, 4096, 1, 512), (8, 4096, 1, 512), 10, 1),
+    # The stock txt2img graph: 1024², batch 4 with CFG in one batch (8), the decode
+    # at batch 4.
+    "sd15_b8_self_16384_d40": ((8, 16384, 8, 40), (8, 16384, 8, 40), 5, 1),
+    "sd15_b8_self_4096_d80": ((8, 4096, 8, 80), (8, 4096, 8, 80), 10, 1),
+    "sd15_b8_self_1024_d160": ((8, 1024, 8, 160), (8, 1024, 8, 160), 20, 2),
+    "sd15_b8_cross_16384x77_d40": ((8, 16384, 8, 40), (8, 77, 8, 40), 10, 1),
+    "sd15_b8_cross_4096x77_d80": ((8, 4096, 8, 80), (8, 77, 8, 80), 20, 2),
+    "sd15_b8_cross_1024x77_d160": ((8, 1024, 8, 160), (8, 77, 8, 160), 50, 5),
+    "sd15_vae_1024_b4_d512": ((4, 16384, 1, 512), (4, 16384, 1, 512), 5, 1),
+    # The outpaint graph: a 512×640 canvas (a 64×80 latent), batch 1 with CFG (2),
+    # the VAE encode and decode at batch 1. 320 queries of D = 160 leave a ragged
+    # tail.
+    "sd15_op_self_5120_d40": ((2, 5120, 8, 40), (2, 5120, 8, 40), 20, 2),
+    "sd15_op_self_1280_d80": ((2, 1280, 8, 80), (2, 1280, 8, 80), 50, 5),
+    "sd15_op_self_320_d160": ((2, 320, 8, 160), (2, 320, 8, 160), 50, 5),
+    "sd15_op_cross_5120x77_d40": ((2, 5120, 8, 40), (2, 77, 8, 40), 50, 5),
+    "sd15_op_cross_1280x77_d80": ((2, 1280, 8, 80), (2, 77, 8, 80), 50, 5),
+    "sd15_op_cross_320x77_d160": ((2, 320, 8, 160), (2, 77, 8, 160), 50, 5),
+    "sd15_vae_op_b1_d512": ((1, 5120, 1, 512), (1, 5120, 1, 512), 20, 2),
 }
+# Above this many bytes of f32 logits the plain version runs one batch element at a
+# time (attention is independent per element): in the check, and in its timing.
+PLAIN_FULL_BATCH_BYTES = 20e9
+
+
+def plain_logit_bytes(qshape, kshape) -> float:
+    b, sq, h, _ = qshape
+    return 4.0 * b * h * sq * kshape[1]
+
+
+def kernel_error_by_element(got, q, k, v) -> dict:
+    """``kernel_error`` one batch element at a time: the largest max abs and
+    relative L2 error over the elements, ok when every element is."""
+    rows = [kernel_error(got[i:i + 1], q[i:i + 1], k[i:i + 1], v[i:i + 1])
+            for i in range(q.shape[0])]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "rel_l2_err": max(r["rel_l2_err"] for r in rows),
+            "ok": all(r["ok"] for r in rows), "checked_by_batch_element": True}
 
 
 def graph_k1_shapes(fa) -> dict:
@@ -2554,11 +2581,14 @@ def graph_k1_shapes(fa) -> dict:
     for name, (qshape, kshape, iters, plain_iters) in GRAPH_K1_SHAPES.items():
         q, k, v = make_case(qshape, kshape, "bfloat16", "contiguous", gen, dev)
         variant = fa.kernel_variant(q, k, v)
-        res = kernel_error(fa.flash_attention(q, k, v), q, k, v)
+        sliced = plain_logit_bytes(qshape, kshape) > PLAIN_FULL_BATCH_BYTES
+        check = kernel_error_by_element if sliced else kernel_error
+        res = check(fa.flash_attention(q, k, v), q, k, v)
         if not res["ok"]:
             raise RuntimeError(f"flash_attention disagrees with its plain version at {name}: "
                                f"{res}")
-        row = time_variant(fa, variant, q, k, v, iters, plain_iters)
+        row = time_variant(fa, variant, q, k, v, iters, plain_iters,
+                           plain_batch=1 if sliced else None)
         row["loop_ms"] = loop_ms(lambda: fa._launch(q, k, v, q.shape[-1] ** -0.5, variant),
                                  iters)
         rows[name] = {**row, **res}
@@ -2627,24 +2657,27 @@ def graph_example(name: str, paths: dict) -> dict:
 
 def run_graph(wf: dict, cache, fa) -> dict:
     """One ``host.run_workflow`` on ``cuda:0``: each node's seconds (a synchronise
-    before every clock read), the nodes served from ``cache``, the UNet's forwards
-    (a global forward hook on ``UNet2D``), K1's launches (the counts set to 0 just
-    before the run and read just after) and the peak device memory."""
+    before every clock read) and the device memory each node added (allocated bytes at
+    the next node's start less at its own), the nodes served from ``cache`` (a
+    ``WorkflowCache``, or a dict of pre-seeded outputs), the UNet's forwards (a global
+    forward hook on ``UNet2D``), K1's launches (the counts set to 0 just before the
+    run and read just after) and the peak device memory."""
     import torch
 
     from comfyui_parallelanything_tpu_torch.host import run_workflow
     from comfyui_parallelanything_tpu_torch.models.unet import UNet2D
 
     dev = torch.device("cuda", 0)
-    seconds, cached, forwards = {}, [], [0]
-    clock = {"node": None, "t": 0.0}
+    seconds, added, cached, forwards = {}, {}, [], [0]
+    clock = {"node": None, "t": 0.0, "bytes": 0}
 
     def on_node(nid):
         torch.cuda.synchronize()
-        now = time.perf_counter()
+        now, allocated = time.perf_counter(), torch.cuda.memory_allocated(dev)
         if clock["node"] is not None:
             seconds[clock["node"]] = now - clock["t"]
-        clock.update(node=nid, t=now)
+            added[clock["node"]] = allocated - clock["bytes"]
+        clock.update(node=nid, t=now, bytes=allocated)
 
     def count(module, args, out):
         if isinstance(module, UNet2D):
@@ -2658,9 +2691,11 @@ def run_graph(wf: dict, cache, fa) -> dict:
         results = run_workflow(wf, outputs=cache, on_node=on_node, on_cached=cached.extend)
         torch.cuda.synchronize()
         seconds[clock["node"]] = time.perf_counter() - clock["t"]
+        added[clock["node"]] = torch.cuda.memory_allocated(dev) - clock["bytes"]
     finally:
         hook.remove()
-    return {"results": results, "node_seconds": seconds, "cached": cached,
+    return {"results": results, "node_seconds": seconds, "node_added_bytes": added,
+            "cached": cached,
             "unet_forwards": forwards[0], "launches": _launched(fa),
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
@@ -2679,13 +2714,13 @@ def _graph_row(name: str, run: dict, steps: dict, want_launches: dict) -> dict:
     return row
 
 
-def phase_graph() -> dict:
+def phase_graph(tmp) -> tuple[dict, dict]:
     """The port's graph host on the card at full width (``host.run_workflow`` on
     ``cuda:0``): ``workflow_sd15_txt2img`` (512², batch 8, 28 dpmpp_2m/karras steps,
     CFG 7.5), ``workflow_sd15_hiresfix`` (20 steps at 512², a 2× latent upscale, 14
     steps at 1024² with denoise 0.55, the decode at 1024², ESRGAN ×4 in 256 tiles)
     and the txt2img graph with ``quantize="int8"`` at ``GRAPH_INT8_STEPS`` steps, on
-    ``graph_world``'s files (written to a temp directory). Each run prints its
+    ``graph_world``'s files (written to the directory ``tmp``). Each run prints its
     seconds per node, the samplers' s/it, peak memory and K1's launches, which must
     be exactly 20 ``sm90`` + 10 ``wide`` per UNet forward plus one ``wide`` per
     decode (``decode_maybe_tiled`` with tile 0 decodes whole: one mid-block
@@ -2694,9 +2729,7 @@ def phase_graph() -> dict:
     run's UNet bytes against bf16's (``GRAPH_INT8_BYTES``) and its latent against a
     direct bf16 run of the same steps (``GRAPH_INT8_REL_TOL``); the ESRGAN image must
     be 4× the decode. Before the graphs, K1 at the new shapes they give it
-    (``GRAPH_K1_SHAPES``). Returns K1's launches by run."""
-    import tempfile
-
+    (``GRAPH_K1_SHAPES``). Returns K1's launches by run and the files' paths."""
     import torch
 
     from comfyui_parallelanything_tpu_torch import nodes
@@ -2712,103 +2745,249 @@ def phase_graph() -> dict:
     dev = torch.device("cuda", 0)
     per_forward = SD15_PER_FORWARD
     launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        paths = graph_world(tmp)
-        world_s = time.perf_counter() - t0
-        cache = WorkflowCache()
+    t0 = time.perf_counter()
+    paths = graph_world(tmp)
+    world_s = time.perf_counter() - t0
+    cache = WorkflowCache()
 
-        wf = graph_example("workflow_sd15_txt2img", paths)
-        steps = wf["sampler"]["inputs"]["steps"]
-        run = run_graph(wf, cache, fa)
+    wf = graph_example("workflow_sd15_txt2img", paths)
+    steps = wf["sampler"]["inputs"]["steps"]
+    run = run_graph(wf, cache, fa)
+    res = run["results"]
+    want = {v: n * steps for v, n in per_forward.items()}
+    want["wide"] += 1  # the decode
+    row = _graph_row("graph_txt2img", run, {"sampler": steps}, want)
+    launches["graph_txt2img"] = run["launches"]
+    # The same sampling through run_sampler directly, from the graph's own model,
+    # conditioning and seed.
+    inp = wf["sampler"]["inputs"]
+    latent = res["latent"][0]["samples"]
+    batch = latent.shape[0]
+    pm = res["parallel"][0]
+    pos, neg = res["positive"][0], res["negative"][0]
+
+    def direct(model, n):
+        noise = nodes.initial_noise(inp["seed"], latent.shape, dev)
+        return run_sampler(
+            model, noise, broadcast_cond_batch(pos["context"], batch),
+            sampler=inp["sampler_name"], steps=n, cfg_scale=inp["cfg"],
+            uncond_context=broadcast_cond_batch(neg["context"], batch),
+            uncond_kwargs={"y": broadcast_cond_batch(neg["pooled"], batch)},
+            rng=nodes.seed_generator(inp["seed"], dev), scheduler=inp["scheduler"],
+            y=broadcast_cond_batch(pos["pooled"], batch))
+
+    out = res["sampler"][0]["samples"]
+    image = res["decode"][0]
+    ref = direct(pm, steps)
+    row.update(latent_shape=list(out.shape), image_shape=list(image.shape),
+               latent_vs_direct_rel_l2=rel_l2(out, ref),
+               latent_bitwise=bool(torch.equal(out, ref)),
+               finite=bool(torch.isfinite(image).all().item()), world_s=world_s)
+    del ref
+    emit(row)
+    if row["latent_vs_direct_rel_l2"] > GRAPH_REL_TOL or not row["finite"]:
+        raise RuntimeError(f"graph_txt2img: {row}")
+    ref_int8 = direct(pm, GRAPH_INT8_STEPS)
+    bf16_bytes = param_bytes(pm._module)
+    del pm, res, pos, neg, out, image
+
+    wf = graph_example("workflow_sd15_hiresfix", paths)
+    s1, s2 = wf["sampler"]["inputs"]["steps"], wf["hires_pass"]["inputs"]["steps"]
+    run = run_graph(wf, cache, fa)
+    res = run["results"]
+    want = {v: n * (s1 + s2) for v, n in per_forward.items()}
+    want["wide"] += 1
+    row = _graph_row("graph_hiresfix", run, {"sampler": s1, "hires_pass": s2}, want)
+    launches["graph_hiresfix"] = run["launches"]
+    image, final = res["decode"][0], res["final_upscale"][0]
+    row.update(hires_latent_shape=list(res["hires_pass"][0]["samples"].shape),
+               image_shape=list(image.shape), final_shape=list(final.shape),
+               finite=bool(torch.isfinite(final).all().item()))
+    emit(row)
+    side = 2 * wf["latent"]["inputs"]["width"]  # the 2× latent upscale, decoded
+    if (tuple(final.shape) != (1, 4 * side, 4 * side, 3)
+            or tuple(image.shape) != (1, side, side, 3) or not row["finite"]):
+        raise RuntimeError(f"graph_hiresfix: {row}")
+    # Nothing of the bf16 graphs may outlive their cache entries into the int8
+    # run's peak: the int8 checkpoint node evicts them.
+    del run, res, image, final
+
+    wf = graph_example("workflow_sd15_txt2img", paths)
+    wf["checkpoint"]["inputs"]["quantize"] = "int8"
+    wf["sampler"]["inputs"]["steps"] = GRAPH_INT8_STEPS
+    run = run_graph(wf, cache, fa)
+    res = run["results"]
+    want = {v: n * GRAPH_INT8_STEPS for v, n in per_forward.items()}
+    want["wide"] += 1
+    row = _graph_row("graph_int8", run, {"sampler": GRAPH_INT8_STEPS}, want)
+    launches["graph_int8"] = run["launches"]
+    qm = res["parallel"][0]
+    out = res["sampler"][0]["samples"]
+    row.update(unet_bytes=param_bytes(qm._module), bf16_unet_bytes=bf16_bytes,
+               int8_bytes_ratio=param_bytes(qm._module) / bf16_bytes,
+               int8_dtypes=sorted({str(p.dtype) for p in qm._module.parameters()}),
+               latent_vs_bf16_rel_l2=rel_l2(out, ref_int8),
+               finite=bool(torch.isfinite(res["decode"][0]).all().item()),
+               seconds=time.perf_counter() - start)
+    emit(row)
+    lo, hi = GRAPH_INT8_BYTES
+    if (not lo <= row["int8_bytes_ratio"] <= hi
+            or row["latent_vs_bf16_rel_l2"] > GRAPH_INT8_REL_TOL or not row["finite"]):
+        raise RuntimeError(f"graph_int8: {row}")
+    for value in list(cache.results):
+        cache.evict(value)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, paths
+
+STOCK_CKPT = "v1-5-pruned-emaonly.safetensors"  # workflow_stock_sd15_txt2img's ckpt_name
+FREEU_GROWTH_LIMIT = 0.01  # FreeU_V2's added device bytes over the UNet's
+OUTPAINT_SOURCE = (1, 512, 512, 3)
+
+
+def stock_models_dir(paths: dict, directory) -> str:
+    """``$PA_MODELS_DIR`` for the stock loaders under ``directory``: the graph
+    world's checkpoint with its CLIP-L bundled as ``cond_stage_model.transformer.*``
+    (an SD1.5 single file's layout) at ``checkpoints/<STOCK_CKPT>``."""
+    import os
+
+    from comfyui_parallelanything_tpu_torch.models.loader import (
+        load_safetensors,
+        save_safetensors,
+    )
+
+    root = os.path.join(directory, "models")
+    os.makedirs(os.path.join(root, "checkpoints"), exist_ok=True)
+    sd = load_safetensors(paths["ckpt"])
+    sd.update({f"cond_stage_model.transformer.{k}": v
+               for k, v in load_safetensors(paths["clip"]).items()})
+    save_safetensors(os.path.join(root, "checkpoints", STOCK_CKPT), sd)
+    return root
+
+
+def phase_graph_stock(paths: dict, directory) -> dict:
+    """The stock-name shims on the card at full width (``host.run_workflow`` on
+    ``cuda:0``, ``graph_world``'s files). ``workflow_stock_sd15_txt2img`` as shipped
+    but its ``SaveImage``: ``CheckpointLoaderSimple`` on ``STOCK_CKPT`` under
+    ``$PA_MODELS_DIR`` (the family sniffed, the bundled CLIP-L with the tables from
+    ``PA_CLIP_VOCAB`` + ``PA_CLIP_MERGES``), ``FreeU_V2``, 20 dpmpp_2m/karras steps
+    at 1024² and batch 4, CFG 7, the whole decode: exactly 20 ``sm90`` + 10 ``wide``
+    per forward plus the decode's ``wide``; the latent against a direct
+    ``run_sampler`` with the graph's FreeU model, conditioning and seed
+    (``GRAPH_REL_TOL``); the device bytes the ``FreeU_V2`` node adds under
+    ``FREEU_GROWTH_LIMIT`` of the UNet's. Then ``workflow_sd15_inpaint_outpaint``
+    with ``graph_example``'s rewrite, its ``source`` pre-seeded with a seeded
+    ``OUTPAINT_SOURCE`` image (and no mask), without the save: a finite (1, 512, 640,
+    3) paste, bitwise the padded source where the pad mask is 0, and exactly 20
+    ``sm90`` + 10 ``wide`` per forward plus one ``wide`` each for the VAE encode's
+    and decode's mid-block attention. Returns K1's launches by run."""
+    import os
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import nodes
+    from comfyui_parallelanything_tpu_torch.host import WorkflowCache
+    from comfyui_parallelanything_tpu_torch.models.quantize import param_bytes
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.k_samplers import broadcast_cond_batch
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    launches = {}
+    t0 = time.perf_counter()
+    env = {"PA_MODELS_DIR": stock_models_dir(paths, directory),
+           "PA_CLIP_VOCAB": paths["vocab"], "PA_CLIP_MERGES": paths["merges"]}
+    bundle_s = time.perf_counter() - t0
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with open(os.path.join("examples", "workflow_stock_sd15_txt2img.json")) as f:
+            wf = json.load(f)
+        del wf["9"]  # SaveImage: the CPU tests hold it
+        inp = wf["3"]["inputs"]
+        steps = inp["steps"]
+        run = run_graph(wf, WorkflowCache(), fa)
         res = run["results"]
-        want = {v: n * steps for v, n in per_forward.items()}
-        want["wide"] += 1  # the decode
-        row = _graph_row("graph_txt2img", run, {"sampler": steps}, want)
-        launches["graph_txt2img"] = run["launches"]
-        # The same sampling through run_sampler directly, from the graph's own model,
-        # conditioning and seed.
-        inp = wf["sampler"]["inputs"]
-        latent = res["latent"][0]["samples"]
-        batch = latent.shape[0]
-        pm = res["parallel"][0]
-        pos, neg = res["positive"][0], res["negative"][0]
-
-        def direct(model, n):
-            noise = nodes.initial_noise(inp["seed"], latent.shape, dev)
-            return run_sampler(
-                model, noise, broadcast_cond_batch(pos["context"], batch),
-                sampler=inp["sampler_name"], steps=n, cfg_scale=inp["cfg"],
-                uncond_context=broadcast_cond_batch(neg["context"], batch),
-                uncond_kwargs={"y": broadcast_cond_batch(neg["pooled"], batch)},
-                rng=nodes.seed_generator(inp["seed"], dev), scheduler=inp["scheduler"],
-                y=broadcast_cond_batch(pos["pooled"], batch))
-
-        out = res["sampler"][0]["samples"]
-        image = res["decode"][0]
-        ref = direct(pm, steps)
-        row.update(latent_shape=list(out.shape), image_shape=list(image.shape),
-                   latent_vs_direct_rel_l2=rel_l2(out, ref),
+        want = {v: n * steps for v, n in SD15_PER_FORWARD.items()}
+        want["wide"] += 1  # the decode, whole
+        row = _graph_row("graph_stock_txt2img", run, {"3": steps}, want)
+        row["phase"] = "graph_stock"
+        launches["graph_stock_txt2img"] = run["launches"]
+        model, patched = res["4"][0], res["20"][0]
+        unet_bytes = param_bytes(model.module)
+        out, image = res["3"][0]["samples"], res["8"][0]
+        batch = out.shape[0]
+        pos, neg = res["6"][0], res["7"][0]
+        noise = nodes.initial_noise(inp["seed"], out.shape, dev)
+        ref = run_sampler(
+            patched, noise, broadcast_cond_batch(pos["context"], batch),
+            sampler=inp["sampler_name"], steps=steps, cfg_scale=inp["cfg"],
+            uncond_context=broadcast_cond_batch(neg["context"], batch),
+            uncond_kwargs={"y": broadcast_cond_batch(neg["pooled"], batch)},
+            rng=nodes.seed_generator(inp["seed"], dev), scheduler=inp["scheduler"],
+            y=broadcast_cond_batch(pos["pooled"], batch))
+        shared = all(a.data_ptr() == b.data_ptr()
+                     for a, b in zip(model.module.parameters(), patched.module.parameters()))
+        row.update(family=model.source["family"], freeu=list(patched.config.freeu),
+                   freeu_added_bytes=run["node_added_bytes"]["20"], unet_bytes=unet_bytes,
+                   freeu_added_share=run["node_added_bytes"]["20"] / unet_bytes,
+                   freeu_shares_parameters=shared, latent_shape=list(out.shape),
+                   image_shape=list(image.shape), latent_vs_direct_rel_l2=rel_l2(out, ref),
                    latent_bitwise=bool(torch.equal(out, ref)),
-                   finite=bool(torch.isfinite(image).all().item()), world_s=world_s)
-        del ref
+                   finite=bool(torch.isfinite(image).all().item()), bundle_s=bundle_s)
         emit(row)
-        if row["latent_vs_direct_rel_l2"] > GRAPH_REL_TOL or not row["finite"]:
-            raise RuntimeError(f"graph_txt2img: {row}")
-        ref_int8 = direct(pm, GRAPH_INT8_STEPS)
-        bf16_bytes = param_bytes(pm._module)
-        del pm, res, pos, neg, out, image
+        side = wf["5"]["inputs"]["width"]
+        if (row["latent_vs_direct_rel_l2"] > GRAPH_REL_TOL or not row["finite"]
+                or row["freeu_added_share"] >= FREEU_GROWTH_LIMIT or not shared
+                or tuple(image.shape) != (wf["5"]["inputs"]["batch_size"], side, side, 3)
+                or row["family"] != "sd15" or model.config.freeu is not None):
+            raise RuntimeError(f"graph_stock_txt2img: {row}")
+        del run, res, model, patched, out, image, pos, neg, noise, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
-        wf = graph_example("workflow_sd15_hiresfix", paths)
-        s1, s2 = wf["sampler"]["inputs"]["steps"], wf["hires_pass"]["inputs"]["steps"]
-        run = run_graph(wf, cache, fa)
-        res = run["results"]
-        want = {v: n * (s1 + s2) for v, n in per_forward.items()}
-        want["wide"] += 1
-        row = _graph_row("graph_hiresfix", run, {"sampler": s1, "hires_pass": s2}, want)
-        launches["graph_hiresfix"] = run["launches"]
-        image, final = res["decode"][0], res["final_upscale"][0]
-        row.update(hires_latent_shape=list(res["hires_pass"][0]["samples"].shape),
-                   image_shape=list(image.shape), final_shape=list(final.shape),
-                   finite=bool(torch.isfinite(final).all().item()))
-        emit(row)
-        side = 2 * wf["latent"]["inputs"]["width"]  # the 2× latent upscale, decoded
-        if (tuple(final.shape) != (1, 4 * side, 4 * side, 3)
-                or tuple(image.shape) != (1, side, side, 3) or not row["finite"]):
-            raise RuntimeError(f"graph_hiresfix: {row}")
-        # Nothing of the bf16 graphs may outlive their cache entries into the int8
-        # run's peak: the int8 checkpoint node evicts them.
-        del run, res, image, final
-
-        wf = graph_example("workflow_sd15_txt2img", paths)
-        wf["checkpoint"]["inputs"]["quantize"] = "int8"
-        wf["sampler"]["inputs"]["steps"] = GRAPH_INT8_STEPS
-        run = run_graph(wf, cache, fa)
-        res = run["results"]
-        want = {v: n * GRAPH_INT8_STEPS for v, n in per_forward.items()}
-        want["wide"] += 1
-        row = _graph_row("graph_int8", run, {"sampler": GRAPH_INT8_STEPS}, want)
-        launches["graph_int8"] = run["launches"]
-        qm = res["parallel"][0]
-        out = res["sampler"][0]["samples"]
-        row.update(unet_bytes=param_bytes(qm._module), bf16_unet_bytes=bf16_bytes,
-                   int8_bytes_ratio=param_bytes(qm._module) / bf16_bytes,
-                   int8_dtypes=sorted({str(p.dtype) for p in qm._module.parameters()}),
-                   latent_vs_bf16_rel_l2=rel_l2(out, ref_int8),
-                   finite=bool(torch.isfinite(res["decode"][0]).all().item()),
-                   seconds=time.perf_counter() - start)
-        emit(row)
-        lo, hi = GRAPH_INT8_BYTES
-        if (not lo <= row["int8_bytes_ratio"] <= hi
-                or row["latent_vs_bf16_rel_l2"] > GRAPH_INT8_REL_TOL or not row["finite"]):
-            raise RuntimeError(f"graph_int8: {row}")
-        for value in list(cache.results):
-            cache.evict(value)
+    wf = graph_example("workflow_sd15_inpaint_outpaint", paths)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    source = torch.rand(OUTPAINT_SOURCE, generator=gen, device=dev)
+    steps = wf["sampler"]["inputs"]["steps"]
+    run = run_graph(wf, {"source": (source, torch.zeros(OUTPAINT_SOURCE[:3], device=dev))},
+                    fa)
+    res = run["results"]
+    want = {v: n * steps for v, n in SD15_PER_FORWARD.items()}
+    want["wide"] += 2  # the VAE encode's and decode's mid-block attention
+    row = _graph_row("graph_outpaint", run, {"sampler": steps}, want)
+    row["phase"] = "graph_stock"
+    launches["graph_outpaint"] = run["launches"]
+    padded, mask = res["outpaint_pad"]
+    out = res["paste_back"][0]
+    keep = (mask == 0)[..., None].expand_as(out)
+    pad = wf["outpaint_pad"]["inputs"]
+    row.update(image_shape=list(out.shape), latent_shape=list(
+        res["encode_inpaint"][0]["samples"].shape), kept_pixels=int(keep.sum().item()),
+        kept_bitwise=bool(torch.equal(out[keep], padded[keep])),
+        finite=bool(torch.isfinite(out).all().item()), seconds=time.perf_counter() - start)
+    emit(row)
+    want_shape = (1, OUTPAINT_SOURCE[1] + pad["top"] + pad["bottom"],
+                  OUTPAINT_SOURCE[2] + pad["left"] + pad["right"], 3)
+    if (tuple(out.shape) != want_shape or not row["finite"] or not row["kept_bitwise"]
+            or row["kept_pixels"] == 0):
+        raise RuntimeError(f"graph_outpaint: {row}")
+    del run, res, padded, mask, out, keep, source
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
+
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2847,14 +3026,17 @@ def main() -> int:
     sd3_launches = phase_sd3()
     gc.collect()
     torch.cuda.empty_cache()
-    graph_launches = phase_graph()
+    with tempfile.TemporaryDirectory() as graph_dir:
+        graph_launches, graph_paths = phase_graph(graph_dir)
+        stock_launches = phase_graph_stock(graph_paths, graph_dir)
     # A captured path's launches are those its graphs replayed: K1's launches recorded
     # at capture times the replays.
     paths = {"main_path": main_launches, "main_path_captured": main_captured, **pipe_launches,
              "sd_pipeline": sd_launches, "sd_pipeline_captured": sd_captured,
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
              "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
-             **sd3_launches, **placement_launches, **checkpoint_launches, **graph_launches}
+             **sd3_launches, **placement_launches, **checkpoint_launches, **graph_launches,
+             **stock_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

@@ -50,6 +50,12 @@ class DiffusionModel:
     block_lists: dict[str, int] | None = None
     # Staged decomposition for batch==1 pipeline placement; None → cannot pipeline.
     pipeline_spec: PipelineSpec | None = None
+    # Sampling defaults set by patch nodes (RescaleCFG's cfg_rescale, the
+    # ModelSampling* shift); an explicit widget value wins.
+    sampler_prefs: dict | None = None
+    # Loader provenance ({"path", "family", ...}) the LoraLoader shims re-bake
+    # from; a field, so every patch's dataclasses.replace carries it.
+    source: dict | None = None
 
     def __call__(self, x, timesteps, context=None, **kwargs):
         """Inference forward ``module(x, timesteps, context, **kwargs)``."""

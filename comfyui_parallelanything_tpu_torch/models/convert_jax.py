@@ -27,6 +27,10 @@ conversion is a rename plus layout changes:
   → ``blocks.0.x_attn_in.qkv.weight``): as FLUX's, the ``DenseGeneral`` qkv kernel
   (hidden, 3, H, D) flattening to the port's fused (3·H·D) output order; the q/k
   norm scales (``ln_q``, ``ln_k``) and ``pos_embed/table`` keep their names.
+- ``from_jax_vision_params`` — the CLIP vision tower (``layers_0/q/kernel`` →
+  ``layers.0.q.weight``, ``patch_embed/kernel`` → ``patch_embed.weight``): Dense
+  kernels transposed, the patch Conv kernel as the VAE's, LayerNorm scales renamed
+  to ``weight``; ``class_embedding`` and ``pos_emb`` keep their names.
 - ``from_jax_upscale_params`` — the ESRGAN ``RRDBNet`` (``body_0/rdb1/conv1/kernel``
   → ``body.0.rdb1.conv1.weight``): Conv kernels as the VAE's.
 """
@@ -108,6 +112,15 @@ def from_jax_text_params(tree: Mapping) -> dict[str, torch.Tensor]:
 def from_jax_vae_params(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``AutoencoderKL`` tree → ``vae.AutoencoderKL`` state dict."""
     return _convert(tree, _vae_leaf)
+
+
+def _vision_leaf(leaf: str, arr: np.ndarray):
+    return _vae_leaf(leaf, arr) if arr.ndim == 4 else _text_leaf(leaf, arr)
+
+
+def from_jax_vision_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``CLIPVisionModel`` tree → ``vision.CLIPVisionModel`` state dict."""
+    return _convert(tree, _vision_leaf)
 
 
 _UNET_BLOCK = re.compile(r"(^|/)block_(\d+)/")

@@ -12,6 +12,8 @@ a ready model (counterpart of ``comfyui_parallelanything_tpu/models/loader.py``)
   U8, BOOL). Nothing is upcast on read: the converters cast each tensor to the
   dtype of the parameter it becomes. A truncated file, an unknown dtype or a
   header whose offsets do not match its shapes raises ``ValueError``.
+  ``save_safetensors`` writes the same format (``SaveLatent``, the test and
+  smoke-run checkpoints).
 - LoRA bakes before conversion (``convert.bake_lora``; a stack of
   ``(lora, strength)`` pairs applies in order), as the reference bakes before it
   replicates (any_device_parallel.py:992-1004).
@@ -125,6 +127,30 @@ def load_safetensors_subset(path: str | os.PathLike, *prefixes: str) -> dict[str
     """Only the tensors whose keys start with one of ``prefixes`` (e.g. a bundled
     ``cond_stage_model.`` text tower); the rest of the file is never read."""
     return _read_tensors(path, lambda key: key.startswith(prefixes))
+
+
+def save_safetensors(path: str | os.PathLike, tensors: Mapping[str, torch.Tensor]) -> None:
+    """A .safetensors file of ``tensors``: the 8-byte little-endian header length,
+    the JSON header (dtype, shape and byte range of each tensor, in key order,
+    padded with spaces to 8 bytes), then each tensor's raw bytes, in its dtype."""
+    names = {dt: name for name, dt in SAFETENSORS_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for key in sorted(tensors):
+        t = torch.as_tensor(tensors[key]).detach().contiguous().cpu()
+        if t.dtype not in names:
+            raise ValueError(f"{key}: no safetensors dtype for {t.dtype}")
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(os.fspath(path), "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
 
 
 def _resolve_state_dict(src: Any) -> Mapping[str, Any]:

@@ -22,9 +22,13 @@ downstream runs where its inputs live. A seed's noise is drawn from a seeded CPU
 noise on every device (the JAX package's ``jax.random`` is device-independent in
 the same way); it cannot match the JAX bits.
 
+The stock-ComfyUI class names (``CheckpointLoaderSimple``, ``KSampler``, …) come
+from ``nodes_compat.py``, merged into ``NODE_CLASS_MAPPINGS`` at the end of this
+module (native names win), so exported stock graphs run unchanged.
+
 Left out, each with its ROADMAP Queue 1 item: ``TPUEmptyVideoLatent`` and the Wan
-family (10), the stock-name shims of ``nodes_compat.py`` (5b), and the serving
-decode queue that the JAX ``TPUVAEDecode`` asks first (9): decodes run inline.
+family (10), and the serving decode queue that the JAX ``TPUVAEDecode`` asks first
+(9): decodes run inline.
 """
 
 from __future__ import annotations
@@ -699,27 +703,33 @@ class TPULatentUpscale:
     def upscale(self, latent, scale: float, method: str = "bilinear",
                 scale_w: float | None = None):
         """``scale_w`` (default ``scale``) resizes the width by its own factor."""
-        from .ops.resize import resize
-
         if method not in RESIZE_METHODS:
             raise ValueError(f"method must be one of {RESIZE_METHODS}, got {method!r}")
-        z = latent["samples"]
-        h, w = z.shape[-3], z.shape[-2]
+        return (resize_latent(latent, scale, scale if scale_w is None else scale_w, method),)
 
-        def snap(v: float) -> int:
-            # Even sizes: odd latents break the UNet's stride-2 skips and patchify.
-            s = round(v)
-            return s + (s % 2)
 
-        th, tw = snap(h * scale), snap(w * (scale if scale_w is None else scale_w))
-        if th < 2 or tw < 2:
-            raise ValueError(f"scale {scale} shrinks the {h}x{w} latent to {th}x{tw}")
-        target = (*z.shape[:-3], th, tw, z.shape[-1])
-        out = {**latent, "samples": resize(z, target, method=method)}
-        if "noise_mask" in latent:
-            m = latent["noise_mask"]
-            out["noise_mask"] = resize(m, (*m.shape[:-3], th, tw, 1), method="bilinear")
-        return (out,)
+def resize_latent(latent, scale_h: float, scale_w: float, method: str):
+    """``latent`` resized by ``scale_h`` × ``scale_w`` to even sizes, by any
+    ``ops.resize`` method; its noise mask follows bilinearly."""
+    from .ops.resize import resize
+
+    z = latent["samples"]
+    h, w = z.shape[-3], z.shape[-2]
+
+    def snap(v: float) -> int:
+        # Even sizes: odd latents break the UNet's stride-2 skips and patchify.
+        s = round(v)
+        return s + (s % 2)
+
+    th, tw = snap(h * scale_h), snap(w * scale_w)
+    if th < 2 or tw < 2:
+        raise ValueError(f"scale {scale_h} shrinks the {h}x{w} latent to {th}x{tw}")
+    target = (*z.shape[:-3], th, tw, z.shape[-1])
+    out = {**latent, "samples": resize(z, target, method=method)}
+    if "noise_mask" in latent:
+        m = latent["noise_mask"]
+        out["noise_mask"] = resize(m, (*m.shape[:-3], th, tw, 1), method="bilinear")
+    return out
 
 
 class TPUSetLatentNoiseMask:
@@ -1756,3 +1766,9 @@ NODE_DISPLAY_NAME_MAPPINGS = {
     "TPUImageUpscaleWithModel": "Upscale Image With Model (TPU)",
     "TPUInpaintModelConditioning": "Inpaint Model Conditioning (TPU)",
 }
+
+# The stock-ComfyUI class-name shims (CheckpointLoaderSimple, CLIPTextEncode,
+# KSampler, ...), merged with setdefault: native names win.
+from . import nodes_compat as _compat  # noqa: E402  (needs the classes above)
+
+_compat.register(NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS)

@@ -1,9 +1,10 @@
-"""Image resizing with ``jax.image.resize`` semantics (``nearest``, ``bilinear``
-and ``lanczos3``), for masks, latents and images.
+"""Image resizing with ``jax.image.resize`` semantics (``nearest``, ``bilinear``,
+``cubic`` and ``lanczos3``), for masks, latents and images.
 
-``nearest`` samples input index floor((i + 0.5)·in/out) per axis. ``bilinear``
-and ``lanczos3`` are separable: each resized axis contracts with an (in, out)
-matrix of kernel weights (the triangle, or the radius-3 Lanczos window) centred on
+``nearest`` samples input index floor((i + 0.5)·in/out) per axis. ``bilinear``,
+``cubic`` and ``lanczos3`` are separable: each resized axis contracts with an
+(in, out) matrix of kernel weights (the triangle, Keys' cubic with a = -0.5, or
+the radius-3 Lanczos window) centred on
 (i + 0.5)·in/out − 0.5, widened by in/out when downsampling (antialiasing),
 normalised per output sample, and zero for samples outside the input. Every other
 axis passes through.
@@ -27,7 +28,13 @@ def _lanczos3(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > radius, 0.0, out)
 
 
-_KERNELS = {"bilinear": _triangle, "lanczos3": _lanczos3}
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+_KERNELS = {"bilinear": _triangle, "cubic": _keys_cubic, "lanczos3": _lanczos3}
 
 
 def _kernel_weights(n_in: int, n_out: int, device, kernel=_triangle) -> torch.Tensor:
@@ -45,8 +52,8 @@ def _kernel_weights(n_in: int, n_out: int, device, kernel=_triangle) -> torch.Te
 
 
 def resize(x: torch.Tensor, shape: tuple[int, ...], method: str = "bilinear") -> torch.Tensor:
-    """``x`` resized to ``shape`` (same rank) by ``nearest``, ``bilinear`` or
-    ``lanczos3``."""
+    """``x`` resized to ``shape`` (same rank) by ``nearest``, ``bilinear``, ``cubic``
+    or ``lanczos3``."""
     if len(shape) != x.ndim:
         raise ValueError(f"shape {shape} does not match rank {x.ndim}")
     if method != "nearest" and method not in _KERNELS:

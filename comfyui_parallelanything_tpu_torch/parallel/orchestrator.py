@@ -236,7 +236,8 @@ class ParallelModel:
 
     def __init__(self, module, chain: DeviceChain, config: ParallelConfig,
                  groups: list[_PlatformGroup], weights: tuple[float, ...],
-                 pipeline_spec: Any = None, model_config: Any = None):
+                 pipeline_spec: Any = None, model_config: Any = None,
+                 sampler_prefs: dict | None = None):
         self._module = module
         self.chain = chain
         self.config = config
@@ -246,6 +247,8 @@ class ParallelModel:
         self._pipeline_runner = None  # built on the first pipeline call
         # The wrapped model's own config (FluxConfig, ...), distinct from ``config``.
         self.model_config = model_config
+        # The wrapped model's sampling defaults (patch nodes), read by the samplers.
+        self.sampler_prefs = sampler_prefs
         self.active = True
         self._demoted = False  # inactive after a step-OOM (reactivatable)
         self._steps_demoted = 0  # single-device steps since the demotion
@@ -524,6 +527,9 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
         raise _not_ported("tensor_parallel > 1 (ROADMAP Queue 1, fsdp / tp)")
     if not isinstance(chain, DeviceChain):
         chain = DeviceChain.from_pairs(chain)
+    # Patch nodes come before ParallelAnything (stock's order): their sampling
+    # defaults survive the wrap.
+    sampler_prefs = getattr(model, "sampler_prefs", None)
     if isinstance(model, ParallelModel):
         module, wrapped_config = model._module, model.model_config
         if pipeline_spec is None:
@@ -582,7 +588,8 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
     logger.info("parallel setup: %s (%s)", chain.devices,
                 "hybrid" if len(groups) > 1 else groups[0].platform)
     return ParallelModel(module, chain, config, groups, final,
-                         pipeline_spec=pipeline_spec, model_config=wrapped_config)
+                         pipeline_spec=pipeline_spec, model_config=wrapped_config,
+                         sampler_prefs=sampler_prefs)
 
 
 def model_config_of(model) -> Any:

@@ -1,8 +1,9 @@
 """GPU tests of the PyTorch port: the CUDA kernels against their plain versions,
 small FLUX, UNet, ControlNet and SD3 models through ``parallelize`` on the card
 against the same models on the CPU, the whole-loop compiled sampler's captured
-graphs against the eager loop, and a ``cuda:0`` + ``cpu`` chain. Every test here
-needs a CUDA device and skips without one.
+graphs against the eager loop, a ``cuda:0`` + ``cpu`` chain, the example graphs
+(native and stock names) and the CLIP vision tower on the card against the CPU.
+Every test here needs a CUDA device and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed; the suite's ``conftest.py`` imports JAX, so on such a machine run
@@ -738,3 +739,56 @@ def test_int8_unet_on_the_card_matches_the_cpu(cuda_device, no_tf32_convs):
     ctx = torch.randn(2, 5, 48, generator=gen)
     got = card(x.to(cuda_device), t.to(cuda_device), ctx.to(cuda_device)).cpu()
     assert chip_smoke.rel_l2(got, host(x, t, ctx)) < 1e-4
+
+
+def _tiny_stock_graph(tmp_path, monkeypatch, device_id):
+    """``workflow_stock_sd15_txt2img`` on the tiny world: the checkpoint with its CLIP
+    bundled under ``$PA_MODELS_DIR/checkpoints`` (``chip_smoke.stock_models_dir``),
+    32², batch 2, 2 steps, a seed above 2**63."""
+    import json
+
+    _tiny_graph(tmp_path, monkeypatch, device_id)  # the world's files and configs
+    paths = {"ckpt": str(tmp_path / "sd15.safetensors"),
+             "clip": str(tmp_path / "clip_l.safetensors")}
+    models_dir = tmp_path / f"stock_{device_id.replace(':', '_')}"
+    monkeypatch.setenv("PA_MODELS_DIR", chip_smoke.stock_models_dir(paths, str(models_dir)))
+    monkeypatch.setenv("PA_CLIP_VOCAB", str(tmp_path / "vocab.json"))
+    monkeypatch.setenv("PA_CLIP_MERGES", str(tmp_path / "merges.txt"))
+    with open("examples/workflow_stock_sd15_txt2img.json") as f:
+        wf = json.load(f)
+    del wf["9"]
+    wf["5"]["inputs"].update(width=32, height=32, batch_size=2)
+    wf["3"]["inputs"].update(steps=2, seed=2**63 + 7)
+    return wf
+
+
+def test_stock_graph_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeypatch,
+                                                 no_tf32_convs):
+    from comfyui_parallelanything_tpu_torch.host import run_workflow
+
+    fa.reset_launches()
+    got = run_workflow(_tiny_stock_graph(tmp_path, monkeypatch, "cuda:0"))
+    torch.cuda.synchronize()
+    assert got["3"][0]["samples"].device.type == "cuda"
+    assert fa.launches_by_variant["tf32x3"] > 0  # the UNet's and the VAE's attention
+    want = run_workflow(_tiny_stock_graph(tmp_path, monkeypatch, "cpu"), device="cpu")
+    assert chip_smoke.rel_l2(got["6"][0]["context"].cpu(), want["6"][0]["context"]) < 1e-4
+    assert chip_smoke.rel_l2(got["3"][0]["samples"].cpu(), want["3"][0]["samples"]) < 1e-3
+    assert chip_smoke.rel_l2(got["8"][0].cpu(), want["8"][0]) < 1e-3
+
+
+def test_vision_tower_on_the_card_matches_the_cpu(cuda_device):
+    from comfyui_parallelanything_tpu_torch.models import vision
+
+    cfg = vision.CLIPVisionConfig(image_size=28, patch_size=7, hidden_size=64, num_layers=2,
+                                  num_heads=4, intermediate_size=128, projection_dim=16,
+                                  dtype=torch.float32)
+    host = vision.build_clip_vision(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    card = vision.build_clip_vision(cfg, device=cuda_device,
+                                    state_dict=host.module.state_dict())
+    images = torch.rand(2, 40, 36, 3, generator=torch.Generator().manual_seed(3))
+    want = host(vision.clip_preprocess(images, size=28))
+    got = card(vision.clip_preprocess(images.to(cuda_device), size=28))
+    for name, a, b in zip(("embeds", "last", "penultimate"), got, want):
+        assert a.device.type == "cuda"
+        assert chip_smoke.rel_l2(a.cpu(), b) < 1e-4, name

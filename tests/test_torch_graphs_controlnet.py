@@ -24,6 +24,7 @@ def test_controlnet_matches_jax(graph_env, cpu_devices):
     from comfyui_parallelanything_tpu_torch.models.convert_unet import (
         convert_controlnet_checkpoint,
     )
+    from comfyui_parallelanything_tpu_torch.models.loader import save_safetensors
 
     cfg = g.pmodels.sd15_config()
     gen = torch.Generator().manual_seed(5)
@@ -36,7 +37,7 @@ def test_controlnet_matches_jax(graph_env, cpu_devices):
     g.chip_smoke.check_round_trip(sd, lambda d: convert_controlnet_checkpoint(d, cfg), state,
                                   "controlnet")
     cn_path = f"{graph_env['tmp']}/cn.safetensors"
-    g.chip_smoke.write_safetensors(cn_path, sd)
+    save_safetensors(cn_path, sd)
     hint = f"{graph_env['tmp']}/hint.png"
     Image.fromarray((np.random.default_rng(3).uniform(0, 1, (32, 32, 3)) * 255)
                     .astype(np.uint8)).save(hint)

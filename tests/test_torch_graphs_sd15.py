@@ -6,7 +6,7 @@ The synthetic world (``graph_env``): the port's tiny SD1.5 UNet, VAE and CLIP-L
 made from seeded generators and written to a tmp dir in their public layouts
 (``chip_smoke.write_sd15_files``: ldm checkpoint with the bundled VAE, HF CLIP
 tower, each held by a round trip through the port's converters, with
-``chip_smoke``'s own safetensors writer), and the CLIP byte-BPE tables of
+the port's ``models.loader.save_safetensors``), and the CLIP byte-BPE tables of
 ``chip_smoke.write_clip_tables``. Both packages' preset factories are patched to
 the matching tiny configs. Each graph is rewritten only where a user would edit
 it: file paths, the devices (``cpu:0`` + ``cpu:1``), the steps (2) and the image

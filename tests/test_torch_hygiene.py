@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: neither its package nor ``chip_smoke.py`` imports
-JAX, flax or any module of the JAX package (``comfyui_parallelanything_tpu``),
-and no module imports ``triton`` or builds a kernel when it is imported."""
+JAX, flax, any module of the JAX package (``comfyui_parallelanything_tpu``) or the
+``safetensors`` package (the GPU machine has none: the port reads and writes the
+format itself), and no module imports ``triton`` or builds a kernel when it is
+imported."""
 
 import ast
 from pathlib import Path
@@ -11,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "comfyui_parallelanything_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_parallelanything_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "comfyui_parallelanything_tpu", "safetensors")
 
 
 def _port_files():
@@ -36,6 +38,7 @@ def _forbidden(name: str) -> bool:
 def test_rule_tells_the_port_from_the_jax_package():
     assert _forbidden("comfyui_parallelanything_tpu.ops.attention")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert _forbidden("safetensors.numpy")
     assert not _forbidden("comfyui_parallelanything_tpu_torch.ops.attention")
     assert not _forbidden("jaxtyping_like_name")
 

@@ -293,12 +293,19 @@ def test_seed_noise_is_the_same_on_every_device_and_differs_by_seed():
 def test_node_names_are_the_jax_packages():
     from comfyui_parallelanything_tpu_torch import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS
 
+    from comfyui_parallelanything_tpu_torch import nodes_compat
+
     left_out = {"TPUEmptyVideoLatent"}  # the Wan family, ROADMAP Queue 1 item 10
-    # The JAX package's own nodes (its mappings also hold nodes_compat's stock names).
-    native = {k for k, c in jn.NODE_CLASS_MAPPINGS.items() if c.__module__ == jn.__name__}
-    assert set(NODE_CLASS_MAPPINGS) == native - left_out
-    assert {k: jn.NODE_DISPLAY_NAME_MAPPINGS[k] for k in native - left_out} == \
-        NODE_DISPLAY_NAME_MAPPINGS
+    # Every JAX name, native and stock (nodes_compat's shims); the Wan shims that
+    # raise count as registered.
+    names = set(jn.NODE_CLASS_MAPPINGS) - left_out
+    assert set(NODE_CLASS_MAPPINGS) == names
+    assert {k: jn.NODE_DISPLAY_NAME_MAPPINGS[k] for k in names} == NODE_DISPLAY_NAME_MAPPINGS
+    stock = set(nodes_compat.stock_node_mappings())
+    assert len(stock) == 107
+    # Native names win over a shim of the same name.
+    for name in names - stock:
+        assert NODE_CLASS_MAPPINGS[name].__module__ == pn.__name__, name
     for name, cls in NODE_CLASS_MAPPINGS.items():
         jcls = jn.NODE_CLASS_MAPPINGS[name]
         assert (cls.RETURN_TYPES, cls.FUNCTION) == (jcls.RETURN_TYPES, jcls.FUNCTION), name

@@ -18,12 +18,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from test_upscale import _legacy_sd, _modern_sd  # noqa: E402
 
-import chip_smoke  # noqa: E402
 from comfyui_parallelanything_tpu.models import upscale as ju  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models import upscale as pu  # noqa: E402
 from comfyui_parallelanything_tpu_torch.models.convert_jax import (  # noqa: E402
     from_jax_upscale_params,
 )
+from comfyui_parallelanything_tpu_torch.models.loader import save_safetensors  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 TINY = dict(nf=8, nb=2, gc=4)
@@ -96,7 +96,7 @@ def test_modern_and_legacy_layouts_convert_as_jax_does(tmp_path):
             torch.testing.assert_close(state[k], want[k], rtol=0, atol=0)
     # The loader reads a safetensors file in the public layout.
     path = tmp_path / "esrgan.safetensors"
-    chip_smoke.write_safetensors(path, {k: torch.from_numpy(np.ascontiguousarray(v))
+    save_safetensors(path, {k: torch.from_numpy(np.ascontiguousarray(v))
                                         for k, v in legacy.items()})
     loaded = pu.load_upscale_checkpoint(str(path), device="cpu")
     x = torch.from_numpy(_image((1, 12, 10, 3)))
