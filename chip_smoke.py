@@ -124,6 +124,19 @@ the error.
    a batch-2 step with ``pipeline_microbatches=2`` (2 × 56 ``sm90``); with more
    than one card, batch 1 over every card (57 ``sm90``, within 1e-3 of one card),
    else a ``skipped`` line.
+   stream — the same FLUX-dev moved to the host and streamed through
+   ``parallel/streaming.py`` on ``[("cuda:0", 100)]`` under
+   ``ParallelConfig(hbm_budget_bytes=8 GiB)`` (the weights-don't-fit route): the
+   carve, the pinned bytes against the streamed ones and the host's resident memory,
+   a pinned 1 GiB host→device copy's rate; bf16 at batch 1 (4 steps, against the
+   main path's latent and s/it and the copy bound), one profiled step (the stage
+   copies and the kernels beside them), one serialised step, batch 4 (2 steps,
+   against a resident batch-4 run), and int8 (2 steps, against a resident int8 run):
+   peak device memory within the budget at batch 1 and int8, the streamed weights'
+   device peak (the run's peak less the rest of the card, the resident submodules
+   and the resident run's activations) and the tracker's peak within two stages,
+   exactly 57 ``sm90`` a forward, every latent bitwise its
+   resident run's (or within 1e-3).
 12. checkpoint — after FLUX-dev is freed: a FLUX-dev state dict in the public BFL
    layout made on the card (fp8 block weights) with a rank-16 kohya LoRA over every
    block's qkv, proj, MLP, linear1 and linear2, through ``load_flux_checkpoint`` →
@@ -577,9 +590,8 @@ def device_ms(fns: dict, calls: int) -> dict[str, float]:
     raise RuntimeError(f"the profiler window shows no device time for some of {out}")
 
 
-def kernel_times(prof) -> dict[str, list]:
-    """``{kernel name: [total ms, calls]}`` from a finished ``torch.profiler``
-    window's trace (its ``kernel`` events)."""
+def trace_events(prof) -> list[dict]:
+    """The events of a finished ``torch.profiler`` window's Chrome trace."""
     import os
     import tempfile
 
@@ -588,11 +600,16 @@ def kernel_times(prof) -> dict[str, list]:
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
     finally:
         os.remove(path)
+
+
+def kernel_times(prof) -> dict[str, list]:
+    """``{kernel name: [total ms, calls]}`` from a finished ``torch.profiler``
+    window's trace (its ``kernel`` events)."""
     totals: dict[str, list] = {}
-    for e in events:
+    for e in trace_events(prof):
         if e.get("cat") == "kernel":
             tot = totals.setdefault(e["name"], [0.0, 0])
             tot[0] += e["dur"] / 1e3  # µs -> ms
@@ -712,7 +729,9 @@ def phase_kernel() -> dict:
 
 
 def phase_main_path():
-    """Returns the parallelized FLUX-dev model and K1's launches by variant."""
+    """Returns the parallelized FLUX-dev model, K1's launches by variant, and the
+    main path's inputs, latents (1 step and ``STEPS``) and s/it for the stream phase
+    to hold its runs to."""
     import torch
 
     from comfyui_parallelanything_tpu_torch import parallelize
@@ -737,7 +756,7 @@ def phase_main_path():
         return x, ctx, y
 
     x, ctx, y = inputs(1)
-    flow_euler_sample(pm, x, ctx, steps=1, guidance=3.5, y=y)  # warm-up, not counted
+    latent_1 = flow_euler_sample(pm, x, ctx, steps=1, guidance=3.5, y=y)  # warm-up, not counted
     torch.cuda.synchronize()
 
     stamps = []
@@ -802,7 +821,9 @@ def phase_main_path():
             or tuple(out2.shape) != tuple(x2.shape):
         raise RuntimeError(f"batch-2 step check failed: {b2}")
     phase_profile(pm, x, ctx, y)
-    return pm, by_variant
+    ref = {"x": x, "ctx": ctx, "y": y, "latent_1": latent_1, "latent": latent,
+           "s_per_it": result["s_per_it"]}
+    return pm, by_variant, ref
 
 
 def phase_main_path_captured(pm) -> dict:
@@ -2177,6 +2198,340 @@ def phase_pipeline_placement(pm) -> dict:
     return paths
 
 
+STREAM_CHAIN = [("cuda:0", 100)]
+STREAM_BUDGET = 8 * 2**30  # device bytes: FLUX-dev's 30.3 GB cannot be placed
+STREAM_STEPS = 4
+STREAM_B4_STEPS = 2
+STREAM_INT8_STEPS = 2
+STREAM_REL_TOL = 1e-3  # a streamed latent against its resident run, where not bitwise
+PINNED_SLACK = 0.10  # page-locked host bytes over streamed bytes
+# Device bytes a streamed call may hold beyond two slots and its resident run's
+# activations: its small tensors (timesteps, guidance, the carry between stages)
+# differ from the resident call's by about 1 MiB either way on FLUX-dev. A ring
+# that grew would add a whole stage (0.34 GB or more).
+STREAM_PEAK_SLACK = 32 * 2**20
+H2D_PROBE_BYTES = 2**30
+
+
+def host_rss_bytes() -> int:
+    """This process's resident host memory (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS line in /proc/self/status")
+
+
+def copy_gbs(src, dst, reps: int = 3) -> list[float]:
+    """GB/s of ``reps`` host→device copies of the pinned ``src`` into ``dst``, each
+    timed with CUDA events, after a warm-up copy."""
+    import torch
+
+    dst = dst[:src.numel()]
+    dst.copy_(src, non_blocking=True)
+    rates = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        rates.append(src.numel() / (a.elapsed_time(b) / 1e3) / 1e9)
+    return rates
+
+
+def h2d_gbs(dev) -> list[float]:
+    """GB/s of a pinned host→device copy of ``H2D_PROBE_BYTES`` (a power of two, so
+    the pinned allocator wastes nothing), three times."""
+    import torch
+
+    src = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    return copy_gbs(src, torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device=dev))
+
+
+def master_gbs(runner, dev) -> dict[str, list[float]]:
+    """GB/s of copies of one largest stage's bytes from the start, the middle and the
+    end of the runner's pinned master copy: the rate its stage copies can reach."""
+    import torch
+
+    buf, n = runner._master.host.buffer, runner.max_stage_nbytes
+    dst = torch.empty(n, dtype=torch.uint8, device=dev)
+    return {f"{off / 2**30:.1f} GiB": copy_gbs(buf[off:off + n], dst)
+            for off in (0, (buf.numel() - n) // 2, buf.numel() - n)}
+
+
+def _timed_sample(model, xs, steps: int):
+    """``flow_euler_sample`` (guidance 3.5) over ``xs`` = (x, ctx, y), a synchronise
+    after each step, with the peak device memory and K1's launches reset first.
+    Returns (latent, seconds per step, peak device bytes, launches by variant, device
+    bytes allocated when the run began)."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample
+
+    stamps: list[float] = []
+
+    def on_step(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.reset_launches()
+    start = time.perf_counter()
+    latent = flow_euler_sample(model, xs[0], xs[1], steps=steps, guidance=3.5, y=xs[2],
+                               callback=on_step)
+    torch.cuda.synchronize()
+    step_s = [b - a for a, b in zip([start] + stamps[:-1], stamps)]
+    return latent, step_s, torch.cuda.max_memory_allocated(), _launched(fa), base
+
+
+def _union_ms(intervals) -> list[tuple[float, float]]:
+    out: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [tuple(iv) for iv in out]
+
+
+def stream_profile(phase: str, step) -> dict:
+    """``step()`` under ``torch.profiler``, read for the stream's overlap: each
+    host→device copy of at least 1 MiB (the stage copies) with its ms and GB/s, the
+    idle gaps between consecutive ones, the kernel time, and how much of the copy
+    time kernels ran beside (from the trace's ``gpu_memcpy`` and ``kernel``
+    events, in µs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = trace_events(prof)
+    copies = sorted((e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]
+                     and e.get("args", {}).get("bytes", 0) >= 2**20), key=lambda e: e["ts"])
+    kernels = _union_ms((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    beside = sum(max(0.0, min(c["ts"] + c["dur"], b) - max(c["ts"], a))
+                 for c in copies for a, b in kernels)
+    copy_ms = [c["dur"] / 1e3 for c in copies]
+    result = {
+        "phase": phase, "step_wall_s": wall_s, "copies": len(copies),
+        "copy_ms": copy_ms, "copy_gbs": [c["args"]["bytes"] / (c["dur"] * 1e3) for c in copies],
+        "copy_total_ms": sum(copy_ms),
+        "gaps_ms": [(b["ts"] - a["ts"] - a["dur"]) / 1e3 for a, b in zip(copies, copies[1:])],
+        "first_copy_at_ms": (copies[0]["ts"] - min(e["ts"] for e in events if e.get("cat") in (
+            "kernel", "gpu_memcpy"))) / 1e3 if copies else None,
+        "kernel_busy_ms": sum(b - a for a, b in kernels) / 1e3,
+        "kernels_beside_copies_ms": beside / 1e3,
+    }
+    emit(result)
+    return result
+
+
+def _stream_carve(runner) -> dict:
+    return {"n_stages": runner.n_stages,
+            "stage_ranges": [list(st.range) for st in runner.stages],
+            "stage_nbytes": [st.nbytes for st in runner.stages],
+            "max_stage_nbytes": runner.max_stage_nbytes,
+            "streamed_nbytes": runner.streamed_nbytes,
+            "resident_bytes": runner.tracker.resident_bytes,
+            "pinned_nbytes": runner.pinned_nbytes,
+            "pinned_over_streamed": runner.pinned_nbytes / runner.streamed_nbytes}
+
+
+def _stream_row(phase: str, runner, got, want, step_s, peak, base, activations, launches,
+                expected, **extra) -> dict:
+    """One streamed run's line: its s/it, peak, residency and launches, and its
+    latent against the same steps of a resident run of the same weights.
+
+    The two-stage check is on the device: the run's peak, less what the card held
+    apart from the stream when it began (``base`` less the resident submodules and
+    the ring, which persists between calls), the resident submodules, and the
+    activations of the resident run of the same batch (its peak less its start), is
+    the streamed weights' peak, held to two slots (two stages, each tensor at the host
+    copy's ``HOST_ALIGN``) and ``STREAM_PEAK_SLACK``. The tracker's peak is the host's bookkeeping of the same
+    schedule, two stages by construction."""
+    import torch
+
+    rel = rel_l2(got, want)
+    slot = max(b - a for a, b in (st.span for st in runner.stages))
+    held = runner.tracker.resident_bytes + sum(s.numel() for s in runner._ring or ())
+    card_other = base - held
+    return {"phase": phase, "s_per_it": sum(step_s) / len(step_s), "step_s": step_s,
+            "max_memory_allocated": peak, "budget": STREAM_BUDGET,
+            "card_other_bytes": card_other, "resident_activation_bytes": activations,
+            "streamed_weight_peak_bytes": (peak - card_other - runner.tracker.resident_bytes
+                                           - activations),
+            "tracker_peak_bytes": runner.tracker.peak_bytes,
+            "two_stage_bytes": 2 * runner.max_stage_nbytes, "two_slot_bytes": 2 * slot,
+            "bitwise_vs_resident": bool(torch.equal(got, want)), "rel_l2_vs_resident": rel,
+            "tol": STREAM_REL_TOL, "finite": bool(torch.isfinite(got).all().item()),
+            "k1_launches_by_variant": launches, "k1_launches_expected": expected, **extra}
+
+
+def _stream_ok(row: dict, hold_budget: bool = True) -> bool:
+    return (row["finite"] and row["rel_l2_vs_resident"] <= STREAM_REL_TOL
+            and row["k1_launches_by_variant"] == row["k1_launches_expected"]
+            and row["tracker_peak_bytes"] <= row["two_stage_bytes"]
+            and row["streamed_weight_peak_bytes"] <= row["two_slot_bytes"] + STREAM_PEAK_SLACK
+            and (not hold_budget or row["max_memory_allocated"] <= STREAM_BUDGET))
+
+
+def phase_stream(pm, ref) -> dict:
+    """The main path's FLUX-dev streamed from the host through ``parallel/streaming.py``
+    under ``ParallelConfig(hbm_budget_bytes=STREAM_BUDGET)`` on ``STREAM_CHAIN``: the
+    default ``weight_sharding``, so the weights-don't-fit route decides. First
+    resident batch-4 and batch-1 references on the card (the batch-1 one only for its
+    activations' peak); then the weights move to the host, and
+    the stream pins its master copy (the carve, the pinned bytes against the streamed
+    ones, the host's resident memory before and after) beside one pinned 1 GiB
+    host→device copy's rate. Runs: bf16 at batch 1, ``STREAM_STEPS`` steps on the
+    main path's inputs against its latent and s/it and the bound max(resident s/it,
+    streamed bytes / copy rate), then one step under ``torch.profiler``
+    (``stream_profile``: the stage copies and what computed beside them) and one
+    serialised step (the runner's ``overlap`` off) against the main path's first
+    step; batch 4, ``STREAM_B4_STEPS`` steps against the resident reference (its
+    peak beside the resident run's peak less its weights); int8
+    (``quantize_module`` of the same FLUX-dev, built again from the main path's seed)
+    resident and then streamed, ``STREAM_INT8_STEPS`` steps each. Each run: peak
+    device memory (held to the budget at batch 1 and int8), the streamed weights'
+    device peak and the tracker's peak against two stages (``_stream_row``), exactly
+    57 ``sm90`` a forward, the latent bitwise or within ``STREAM_REL_TOL`` of its
+    resident run. Returns K1's launches by path."""
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import ParallelConfig, parallelize
+    from comfyui_parallelanything_tpu_torch.models.flux import build_flux
+    from comfyui_parallelanything_tpu_torch.models.loader import params_nbytes
+    from comfyui_parallelanything_tpu_torch.models.quantize import quantize_module
+    from comfyui_parallelanything_tpu_torch.sampling.flow import flow_euler_sample
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = pm.model_config
+    per_fwd = cfg.depth + cfg.depth_single_blocks
+    module = pm._module
+    weight_bytes = params_nbytes(module)
+    config = ParallelConfig(hbm_budget_bytes=STREAM_BUDGET)
+    xs1 = (ref["x"], ref["ctx"], ref["y"])
+    xs4 = _flux_inputs(cfg, 4, 17)
+    sample = lambda model, xs, steps: flow_euler_sample(  # noqa: E731
+        model, xs[0], xs[1], steps=steps, guidance=3.5, y=xs[2])
+
+    resident = parallelize(pm, STREAM_CHAIN)
+    want4, res4_s, res4_peak, _, res4_base = _timed_sample(resident, xs4, STREAM_B4_STEPS)
+    _, _, res1_peak, _, res1_base = _timed_sample(resident, xs1, 1)  # batch 1's activations
+    del resident
+    gc.collect()  # the pipeline phases' host replicas
+    t0 = time.perf_counter()
+    module.to("cpu")
+    to_host_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    card_bytes = torch.cuda.memory_allocated(dev)
+    rates = h2d_gbs(dev)
+    h2d = statistics.median(rates)
+    rss_before = host_rss_bytes()
+    sp = parallelize(pm, STREAM_CHAIN, config)
+    t0 = time.perf_counter()
+    runner = sp._get_streaming_runner()  # what the first call builds: the pinned master copy
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = sample(sp, xs1, 1)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    master = master_gbs(runner, dev)
+    master_rate = statistics.median(r for rates in master.values() for r in rates)
+    carve = {"phase": "stream_carve", "model": "flux-dev", "chain": STREAM_CHAIN,
+             "budget": STREAM_BUDGET, "is_streaming": sp.is_streaming,
+             "weight_bytes": weight_bytes, **_stream_carve(runner),
+             "stage_cap": STREAM_BUDGET * 2 // 5, "to_host_s": to_host_s,
+             "runner_build_s": build_s, "first_step_s": first_call_s,
+             "card_bytes_after_move": card_bytes,
+             "host_rss_before_pin": rss_before, "host_rss_after_pin": host_rss_bytes(),
+             "h2d_gbs": rates, "h2d_gbs_median": h2d, "master_gbs": master,
+             "master_gbs_median": master_rate,
+             "first_step_rel_l2_vs_resident": rel_l2(warm, ref["latent_1"])}
+    emit(carve)
+    if not (sp.is_streaming and carve["pinned_over_streamed"] <= 1 + PINNED_SLACK
+            and carve["pinned_over_streamed"] >= 1):
+        raise RuntimeError(f"stream_carve check failed: {carve}")
+
+    bound = max(ref["s_per_it"], runner.streamed_nbytes / (h2d * 1e9))
+    act1 = res1_peak - res1_base
+    got, step_s, peak, launches, base = _timed_sample(sp, xs1, STREAM_STEPS)
+    b1 = _stream_row("stream_bf16", runner, got, ref["latent"], step_s, peak, base, act1,
+                     launches, {"sm90": per_fwd * STREAM_STEPS}, batch=1, steps=STREAM_STEPS,
+                     resident_s_per_it=ref["s_per_it"], h2d_gbs=h2d, bound_s_per_it=bound,
+                     transfer_s_per_it=runner.streamed_nbytes / (h2d * 1e9),
+                     master_gbs=master_rate,
+                     bound_at_master_rate_s_per_it=max(
+                         ref["s_per_it"], runner.streamed_nbytes / (master_rate * 1e9)))
+    emit(b1)
+    stream_profile("stream_profile", lambda: sample(sp, xs1, 1))
+    # The serialised step: the same runner with ``overlap`` off, which is what
+    # ``ParallelConfig(stream_overlap=False)`` builds (a second wrap would pin the
+    # 30 GB master copy again; tests/test_torch_cuda.py drives that route).
+    runner.overlap = False
+    got, step_s, peak, launches, base = _timed_sample(sp, xs1, 1)
+    runner.overlap = True
+    serial = _stream_row("stream_overlap_off", runner, got, ref["latent_1"], step_s, peak,
+                         base, act1, launches, {"sm90": per_fwd}, batch=1, steps=1,
+                         overlapped_s_per_it=b1["s_per_it"], h2d_gbs=h2d,
+                         copy_s=runner.streamed_nbytes / (h2d * 1e9),
+                         resident_s_per_it=ref["s_per_it"])
+    emit(serial)
+    got, step_s, peak, launches, base = _timed_sample(sp, xs4, STREAM_B4_STEPS)
+    b4 = _stream_row("stream_bf16_b4", runner, got, want4, step_s, peak, base,
+                     res4_peak - res4_base, launches,
+                     {"sm90": per_fwd * STREAM_B4_STEPS}, batch=4, steps=STREAM_B4_STEPS,
+                     resident_s_per_it=sum(res4_s) / len(res4_s), resident_step_s=res4_s,
+                     four_resident_b1_s=4 * ref["s_per_it"],
+                     resident_peak=res4_peak, resident_peak_less_weights=res4_peak - weight_bytes)
+    emit(b4)
+    sp.cleanup()
+    del sp, runner
+    gc.collect()
+
+    q = build_flux(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    quantize_module(q.module)
+    int8_bytes = params_nbytes(q.module)
+    want_q, resq_s, resq_peak, _, resq_base = _timed_sample(parallelize(q, STREAM_CHAIN), xs1,
+                                                            STREAM_INT8_STEPS)
+    q.module.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sq = parallelize(q, STREAM_CHAIN, config)
+    if not sq.is_streaming:
+        raise RuntimeError(f"the int8 FLUX-dev ({int8_bytes} B) was placed, not streamed")
+    sample(sq, xs1, 1)  # pins the int8 master copy
+    got, step_s, peak, launches, base = _timed_sample(sq, xs1, STREAM_INT8_STEPS)
+    int8 = _stream_row("stream_int8", sq._stream_runner, got, want_q, step_s, peak, base,
+                       resq_peak - resq_base, launches,
+                       {"sm90": per_fwd * STREAM_INT8_STEPS}, batch=1, steps=STREAM_INT8_STEPS,
+                       weight_bytes=int8_bytes, resident_s_per_it=sum(resq_s) / len(resq_s),
+                       resident_peak=resq_peak,
+                       **_stream_carve(sq._stream_runner))
+    emit(int8)
+    sq.cleanup()
+    del sq, q
+    gc.collect()
+    emit({"phase": "stream", "seconds": time.perf_counter() - t_phase})
+    for row, hold in ((b1, True), (b4, False), (serial, True), (int8, True)):
+        if not _stream_ok(row, hold):
+            raise RuntimeError(f"{row['phase']} check failed: {row}")
+    return {"stream_bf16": b1["k1_launches_by_variant"],
+            "stream_overlap_off": serial["k1_launches_by_variant"],
+            "stream_bf16_b4": b4["k1_launches_by_variant"],
+            "stream_int8": int8["k1_launches_by_variant"]}
+
+
 def public_flux_state_dict(cfg, gen, device):
     """A FLUX state dict in the public BFL layout at ``cfg``'s full size, random from
     ``gen`` on ``device``: the block linears' weights in ``float8_e4m3fn`` (as the
@@ -2999,10 +3354,12 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = phase_kernel()
-    pm, main_launches = phase_main_path()
+    pm, main_launches, main_ref = phase_main_path()
     pipe_launches = phase_pipeline(pm)
     main_captured = phase_main_path_captured(pm)
     placement_launches = phase_pipeline_placement(pm)
+    stream_launches = phase_stream(pm, main_ref)
+    del main_ref
     # Free FLUX-dev before the checkpoint and SD-family phases.
     pm.cleanup()
     del pm
@@ -3035,8 +3392,8 @@ def main() -> int:
              "sd_pipeline": sd_launches, "sd_pipeline_captured": sd_captured,
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
              "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
-             **sd3_launches, **placement_launches, **checkpoint_launches, **graph_launches,
-             **stock_launches}
+             **sd3_launches, **placement_launches, **stream_launches, **checkpoint_launches,
+             **graph_launches, **stock_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

@@ -2,10 +2,13 @@
 blend reads and the budget its weights-don't-fit check compares against
 (counterpart of ``free_memory_bytes``/``total_memory_bytes``/``usable_hbm_bytes``
 in ``comfyui_parallelanything_tpu/devices/memory.py``). A CPU device reports 0, so
-CPU chains keep the user's weights."""
+CPU chains keep the user's weights. ``ResidencyTracker`` is the weight-streaming
+executor's account of the stage weights it holds on its device; its gauges
+(``publish_gauges``) wait for the telemetry utils (ROADMAP Queue 1 item 9)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -34,3 +37,37 @@ def usable_hbm_bytes(device: torch.device) -> int:
     if override:
         return int(override)
     return int(total_memory_bytes(device) * 0.9)
+
+
+@dataclasses.dataclass
+class ResidencyTracker:
+    """Live streamed-weight bytes on a device.
+
+    The streaming executor (``parallel/streaming.py``) calls ``place(tag, n)`` when
+    it issues a stage's host→device copy and ``retire(tag)`` once that stage's
+    compute has been ordered before the copy that reuses its slot, so
+    ``live_bytes`` is the scheduler's weight footprint and ``peak_bytes`` the number
+    the 2-stage bound is held to. ``resident_bytes`` counts the permanently placed
+    remainder (prepare and finalize weights), which is not part of the ring."""
+
+    live_bytes: int = 0
+    peak_bytes: int = 0
+    resident_bytes: int = 0
+    _tags: dict = dataclasses.field(default_factory=dict)
+
+    def place(self, tag, nbytes: int) -> None:
+        if tag in self._tags:
+            raise ValueError(f"stage {tag!r} placed twice without retirement")
+        self._tags[tag] = int(nbytes)
+        self.live_bytes += int(nbytes)
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def retire(self, tag) -> None:
+        self.live_bytes -= self._tags.pop(tag)
+
+    def add_resident(self, nbytes: int) -> None:
+        self.resident_bytes += int(nbytes)
+
+    @property
+    def live_tags(self) -> tuple:
+        return tuple(self._tags)

@@ -19,9 +19,13 @@ a ready model (counterpart of ``comfyui_parallelanything_tpu/models/loader.py``)
   replicates (any_device_parallel.py:992-1004).
 - Every loader builds its model on ``device`` (default ``cuda:0``).
 
-Left out, with the work that needs them: the weight-streaming and planner helpers
-(``params_nbytes``, ``pin_params_host``, ``carve_ranges``, ``segment_nbytes``,
-``carve_stages``; ROADMAP Queue 1 items 6 and 8) and the Wan loaders (item 10),
+- The weight-streaming helpers (``parallel/streaming.py``; the planner will share
+  ``carve_ranges``): ``params_nbytes`` counts what competes for device memory,
+  ``pin_params_host`` lays tensors back to back in one host buffer, page-locked
+  for a GPU, and ``carve_ranges`` / ``segment_nbytes`` / ``carve_stages`` group a
+  ``PipelineSpec``'s segments into byte-bounded stages.
+
+Left out, with the work that needs it: the Wan loaders (ROADMAP Queue 1 item 10),
 whose ``load_wan_checkpoint`` raises.
 """
 
@@ -33,7 +37,8 @@ import logging
 import os
 import struct
 import types
-from collections.abc import Mapping
+import weakref
+from collections.abc import Mapping, Sequence
 from typing import Any
 
 import torch
@@ -151,6 +156,140 @@ def save_safetensors(path: str | os.PathLike, tensors: Mapping[str, torch.Tensor
         f.write(head)
         for raw in blobs:
             f.write(raw)
+
+
+# Byte alignment of each tensor in a flat host copy, and so in a streamed stage's
+# device slot: every dtype's view stays aligned, as the caching allocator's blocks are.
+HOST_ALIGN = 256
+
+
+def _align(n: int) -> int:
+    return -(-n // HOST_ALIGN) * HOST_ALIGN
+
+
+def module_tensors(module: torch.nn.Module, keys: Sequence[str] | None = None) -> list:
+    """The parameters and buffers of ``module``, or of the submodules its dotted
+    ``keys`` name, each once, in a fixed order: an int8 weight gives its payload
+    (``parametrizations.<name>.original``) and its scales (the ``Dequantize``
+    buffer). A key the module lacks raises ``KeyError``."""
+    subs = [module]
+    if keys is not None:
+        try:
+            subs = [module.get_submodule(k) for k in keys]
+        except AttributeError as e:
+            raise KeyError(f"no submodule named by {list(keys)}: {e}") from None
+    seen: set[int] = set()
+    out = []
+    for sub in subs:
+        for t in (*sub.parameters(), *sub.buffers()):
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append(t)
+    return out
+
+
+def params_nbytes(module: torch.nn.Module, keys: Sequence[str] | None = None) -> int:
+    """Stored bytes of a module's parameters and buffers (or of the submodules
+    ``keys`` names): the number that competes for device memory. An int8 weight
+    counts its payload and its f32 scales, as the JAX count counts every leaf of a
+    ``QuantTensor`` (``quantize.param_bytes``'s rule)."""
+    return sum(t.numel() * t.element_size() for t in module_tensors(module, keys))
+
+
+def _unpin(buffer: torch.Tensor) -> None:
+    torch.cuda.synchronize()  # no copy may still read the pages
+    torch.cuda.cudart().cudaHostUnregister(buffer.data_ptr())
+
+
+@dataclasses.dataclass(eq=False)
+class HostCopy:
+    """Tensors laid back to back in one flat ``uint8`` host buffer, each starting
+    at a multiple of ``HOST_ALIGN`` bytes (``offsets``, ``ends``). ``pinned_nbytes``
+    is what is page-locked with CUDA: the buffer's exact size, or 0."""
+
+    buffer: torch.Tensor
+    offsets: list[int]
+    ends: list[int]
+    pinned_nbytes: int = 0
+
+
+def pin_params_host(tensors: Sequence[torch.Tensor], device) -> HostCopy:
+    """The host master copy for the weight-streaming executor
+    (``parallel/streaming.py``): ``tensors`` copied into one flat host buffer, so a
+    run of consecutive tensors is one contiguous byte range, one host→device copy.
+
+    For a CUDA ``device`` the buffer is page-locked at its exact size
+    (``cudaHostRegister``; torch's pinned allocator would round each block up to a
+    power of two) before the tensors are copied in,
+    so a stage's copy runs at the DMA rate; a registration that fails raises
+    ``RuntimeError`` rather than stream from pageable memory. The pages are
+    released when the copy is dropped. For any other device the buffer is ordinary
+    host memory (the JAX package's fallback to host numpy)."""
+    device = torch.device(device)
+    offsets, ends, end = [], [], 0
+    for t in tensors:
+        offsets.append(_align(end))
+        end = offsets[-1] + t.numel() * t.element_size()
+        ends.append(end)
+    buffer = torch.empty(_align(end), dtype=torch.uint8)
+    host = HostCopy(buffer, offsets, ends)
+    if device.type == "cuda" and buffer.numel():
+        cudart = torch.cuda.cudart()
+        err = cudart.cudaHostRegister(buffer.data_ptr(), buffer.numel(), 0)
+        if int(err) != 0 or not buffer.is_pinned():
+            raise RuntimeError(
+                f"could not page-lock {buffer.numel()} bytes of host memory for weight "
+                f"streaming (cudaHostRegister returned {int(err)}); refusing to stream "
+                "from pageable memory")
+        weakref.finalize(host, _unpin, buffer).atexit = False
+        host.pinned_nbytes = buffer.numel()
+    for t, o in zip(tensors, offsets):
+        host_view(buffer, o, t).copy_(t.detach())
+    return host
+
+
+def host_view(buffer: torch.Tensor, offset: int, like: torch.Tensor) -> torch.Tensor:
+    """The bytes of ``buffer`` from ``offset`` viewed as a tensor of ``like``'s
+    dtype and shape."""
+    n = like.numel() * like.element_size()
+    return buffer[offset:offset + n].view(like.dtype).view(like.shape)
+
+
+def carve_ranges(sizes: Sequence[int], max_stage_bytes: int | None = None,
+                 n_stages: int | None = None) -> list[tuple[int, int]]:
+    """The carve arithmetic behind :func:`carve_stages`, over segment byte sizes
+    alone (shared with the planner's stream-carve axis, ROADMAP item 8). Greedy
+    contiguous packing: each stage's bytes fit ``max_stage_bytes``, or, given only a
+    stage count, stages are balanced by bytes. A lone segment above the cap forms
+    its own stage (a segment is the atomic streaming unit)."""
+    sizes = list(sizes)
+    total = sum(sizes)
+    if max_stage_bytes is None:
+        n = max(1, min(len(sizes), int(n_stages or 4)))
+        max_stage_bytes = max(1, -(-total // n))
+    ranges: list[tuple[int, int]] = []
+    start, acc = 0, 0
+    for i, sz in enumerate(sizes):
+        if i > start and acc + sz > max_stage_bytes:
+            ranges.append((start, i))
+            start, acc = i, 0
+        acc += sz
+    ranges.append((start, len(sizes)))
+    return ranges
+
+
+def segment_nbytes(spec, module: torch.nn.Module) -> list[int]:
+    """Stored bytes of each segment of a ``PipelineSpec``, over the submodules its
+    ``param_keys`` name: the byte profile the carve works on."""
+    return [params_nbytes(module, seg.param_keys) for seg in spec.segments]
+
+
+def carve_stages(spec, module: torch.nn.Module, max_stage_bytes: int | None = None,
+                 n_stages: int | None = None) -> list[tuple[int, int]]:
+    """Contiguous ``[(start, end), ...]`` stage ranges over ``spec.segments`` for
+    the streaming executor (:func:`carve_ranges` over :func:`segment_nbytes`)."""
+    return carve_ranges(segment_nbytes(spec, module), max_stage_bytes=max_stage_bytes,
+                        n_stages=n_stages)
 
 
 def _resolve_state_dict(src: Any) -> Mapping[str, Any]:

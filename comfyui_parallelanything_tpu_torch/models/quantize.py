@@ -97,9 +97,10 @@ def quantize_module(module: nn.Module, min_size: int = INT8_MIN_SIZE) -> nn.Modu
 
 def param_bytes(module: nn.Module) -> int:
     """Stored bytes of a module's parameters and buffers: a quantized weight counts
-    its int8 payload and its f32 scales."""
-    tensors = list(module.parameters()) + list(module.buffers())
-    return sum(t.numel() * t.element_size() for t in tensors)
+    its int8 payload and its f32 scales (``loader.params_nbytes`` of the module)."""
+    from .loader import params_nbytes
+
+    return params_nbytes(module)
 
 
 def quantize_model(model, min_size: int = INT8_MIN_SIZE):

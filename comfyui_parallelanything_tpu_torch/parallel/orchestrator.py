@@ -29,6 +29,19 @@ the weights. ``ParallelModel`` routes each call by the JAX package's hand ladder
   and run single-device until ``reactivate()``/``rebalance()``, or for
   ``reactivate_after`` steps. Any other error propagates.
 
+Weight streaming (``parallel/streaming.py``) takes every call, at every batch
+size, ``single()`` included, when ``weight_sharding="stream"`` (which needs a
+pipeline spec and no tensor parallelism, else ``ValueError``), or when a model with
+a pipeline spec holds more bytes (``loader.params_nbytes``: parameters and buffers,
+int8 scales included) than the budget (``hbm_budget_bytes``, else
+``devices.memory.usable_hbm_bytes`` of the lead). Such a model places no replica:
+its weights stay in a host copy and stream through the lead device, the runner
+built on the first call. An out-of-memory error re-carves the stages at half the
+size and retries until a stage is one segment; ``traceable()`` is None (a captured
+loop would hold every weight) and ``reactivate()`` does nothing. A model over the
+budget without a pipeline spec is placed as any other, and the setup-OOM ladder
+below decides.
+
 Set-up as in the JAX package: the user's weights are blended with free device
 memory (``auto_memory_balance``) and then with each device's nominal step time
 from the roofline platform specs (``auto_speed_balance``; a no-op on a chain of
@@ -44,8 +57,7 @@ gives it; a chain with a host stage runs the eager loop, which takes the pipelin
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 item: the auto-parallel planner (so the stage carve is always the
-weight-proportional one), ``weight_sharding`` other than ``"replicate"`` (fsdp,
-weight streaming) and ``tensor_parallel > 1``.
+weight-proportional one), ``weight_sharding="fsdp"`` and ``tensor_parallel > 1``.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ import torch
 
 from ..devices.discovery import device_kind, device_platform
 from ..devices.memory import free_memory_bytes, usable_hbm_bytes
+from ..models.loader import params_nbytes
 from ..utils import roofline
 from .chain import DeviceChain, DeviceLink
 from .split import (
@@ -117,10 +130,15 @@ class ParallelConfig:
         until ``reactivate()`` or ``rebalance()``)
     ``pipeline_microbatches`` — k > 1 streams a batch >= k through the pipeline
         stages as k microbatches (0 or 1: off)
-    ``weight_sharding``, ``tensor_parallel``, ``hbm_budget_bytes`` — only their
-    defaults are ported; other values raise ``NotImplementedError``
-    (``hbm_budget_bytes`` is the budget a replica must fit before weight streaming
-    would take over; None reads ``devices.memory.usable_hbm_bytes``).
+    ``weight_sharding``     — ``"replicate"``, or ``"stream"`` (weight streaming;
+        ``"fsdp"`` raises ``NotImplementedError``, as does ``tensor_parallel > 1``)
+    ``hbm_budget_bytes``    — the device budget the weights-don't-fit decision and
+        the stream's stage carve use; None reads ``devices.memory.usable_hbm_bytes``
+        (pass it on the host, which reports no memory)
+    ``stream_overlap``      — False runs every stream copy and stage to completion
+        in order (the streaming debug mode)
+    ``stream_stages``       — a stage count for the stream (the planner's carve),
+        kept only where its byte-balanced carve fits the budget's stage cap
     """
 
     workload_split: bool = True
@@ -133,6 +151,8 @@ class ParallelConfig:
     tensor_parallel: int = 1
     pipeline_microbatches: int = 0
     hbm_budget_bytes: int | None = None
+    stream_overlap: bool = True
+    stream_stages: int | None = None
 
 
 @dataclasses.dataclass
@@ -237,7 +257,7 @@ class ParallelModel:
     def __init__(self, module, chain: DeviceChain, config: ParallelConfig,
                  groups: list[_PlatformGroup], weights: tuple[float, ...],
                  pipeline_spec: Any = None, model_config: Any = None,
-                 sampler_prefs: dict | None = None):
+                 sampler_prefs: dict | None = None, streaming: bool = False):
         self._module = module
         self.chain = chain
         self.config = config
@@ -245,6 +265,10 @@ class ParallelModel:
         self.weights = weights
         self._pipeline_spec = pipeline_spec
         self._pipeline_runner = None  # built on the first pipeline call
+        # Weight streaming: no replica is placed, every call streams through the
+        # lead device; the runner is built on the first call.
+        self._stream = streaming
+        self._stream_runner = None
         # The wrapped model's own config (FluxConfig, ...), distinct from ``config``.
         self.model_config = model_config
         # The wrapped model's sampling defaults (patch nodes), read by the samplers.
@@ -267,11 +291,20 @@ class ParallelModel:
         return sum(len(g.devices) for g in self._groups)
 
     @property
+    def is_streaming(self) -> bool:
+        """True when every call streams the weights through the lead device."""
+        return self._stream
+
+    @property
     def _replicas(self) -> list[torch.nn.Module]:
         """Every placed replica, in chain order."""
         return [r for g in self._groups for r in g.replicas]
 
     def __call__(self, x, timesteps, context=None, **kwargs):
+        if self._stream:
+            # Every batch size and every route: a fallback would place the whole
+            # model on one device, which is what cannot fit.
+            return self._stream_call(x, timesteps, context, kwargs)
         if not self.active:
             ra = self.config.reactivate_after
             if self._demoted and not self._cleaned and ra is not None \
@@ -324,7 +357,10 @@ class ParallelModel:
         return g.replicas[0]
 
     def single(self, x, timesteps, context=None, **kwargs):
-        """The whole batch on the lead device's replica."""
+        """The whole batch on the lead device's replica (streamed, for a streaming
+        model)."""
+        if self._stream:
+            return self._stream_call(x, timesteps, context, kwargs)
         lead = self.lead_device
         module = self._lead_replica()
         with torch.no_grad():
@@ -379,6 +415,44 @@ class ParallelModel:
         outs = [runner(xi, ti, ci, **ki) for xi, ti, ci, ki in chunks]
         return slice_padded(concat_results(outs), batch, padded)
 
+    def _get_streaming_runner(self):
+        """Build the weight-streaming runner on the first call (it copies the
+        weights to the host and places prepare and finalize on the lead)."""
+        if self._stream_runner is None:
+            from .streaming import build_streaming_runner
+
+            budget = self.config.hbm_budget_bytes or usable_hbm_bytes(self.lead_device) or None
+            self._stream_runner = build_streaming_runner(
+                self._pipeline_spec, self._module, self.lead_device, hbm_budget_bytes=budget,
+                n_stages=self.config.stream_stages, overlap=self.config.stream_overlap)
+            if self._stream_runner is None:
+                raise ValueError("weight streaming requires a model with a PipelineSpec (the "
+                                 "staged decomposition the stream is carved from); this "
+                                 "model declares none")
+        return self._stream_runner
+
+    def _stream_call(self, x, timesteps, context, kwargs):
+        """Streamed execution with the stream form of the OOM demotion: an
+        out-of-memory error re-carves the stages at half the size and retries,
+        until a stage is one segment; then, and for any other error, it raises."""
+        while True:
+            runner = self._get_streaming_runner()
+            try:
+                return runner(x, timesteps, context, **kwargs)
+            except Exception as e:
+                if not is_out_of_memory(e):
+                    raise
+                deeper = runner.recarved()
+                if deeper is None:
+                    logger.error("stream-recarve: %s at %d stages, no finer carve", e,
+                                 runner.n_stages)
+                    raise
+                logger.warning("stream-recarve: %s; re-carving the weight stream %d -> %d "
+                               "stages", type(e).__name__, runner.n_stages, deeper.n_stages)
+                self._stream_runner = deeper
+            runner = None
+            _release_memory(True)
+
     def _get_pipeline_runner(self):
         """Build the stage-placement runner on the first pipeline call, over every
         device in chain order with the chain's weights (the planner's byte-balanced
@@ -406,7 +480,8 @@ class ParallelModel:
         directly and so gives up step-OOM demotion."""
         from ..sampling.compiled import TraceSpec
 
-        if len(self._groups) != 1:
+        if self._stream or len(self._groups) != 1:
+            # A streaming model: one captured loop would hold every weight.
             return None
         g = self._groups[0]
         if self.active and self.config.workload_split and len(g.devices) > 1 \
@@ -434,7 +509,10 @@ class ParallelModel:
         """Place the replicas again and resume parallel execution after a
         demotion. Called by hand, by ``rebalance()``, or after
         ``config.reactivate_after`` single-device steps. All or nothing: a
-        placement failure drops the replicas this attempt placed, then raises."""
+        placement failure drops the replicas this attempt placed, then raises. A
+        no-op for a streaming model, which is never demoted and places no replica."""
+        if self._stream:
+            return
         self._steps_demoted = 0
         before = [len(g.replicas) for g in self._groups]
         try:
@@ -489,6 +567,7 @@ class ParallelModel:
         for g in self._groups:
             g.replicas = []
         self._pipeline_runner = None
+        self._stream_runner = None
         clear_compiled_loops()
         _release_memory(self.config.purge_cache)
         logger.info("parallel teardown complete")
@@ -518,11 +597,11 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
     config = config or ParallelConfig()
     if plan_hints is not None or _planner_requested():
         raise _not_ported("the auto-parallel planner (ROADMAP Queue 1, Planner)")
-    if config.weight_sharding != "replicate":
-        raise _not_ported(
-            f"weight_sharding={config.weight_sharding!r} (ROADMAP Queue 1, "
-            "Weight streaming / fsdp)"
-        )
+    stream_mode = config.weight_sharding == "stream"
+    if stream_mode and config.tensor_parallel > 1:
+        raise ValueError("weight_sharding='stream' does not compose with tensor_parallel")
+    if config.weight_sharding not in ("replicate", "stream"):
+        raise _not_ported(f"weight_sharding={config.weight_sharding!r} (ROADMAP Queue 1, fsdp / tp)")
     if config.tensor_parallel > 1:
         raise _not_ported("tensor_parallel > 1 (ROADMAP Queue 1, fsdp / tp)")
     if not isinstance(chain, DeviceChain):
@@ -541,6 +620,9 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
             raise TypeError(f"model must be a DiffusionModel or an nn.Module, got {type(model).__name__}")
         if pipeline_spec is None:
             pipeline_spec = getattr(model, "pipeline_spec", None)
+    if stream_mode and pipeline_spec is None:
+        raise ValueError("weight_sharding='stream' requires a model with a PipelineSpec "
+                         "(the staged decomposition the stream is carved from)")
 
     chain = chain.validated().deduplicated()
     weights = chain.normalized_weights()
@@ -555,15 +637,19 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
         weights = blend_speed_weights(weights, _device_step_times(devices))
     groups = _group_links(chain, devices, weights, user_weights)
 
-    budget = config.hbm_budget_bytes or usable_hbm_bytes(devices[0])
-    nbytes = sum(p.numel() * p.element_size() for p in module.parameters())
-    if budget and nbytes > budget:
-        raise _not_ported(
-            f"weight streaming for {nbytes / 2**30:.2f} GiB of weights over a "
-            f"{budget / 2**30:.2f} GiB budget (ROADMAP Queue 1, Weight streaming)"
-        )
+    if not stream_mode and pipeline_spec is not None:
+        # Weights that do not fit the lead's budget cannot be placed: the
+        # setup-OOM ladder would drop device after device and still fail. Stream
+        # them through the lead instead.
+        budget = config.hbm_budget_bytes or usable_hbm_bytes(devices[0])
+        nbytes = params_nbytes(module)
+        if budget and nbytes > budget:
+            logger.warning("weights-dont-fit: %.2f GiB of weights vs a %.2f GiB device "
+                           "budget; routing to the weight-streaming executor",
+                           nbytes / 2**30, budget / 2**30)
+            stream_mode = True
 
-    while True:
+    while not stream_mode:
         try:
             for g in groups:
                 g.place(module)
@@ -585,11 +671,11 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
     surviving = [(s, w) for g in groups for s, w in zip(g.device_strs, g.device_weights)]
     final = normalize_weights([w for _, w in surviving])
     chain = DeviceChain(tuple(DeviceLink(s, w * 100.0) for (s, _), w in zip(surviving, final)))
-    logger.info("parallel setup: %s (%s)", chain.devices,
-                "hybrid" if len(groups) > 1 else groups[0].platform)
+    logger.info("parallel setup: %s (%s)", chain.devices, "stream" if stream_mode
+                else "hybrid" if len(groups) > 1 else groups[0].platform)
     return ParallelModel(module, chain, config, groups, final,
                          pipeline_spec=pipeline_spec, model_config=wrapped_config,
-                         sampler_prefs=sampler_prefs)
+                         sampler_prefs=sampler_prefs, streaming=stream_mode)
 
 
 def model_config_of(model) -> Any:

@@ -76,23 +76,31 @@ def _placed(sources: Sequence[torch.nn.Module], key: str, device: torch.device):
     return held[0] if held else _place(subs[0], device)
 
 
-def _stage_view(sources: Sequence[torch.nn.Module], keys: Sequence[str],
-                device: torch.device) -> torch.nn.Module:
-    """A shallow view of ``sources[0]`` with every submodule ``keys`` names placed
-    on ``device``; raises KeyError for a key the model does not have (as the JAX
-    runner's ``subset`` does)."""
-    missing = [k for k in keys if _resolve(sources[0], k) is None]
+def _view_with(root: torch.nn.Module, keys: Sequence[str],
+                make: Callable[[str], torch.nn.Module]) -> torch.nn.Module:
+    """A shallow view of ``root`` whose submodule named by each of ``keys`` is
+    ``make(key)``; raises KeyError for a key the model does not have (as the JAX
+    runner's ``subset`` does). The weight-streaming runner builds its stage views
+    with the same walk."""
+    missing = [k for k in keys if _resolve(root, k) is None]
     if missing:
         raise KeyError(f"pipeline spec references submodules not in the model: {missing}")
-    view = _shallow(sources[0])
+    view = _shallow(root)
     for key in keys:
         *path, leaf = key.split(".")
         node = view
         for part in path:
             node._modules[part] = _shallow(node._modules[part])
             node = node._modules[part]
-        node._modules[leaf] = _placed(sources, key, device)
+        node._modules[leaf] = make(key)
     return view
+
+
+def _stage_view(sources: Sequence[torch.nn.Module], keys: Sequence[str],
+                device: torch.device) -> torch.nn.Module:
+    """A view of ``sources[0]`` with every submodule ``keys`` names placed on
+    ``device``."""
+    return _view_with(sources[0], keys, lambda key: _placed(sources, key, device))
 
 
 class PipelineRunner:

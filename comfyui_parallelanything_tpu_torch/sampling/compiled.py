@@ -41,7 +41,8 @@ Where the JAX package scans one XLA program, this module records one CUDA graph.
   inside the loop). The JAX package instead falls back to the eager loop on a
   compile failure (its ``_compile_eager_rung``); here the eager loop is taken
   only where the runner decides before the loop, from the caller's inputs: a user
-  callback, combined conditioning, a heterogeneous chain. An OOM during capture or
+  callback, combined conditioning, a weight-streaming model (whose ``traceable()``
+  is None), a heterogeneous chain. An OOM during capture or
   replay raises too: like the JAX program, the loop gives up step-OOM demotion.
 - **On the CPU** (tensors on the host, as in the tests) the same loop body runs
   without capture, as JAX runs its scan on the CPU backend.

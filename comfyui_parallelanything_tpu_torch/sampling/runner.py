@@ -10,7 +10,7 @@ every branch that takes them, as in the JAX runner. ``compile_loop=True`` runs
 the whole loop as one captured CUDA graph (``compiled.py``) on every branch; the
 eager loop stays where the JAX runner decides before the loop, from the caller's
 inputs, and each such case is logged: a user callback, combined conditioning,
-and a heterogeneous chain. A capture that fails raises instead of falling back
+a weight-streaming model and a heterogeneous chain. A capture that fails raises instead of falling back
 (the JAX runner's compile-failure rung does fall back). Per-request LoRA
 (``lora=``, a factor map from ``models/lora.py``) runs the eagerly merged model
 (``lora_model``) on every branch, as the JAX runner's inline legs do; the serving
@@ -66,6 +66,12 @@ def _compiled_spec(model, callback):
     if callback is not None:
         logger.info("compile_loop: a user callback cannot run inside the captured loop; "
                     "eager path")
+        return None
+    if getattr(model, "is_streaming", False):
+        # Not a degradation: each eager step streams the stages (parallel/streaming.py),
+        # where a captured loop would copy every weight into the graph's pool.
+        logger.info("compile_loop: a weight-streaming model runs its stages from the eager "
+                    "loop; eager path")
         return None
     spec = trace_spec_of(model)
     if spec is None:

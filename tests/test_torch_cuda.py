@@ -1,6 +1,7 @@
 """GPU tests of the PyTorch port: the CUDA kernels against their plain versions,
 small FLUX, UNet, ControlNet and SD3 models through ``parallelize`` on the card
-against the same models on the CPU, the whole-loop compiled sampler's captured
+against the same models on the CPU, a small FLUX streamed from pinned host memory
+against the same model resident, the whole-loop compiled sampler's captured
 graphs against the eager loop, a ``cuda:0`` + ``cpu`` chain, the example graphs
 (native and stock names) and the CLIP vision tower on the card against the CPU.
 Every test here needs a CUDA device and skips without one.
@@ -303,6 +304,53 @@ def test_small_flux_data_parallel_over_every_card(cuda_device):
     assert got.device == cuda_device and torch.cuda.current_device() == 0
     rel = ((got.cpu() - want).norm() / want.norm()).item()
     assert rel <= 1e-4, rel
+
+
+STREAM_FLUX = dict(SMALL, hidden_size=1024, num_heads=8, depth_single_blocks=4)
+# Device bytes a streamed call may hold beyond its two slots and resident weights:
+# the activations of a batch-2, 32×32-latent FLUX call, cuBLAS workspaces, and the
+# slots' alignment padding (at most 255 bytes a tensor).
+STREAM_ACTIVATION_MARGIN = 32 * 2**20
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_streamed_small_flux_pins_its_host_copy_and_matches_resident(cuda_device, overlap):
+    from comfyui_parallelanything_tpu_torch import ParallelConfig
+    from comfyui_parallelanything_tpu_torch.models.loader import params_nbytes
+
+    cfg = flux.flux_dev_config(**STREAM_FLUX, dtype=torch.bfloat16)
+    host_model = flux.build_flux(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x, ctx, y = (torch.randn(s, generator=g).to(cuda_device)
+                 for s in ((2, 32, 32, 4), (2, 16, 64), (2, 32)))
+    resident = parallelize(flux.build_flux(cfg, device=cuda_device,
+                                           state_dict=host_model.module.state_dict()),
+                           [("cuda:0", 100)])
+    want = flow_euler_sample(resident, x, ctx, steps=2, guidance=3.5, y=y)
+    del resident
+    torch.cuda.empty_cache()
+    total = params_nbytes(host_model.module)
+    pm = parallelize(host_model, [("cuda:0", 100)],
+                     ParallelConfig(hbm_budget_bytes=total // 2, stream_overlap=overlap))
+    assert pm.is_streaming
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    launches = fa.launches_by_variant["sm90"]
+    got = flow_euler_sample(pm, x, ctx, steps=2, guidance=3.5, y=y)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    runner = pm._stream_runner
+    host = runner._master.host.buffer
+    assert host.is_pinned() and runner.pinned_nbytes == host.numel() >= runner.streamed_nbytes
+    assert runner.n_stages >= 3 and runner.overlap == overlap
+    assert fa.launches_by_variant["sm90"] - launches == 2 * (cfg.depth + cfg.depth_single_blocks)
+    assert runner.tracker.peak_bytes <= 2 * runner.max_stage_nbytes
+    assert runner.tracker.live_bytes == 0
+    bound = 2 * runner.max_stage_nbytes + runner.tracker.resident_bytes + STREAM_ACTIVATION_MARGIN
+    assert peak <= bound < total, (peak, bound, total)
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= 1e-3, rel
 
 
 PIPE_FLUX = dict(hidden_size=64, num_heads=2, depth=1, depth_single_blocks=1, mlp_ratio=2.0,

@@ -201,8 +201,11 @@ def test_routing_ladder_and_not_ported_paths(dev_pair, monkeypatch):
     x3, t3, ctx3, y3 = (torch.from_numpy(a) for a in _inputs(3, seed=5))
     np.testing.assert_allclose(hybrid(x3, t3, ctx3, y=y3).numpy(),
                                pm(x3, t3, ctx3, y=y3).numpy(), **TOL)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        parallelize(pm, chain4, ParallelConfig(hbm_budget_bytes=1))
+    # Weights over the budget, with a pipeline spec: streamed through the lead.
+    streamed = parallelize(pm, chain4, ParallelConfig(hbm_budget_bytes=1))
+    assert streamed.is_streaming
+    np.testing.assert_allclose(streamed(x, t, ctx, y=y).numpy(), pm(x, t, ctx, y=y).numpy(),
+                               **TOL)
     monkeypatch.setenv("PA_PLANNER", "1")
     with pytest.raises(NotImplementedError, match="planner"):
         parallelize(pm, chain4)
