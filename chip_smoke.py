@@ -171,6 +171,24 @@ the error.
    ``wide`` (the VAE encode's and decode's mid-block calls). Their new K1 shapes are
    in ``GRAPH_K1_SHAPES``, checked one batch element at a time where the plain
    version's logits would not fit.
+15. wan — ``WanVideoPipeline`` with Wan2.1-T2V-1.3B at full width and depth (30
+   blocks, hidden 1536, 12 heads of 128), UMT5-XXL at 512 tokens and the Wan VAE,
+   random bf16 weights from a seeded generator, the DiT through ``parallelize`` on
+   ``[("cuda:0", 100)]``: 480×832, 81 frames (a 21×60×104 latent, 32760 space-time
+   tokens), 4 flow_euler steps at shift 5, CFG 5 with a negative prompt (one batch-2
+   forward): exactly 60 ``sm90`` a forward and one ``wide`` for the decode; the video
+   finite, (1, 81, 480, 832, 3), in [0, 1]; encode, denoise and decode seconds, s/it,
+   peak memory; a DiT forward and a whole-clip decode against plain attention; one
+   profiled step; 2 steps captured against eager in turns, bitwise, 60 ``sm90`` a
+   forward per replay.
+16. wan_i2v — the same pipeline image→video with Wan2.1-I2V-14B-480P (40 blocks,
+   hidden 5120, 40 heads, 36 input channels, the CLIP branch over 257 tokens of 1280)
+   and the port's CLIP ViT-H/14 tower on a seeded start image, the t2v phase's UMT5
+   and VAE (the 81-frame conditioning clip encoded whole): 2 steps, CFG 5, exactly 120
+   ``sm90`` a forward, one ``wide`` in the encode and one in the decode; then one
+   forward at 17 frames against plain attention. The 14B model is freed after it.
+   The kernel phase holds K1 at both phases' calls (``wan_*`` rows of
+   ``KERNEL_CASES``), the self-attention rows one (batch, head) pair at a time.
 ``hybrid`` also prints ``hybrid_rows``: the GPU group's rows of one CFG forward
 against the same rows of the 8-row forward on the card alone.
 Then the script's wall time, the ``kernels`` line, and last
@@ -204,10 +222,17 @@ SD15_256 = (2, 256, 8, 160)  # level 2 (16²), 1280 wide
 SD35L_JOINT = (2, 4250, 38, 64)  # SD3.5-large at 1024²: 154 text + 4096 image tokens
 SD35M_JOINT = (2, 4250, 24, 64)  # SD3.5-medium's joint attention, the same tokens
 SD35M_X = (2, 4096, 24, 64)  # SD3.5-medium's x-only attention (its first 13 blocks)
+# Wan at 480×832, 81 frames: a 21×60×104 latent, 2×2 patches → 32760 space-time tokens
+# (255·128 + 120, a ragged tail), CFG's batch 2; text cross-attention over 512 UMT5
+# tokens and the 14B i2v image cross-attention over 257 CLIP tokens (2·128 + 1).
+WAN13_SELF = (2, 32760, 12, 128)  # Wan2.1-T2V-1.3B: 12 heads of 128
+WAN14_SELF = (2, 32760, 40, 128)  # Wan2.1-I2V-14B: 40 heads of 128
+WAN_VAE_MID = (21, 6240, 1, 384)  # the Wan VAE's mid-block: 21 frames of 60×104, C = 384
 # name, q shape, k/v shape, dtype name, layout, the variant that must serve it.
 # Layouts: "contiguous"; "single_block_v", v a strided view of a fused projection
 # as in the FLUX single block (q and k contiguous); "unaligned", every input a
-# view one element into its storage (2-byte aligned).
+# view one element into its storage (2-byte aligned); "fused_qkv", q, k and v views
+# of one (B, S, H, 3·D) projection, as the Wan VAE's mid-block splits its to_qkv.
 KERNEL_CASES = [
     ("flux_dev_1024", FLUX_SHAPE, FLUX_SHAPE, "bfloat16", "contiguous", "sm90"),
     ("flux_dev_1024_single_block_v", FLUX_SHAPE, FLUX_SHAPE, "bfloat16", "single_block_v",
@@ -288,6 +313,18 @@ KERNEL_CASES = [
      "contiguous", "sm90"),
     ("sd15_hybrid_cross_256x77_d160", (7, 256, 8, 160), (7, 77, 8, 160), "bfloat16",
      "contiguous", "wide"),
+    # Wan's calls at 480×832×81 (their plain checks run one batch element and head at a
+    # time, ``kernel_error``): the 1.3B and 14B self- and text cross-attention, the
+    # 14B i2v image cross-attention, and the video VAE's mid-block (wide, D = 384).
+    ("wan_1_3b_self_32760", WAN13_SELF, WAN13_SELF, "bfloat16", "contiguous", "sm90"),
+    ("wan_1_3b_cross_32760x512", WAN13_SELF, (2, 512, 12, 128), "bfloat16", "contiguous",
+     "sm90"),
+    ("wan_14b_self_32760", WAN14_SELF, WAN14_SELF, "bfloat16", "contiguous", "sm90"),
+    ("wan_14b_cross_32760x512", WAN14_SELF, (2, 512, 40, 128), "bfloat16", "contiguous",
+     "sm90"),
+    ("wan_14b_img_32760x257", WAN14_SELF, (2, 257, 40, 128), "bfloat16", "contiguous",
+     "sm90"),
+    ("wan_vae_mid_d384", WAN_VAE_MID, WAN_VAE_MID, "bfloat16", "fused_qkv", "wide"),
 ]
 # Limits on the kernel's error against the plain version computed in f32 on the
 # same (exactly upcast) inputs: per element |got - want| <= atol + rtol · (P·|V|),
@@ -334,25 +371,58 @@ def make_case(qshape, kshape, dtype_name, layout, gen, device):
             return randn((math.prod(shape) + 1,))[1:].view(shape)
 
         return shifted(qshape), shifted(kshape), shifted(kshape)
+    if layout == "fused_qkv":
+        if qshape != kshape:
+            raise ValueError("fused_qkv is self-attention: q and k shapes must match")
+        b, s, h, d = qshape
+        return randn((b, s, h, 3 * d)).split(d, dim=-1)
     raise ValueError(f"unknown layout {layout!r}")
+
+
+# Above this many bytes of f32 logits the plain version in ``kernel_error`` runs one
+# (batch element, head) pair at a time: Wan's 32760-token self-attention makes
+# 4.29 GB of logits per pair, 103 GB (1.3B) and 343 GB (14B) in all.
+PLAIN_SLICE_BYTES = 20e9
+
+
+def plain_logit_bytes(qshape, kshape) -> float:
+    b, sq, h, _ = qshape
+    return 4.0 * b * h * sq * kshape[1]
 
 
 def kernel_error(got, q, k, v, scale=None) -> dict:
     """K1's output ``got`` for q/k/v against the plain version on the same inputs,
     upcast exactly to f32 and without the final cast: max abs and relative L2 error,
-    and whether both are inside ``KERNEL_LIMITS`` for q's dtype."""
+    and whether both are inside ``KERNEL_LIMITS`` for q's dtype. Where the plain
+    version's logits pass ``PLAIN_SLICE_BYTES`` it runs per (batch element, head)
+    pair (attention is independent per pair); the relative L2 error is then each
+    batch element's over its heads, and the largest of those is returned."""
     from comfyui_parallelanything_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_plain,
     )
 
     atol, rtol, rel_l2_limit = KERNEL_LIMITS[str(q.dtype).removeprefix("torch.")]
-    qf, kf, vf = q.float(), k.float(), v.float()
-    want = flash_attention_plain(qf, kf, vf, scale)
-    mag = flash_attention_plain(qf, kf, vf.abs(), scale)  # P·|V|
-    diff = (got.float() - want).abs()
-    rel_l2 = (diff.norm() / want.norm()).item()
-    ok = bool((diff <= atol + rtol * mag).all().item()) and rel_l2 <= rel_l2_limit
-    return {"max_abs_err": diff.max().item(), "rel_l2_err": rel_l2, "ok": ok}
+    sliced = plain_logit_bytes(q.shape, k.shape) > PLAIN_SLICE_BYTES
+    elements = ([slice(i, i + 1) for i in range(q.shape[0])] if sliced else [slice(None)])
+    heads = ([slice(j, j + 1) for j in range(q.shape[2])] if sliced else [slice(None)])
+    max_abs, rel_l2, ok = 0.0, 0.0, True
+    for b in elements:
+        diff_sq = want_sq = 0.0
+        for h in heads:
+            qf, kf, vf = (t[b, :, h].float() for t in (q, k, v))
+            want = flash_attention_plain(qf, kf, vf, scale)
+            mag = flash_attention_plain(qf, kf, vf.abs(), scale)  # P·|V|
+            diff = (got[b, :, h].float() - want).abs()
+            max_abs = max(max_abs, diff.max().item())
+            diff_sq += diff.norm().item() ** 2
+            want_sq += want.norm().item() ** 2
+            ok = ok and bool((diff <= atol + rtol * mag).all().item())
+            del want, mag, diff
+        rel_l2 = max(rel_l2, math.sqrt(diff_sq / want_sq))
+    res = {"max_abs_err": max_abs, "rel_l2_err": rel_l2, "ok": ok and rel_l2 <= rel_l2_limit}
+    if sliced:
+        res["checked_by_batch_element_head"] = len(elements) * len(heads)
+    return res
 
 
 def tail_bugs(q, k, v) -> dict:
@@ -449,16 +519,18 @@ def peak_flops(variant: str) -> float:
     return H100_BF16_FLOPS
 
 
-def time_variant(fa, variant, q, k, v, iters, plain_iters, plain_batch=None) -> dict:
+def time_variant(fa, variant, q, k, v, iters, plain_iters, plain_batch=None,
+                 plain_heads=None) -> dict:
     """One timing row: K1's ``variant`` forced on q/k/v, its plain version (on the
-    first ``plain_batch`` batch elements when given: ``plain_batch`` is then in the
-    row), ``F.scaled_dot_product_attention`` on the same inputs (and the backend it
-    took), and the card's bound for the call."""
+    first ``plain_batch`` batch elements and ``plain_heads`` heads when given: they
+    are then in the row), ``F.scaled_dot_product_attention`` on the same inputs (and
+    the backend it took), and the card's bound for the call."""
     import torch.nn.functional as F
 
     scale = q.shape[-1] ** -0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pq, pk, pv = (t[:plain_batch] for t in (q, k, v)) if plain_batch else (q, k, v)
+    pq, pk, pv = (t[:plain_batch or t.shape[0], :, :plain_heads or t.shape[2]]
+                  for t in (q, k, v))
     bound_ms, bound_by = attention_bound_ms(tuple(q.shape), tuple(k.shape), q.element_size(),
                                             peak_flops(variant))
     return {
@@ -468,6 +540,7 @@ def time_variant(fa, variant, q, k, v, iters, plain_iters, plain_batch=None) -> 
         "plain_ms": time_ms(lambda: fa.flash_attention_plain(pq, pk, pv), iters=plain_iters,
                             warmup=1),
         **({"plain_batch": plain_batch} if plain_batch else {}),
+        **({"plain_heads": plain_heads} if plain_heads else {}),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters),
         "library_backend": sdpa_backend(qt, kt, vt),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -506,7 +579,12 @@ SHAPES_TIMED = {"sdxl_self_4096_d64": (30, 3), "sdxl_self_1024_d64": (50, 5),
                 "sd15_self_4096_d40": (30, 3), "sd15_self_1024_d80": (50, 5),
                 "sd15_self_256_d160": (50, 5), "sd15_f32_self_4096_d40": (20, 3),
                 "sd15_f32_self_1024_d80": (50, 5), "sd15_f32_self_256_d160": (50, 5),
-                "sd35_large_joint_4250_d64": (20, 2)}
+                "sd35_large_joint_4250_d64": (20, 2),
+                # Wan's: the plain version of the self-attention rows is timed on one
+                # batch element and head (``plain_batch``, ``plain_heads``).
+                "wan_1_3b_self_32760": (10, 2), "wan_1_3b_cross_32760x512": (30, 3),
+                "wan_14b_self_32760": (5, 2), "wan_14b_cross_32760x512": (20, 2),
+                "wan_14b_img_32760x257": (20, 2), "wan_vae_mid_d384": (20, 2)}
 
 
 def probe_numerics(dev) -> dict:
@@ -699,7 +777,9 @@ def phase_kernel() -> dict:
     for case, (iters, plain_iters) in SHAPES_TIMED.items():
         q, k, v, err = kept[case]
         variant = fa.kernel_variant(q, k, v)
-        row = time_variant(fa, variant, q, k, v, iters, plain_iters)
+        one = (dict(plain_batch=1, plain_heads=1)
+               if plain_logit_bytes(q.shape, k.shape) > PLAIN_SLICE_BYTES else {})
+        row = time_variant(fa, variant, q, k, v, iters, plain_iters, **one)
         row["loop_ms"] = loop_ms(lambda: fa._launch(q, k, v, q.shape[-1] ** -0.5, variant),
                                  iters)
         shapes[case] = {**row, "max_abs_err": err}
@@ -2904,24 +2984,6 @@ GRAPH_K1_SHAPES = {
     "sd15_op_cross_320x77_d160": ((2, 320, 8, 160), (2, 77, 8, 160), 50, 5),
     "sd15_vae_op_b1_d512": ((1, 5120, 1, 512), (1, 5120, 1, 512), 20, 2),
 }
-# Above this many bytes of f32 logits the plain version runs one batch element at a
-# time (attention is independent per element): in the check, and in its timing.
-PLAIN_FULL_BATCH_BYTES = 20e9
-
-
-def plain_logit_bytes(qshape, kshape) -> float:
-    b, sq, h, _ = qshape
-    return 4.0 * b * h * sq * kshape[1]
-
-
-def kernel_error_by_element(got, q, k, v) -> dict:
-    """``kernel_error`` one batch element at a time: the largest max abs and
-    relative L2 error over the elements, ok when every element is."""
-    rows = [kernel_error(got[i:i + 1], q[i:i + 1], k[i:i + 1], v[i:i + 1])
-            for i in range(q.shape[0])]
-    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-            "rel_l2_err": max(r["rel_l2_err"] for r in rows),
-            "ok": all(r["ok"] for r in rows), "checked_by_batch_element": True}
 
 
 def graph_k1_shapes(fa) -> dict:
@@ -2936,9 +2998,10 @@ def graph_k1_shapes(fa) -> dict:
     for name, (qshape, kshape, iters, plain_iters) in GRAPH_K1_SHAPES.items():
         q, k, v = make_case(qshape, kshape, "bfloat16", "contiguous", gen, dev)
         variant = fa.kernel_variant(q, k, v)
-        sliced = plain_logit_bytes(qshape, kshape) > PLAIN_FULL_BATCH_BYTES
-        check = kernel_error_by_element if sliced else kernel_error
-        res = check(fa.flash_attention(q, k, v), q, k, v)
+        # Above PLAIN_SLICE_BYTES the check runs per (batch, head) pair and the plain
+        # version is timed on one batch element.
+        sliced = plain_logit_bytes(qshape, kshape) > PLAIN_SLICE_BYTES
+        res = kernel_error(fa.flash_attention(q, k, v), q, k, v)
         if not res["ok"]:
             raise RuntimeError(f"flash_attention disagrees with its plain version at {name}: "
                                f"{res}")
@@ -3340,6 +3403,290 @@ def phase_graph_stock(paths: dict, directory) -> dict:
     return launches
 
 
+WAN_PROMPT = "a red fox running through fresh snow at dawn, cinematic, highly detailed"
+WAN_NEGATIVE = "blurry, static, low quality, watermark"
+WAN_SIZE = dict(height=480, width=832, frames=81)  # latent 21×60×104: 32760 tokens
+WAN_STEPS = 4  # cut from Wan's published 50 to keep the script in its time
+WAN_CFG = 5.0
+WAN_SHIFT = 5.0
+WAN_CAPTURED_STEPS = 2
+WAN_REL_TOL = 5e-2  # bf16 Wan DiT forward and video VAE decode, K1 vs plain attention
+WAN13_SM90_PER_FORWARD = 60  # 30 blocks × (self + text cross), CFG in one batch-2 call
+WAN14_SM90_PER_FORWARD = 120  # 40 blocks × (self + text cross + image cross)
+WAN_I2V_STEPS = 2
+WAN_I2V_CHECK_FRAMES = 17  # 5 latent frames: 7800 tokens for the plain-attention check
+
+
+def _wan_run(pipe, dev, spans, **call) -> tuple:
+    """One timed ``WanVideoPipeline`` call at ``WAN_SIZE``: K1's launches by variant,
+    the spans (encode, VAE encode, decode), s/it from the step stamps and peak memory;
+    returns (video, row)."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+
+    stamps = []
+
+    def on_step(i, latent):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    spans.clear()
+    fa.reset_launches()
+    attention._RESOLVED.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    video = pipe(WAN_PROMPT, WAN_NEGATIVE, cfg_scale=WAN_CFG, shift=WAN_SHIFT,
+                 rng=torch.Generator(device=dev).manual_seed(15), callback=on_step,
+                 **WAN_SIZE, **call)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - start
+    first = max(spans["encode_s_end"], spans.get("vae_encode_s_end", 0.0))
+    step_s = [b - a for a, b in zip([first] + stamps[:-1], stamps)]
+    return video, {
+        "total_s": total, "encode_s": spans["encode_s"],
+        "vae_encode_s": spans.get("vae_encode_s"), "denoise_s": sum(step_s),
+        "decode_s": spans["decode_s"], "s_per_it": sum(step_s) / len(step_s),
+        "step_s": step_s, "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "k1_launches_by_variant": _launched(fa),
+        "resolved_backends": list(attention.resolved_backends()),
+        "video": list(video.shape), "finite": bool(torch.isfinite(video).all().item()),
+        "min": video.min().item(), "max": video.max().item(),
+    }
+
+
+def _wan_latent(frames: int = WAN_SIZE["frames"]) -> tuple[int, int, int]:
+    """(T, H, W) of the Wan VAE's latent at ``WAN_SIZE`` with ``frames`` frames."""
+    return (frames - 1) // 4 + 1, WAN_SIZE["height"] // 8, WAN_SIZE["width"] // 8
+
+
+def _video_ok(row: dict) -> bool:
+    want = [1, WAN_SIZE["frames"], WAN_SIZE["height"], WAN_SIZE["width"], 3]
+    return (row["video"] == want and row["finite"] and row["min"] >= 0.0
+            and row["max"] <= 1.0 and row["resolved_backends"] == ["pallas"])
+
+
+def _wan_forward_vs_plain(model, phase, x, t, ctx, want_launches, **kw) -> dict:
+    """One Wan DiT forward through K1 (exactly ``want_launches``) against the same
+    forward on the plain attention path, within ``WAN_REL_TOL``."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+
+    fa.reset_launches()
+    out_k = model(x, t, ctx, **kw).float()
+    torch.cuda.synchronize()
+    launches = _launched(fa)
+    attention.set_attention_backend("xla")
+    try:
+        out_p = model(x, t, ctx, **kw).float()
+    finally:
+        attention.set_attention_backend("auto")
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    out = {"phase": phase, "shape": list(x.shape), "rel_l2_err": rel,
+           "max_abs_err": (out_k - out_p).abs().max().item(), "tol": WAN_REL_TOL,
+           "finite": bool(torch.isfinite(out_k).all().item()),
+           "k1_launches_by_variant": launches}
+    emit(out)
+    if not (rel <= WAN_REL_TOL and out["finite"] and launches == want_launches):
+        raise RuntimeError(f"{phase} check failed: {out}")
+    return launches
+
+
+def _nbytes(module) -> int:
+    return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
+def phase_wan() -> tuple:
+    """``WanVideoPipeline`` with Wan2.1-T2V-1.3B at full width and depth
+    (``wan_1_3b_config()``: 1536 wide, 12 heads of 128, 30 blocks, FFN 8960), UMT5-XXL
+    at 512 tokens and the Wan VAE, random bf16 weights from a seeded generator, the
+    DiT through ``parallelize`` on ``[("cuda:0", 100)]``: 480×832, 81 frames,
+    ``WAN_STEPS`` flow_euler steps at shift 5, CFG 5 with a negative prompt. Exactly
+    60 ``sm90`` a forward and one ``wide`` for the decode; the video finite,
+    (1, 81, 480, 832, 3), in [0, 1]. Then one DiT forward and one decode against
+    plain attention, one profiled step, and ``WAN_CAPTURED_STEPS`` steps captured
+    against eager in turns (bitwise equal, 60 ``sm90`` a forward per replay).
+    Returns K1's launches by path, and the VAE, UMT5 and tokenizer for the i2v
+    phase."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.text_encoders import (
+        build_t5_encoder,
+        umt5_xxl_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.video_vae import (
+        build_video_vae,
+        wan_vae_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.wan import build_wan, wan_1_3b_config
+    from comfyui_parallelanything_tpu_torch.ops import attention
+    from comfyui_parallelanything_tpu_torch.pipelines import WanVideoPipeline
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    t0 = time.perf_counter()
+    dit = build_wan(wan_1_3b_config(), device=dev, generator=gen)
+    t5 = build_t5_encoder(umt5_xxl_config(), device=dev, generator=gen)
+    vae = build_video_vae(wan_vae_config(), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _, t5_tok = synthetic_tokenizers()
+    pm = parallelize(dit, [("cuda:0", 100)])
+    pipe = WanVideoPipeline(dit=pm, vae=vae, t5=t5, t5_tokenizer=t5_tok)
+    spans: dict[str, float] = {}
+    pipe.encode_prompt = _timed_span(spans, "encode_s", pipe.encode_prompt)
+    vae.decode = _timed_span(spans, "decode_s", vae.decode)
+    vae.encode = _timed_span(spans, "vae_encode_s", vae.encode)
+    # Warm-up (UMT5, the DiT, the VAE decoder), not counted: 5 frames, one step.
+    pipe(WAN_PROMPT, WAN_NEGATIVE, steps=1, **{**WAN_SIZE, "frames": 5})
+    torch.cuda.synchronize()
+    video, row = _wan_run(pipe, dev, spans, steps=WAN_STEPS)
+    want = {"sm90": WAN13_SM90_PER_FORWARD * WAN_STEPS, "wide": 1}
+    res = {"phase": "wan", "model": "wan2.1-t2v-1.3b", "build_s": build_s,
+           "n_params": {"dit": dit.n_params(),
+                        "umt5_xxl": sum(p.numel() for p in t5.module.parameters()),
+                        "vae": sum(p.numel() for p in vae.module.parameters())},
+           "weight_bytes": {"dit": _nbytes(dit.module), "umt5_xxl": _nbytes(t5.module),
+                            "vae": _nbytes(vae.module)},
+           "steps": WAN_STEPS, "cfg_scale": WAN_CFG, "shift": WAN_SHIFT, **WAN_SIZE,
+           "tokens": math.prod(_wan_latent()) // 4, **row, "k1_launches_expected": want}
+    emit(res)
+    if row["k1_launches_by_variant"] != want or not _video_ok(row):
+        raise RuntimeError(f"wan check failed: {res}")
+    del video
+
+    ctx_shape = (2, t5_tok.max_len, t5.cfg.d_model)
+    x = torch.randn((2, *_wan_latent(), 16), generator=gen, device=dev)
+    ctx = torch.randn(ctx_shape, generator=gen, device=dev)
+    t = torch.tensor([0.9, 0.9], device=dev)
+    forward = _wan_forward_vs_plain(pm, "wan_vs_plain_attention", x, t, ctx,
+                                    {"sm90": WAN13_SM90_PER_FORWARD})
+    z = torch.randn((1, *_wan_latent(), 16), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out_k = vae.decode(z).float()
+    decode_peak = torch.cuda.max_memory_allocated(dev)
+    attention.set_attention_backend("xla")
+    try:
+        out_p = vae.decode(z).float()
+    finally:
+        attention.set_attention_backend("auto")
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    dec = {"phase": "wan_vae_decode_vs_plain_attention", "rel_l2_err": rel,
+           "max_abs_err": (out_k - out_p).abs().max().item(), "tol": WAN_REL_TOL,
+           "max_memory_allocated": decode_peak}
+    emit(dec)
+    if not rel <= WAN_REL_TOL:
+        raise RuntimeError(f"Wan VAE decode through K1 disagrees with plain attention: {dec}")
+    del out_k, out_p, x, z
+    context = pipe.encode_prompt([WAN_PROMPT])
+    uctx = pipe.encode_prompt([WAN_NEGATIVE])
+    noise = torch.randn((1, *_wan_latent(), 16), generator=gen, device=dev)
+    profile_step("wan_profile", lambda: run_sampler(
+        pm, noise, context, sampler="flow_euler", prediction="flow", steps=1,
+        shift=WAN_SHIFT, cfg_scale=WAN_CFG, uncond_context=uctx))
+    captured = captured_turns("wan_captured", lambda c: run_sampler(
+        pm, noise, context, sampler="flow_euler", prediction="flow",
+        steps=WAN_CAPTURED_STEPS, shift=WAN_SHIFT, cfg_scale=WAN_CFG, uncond_context=uctx,
+        compile_loop=c), WAN_CAPTURED_STEPS,
+        {"sm90": WAN13_SM90_PER_FORWARD * WAN_CAPTURED_STEPS})
+    if not captured["bitwise_equal"]:
+        raise RuntimeError("wan: the captured latent is not bitwise the eager one")
+    compiled.clear_compiled_loops()  # the captured loop's memory pool
+    pm.cleanup()
+    del pm, pipe, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "wan_seconds", "seconds": time.perf_counter() - start})
+    return ({"wan": row["k1_launches_by_variant"], "wan_vs_plain": forward,
+             "wan_captured": captured["k1_replayed_launches"]}, (vae, t5, t5_tok))
+
+
+def phase_wan_i2v(vae, t5, t5_tok) -> dict:
+    """``WanVideoPipeline`` image→video with Wan2.1-I2V-14B-480P at full width and
+    depth (``wan_14b_i2v_clip_config()``: 5120 wide, 40 heads of 128, 40 blocks, 36
+    input channels, the CLIP-vision branch over 257 tokens of 1280), the t2v phase's
+    UMT5-XXL and Wan VAE, and the port's CLIP ViT-H/14 vision tower on the start
+    image, random bf16 weights from a seeded generator: 480×832, 81 frames (the VAE
+    encodes the whole conditioning clip), ``WAN_I2V_STEPS`` steps, CFG 5. Exactly
+    120 ``sm90`` a forward, one ``wide`` for the encode and one for the decode; the
+    video finite, (1, 81, 480, 832, 3), in [0, 1]. Then one forward against plain
+    attention at ``WAN_I2V_CHECK_FRAMES`` frames. The 14B model is freed after."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import parallelize
+    from comfyui_parallelanything_tpu_torch.models.vision import (
+        build_clip_vision,
+        clip_preprocess,
+        clip_vit_h_14_config,
+    )
+    from comfyui_parallelanything_tpu_torch.models.wan import (
+        build_wan,
+        wan_14b_i2v_clip_config,
+    )
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.pipelines import WanVideoPipeline
+
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    t0 = time.perf_counter()
+    dit = build_wan(wan_14b_i2v_clip_config(), device=dev, generator=gen)
+    vision = build_clip_vision(clip_vit_h_14_config(), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    image = torch.rand((1, WAN_SIZE["height"], WAN_SIZE["width"], 3), generator=gen,
+                       device=dev)
+    fa.reset_launches()
+    _, _, penultimate = vision(clip_preprocess(image))
+    torch.cuda.synchronize()
+    vision_launches = _launched(fa)
+    cvo = {"penultimate": penultimate}
+    pm = parallelize(dit, [("cuda:0", 100)])
+    pipe = WanVideoPipeline(dit=pm, vae=vae, t5=t5, t5_tokenizer=t5_tok)
+    spans: dict[str, float] = {}
+    pipe.encode_prompt = _timed_span(spans, "encode_s", pipe.encode_prompt)
+    vae.decode = _timed_span(spans, "decode_s", vae.decode)
+    vae.encode = _timed_span(spans, "vae_encode_s", vae.encode)
+    # Warm-up (the 14B DiT and its image branch), not counted: 5 frames, one step.
+    pipe(WAN_PROMPT, WAN_NEGATIVE, steps=1, image=image, clip_vision_output=cvo,
+         **{**WAN_SIZE, "frames": 5})
+    torch.cuda.synchronize()
+    video, row = _wan_run(pipe, dev, spans, steps=WAN_I2V_STEPS, image=image,
+                          clip_vision_output=cvo)
+    want = {"sm90": WAN14_SM90_PER_FORWARD * WAN_I2V_STEPS, "wide": 2}
+    res = {"phase": "wan_i2v", "model": "wan2.1-i2v-14b-480p", "build_s": build_s,
+           "n_params": {"dit": dit.n_params(),
+                        "clip_vision_h": sum(p.numel() for p in vision.module.parameters())},
+           "weight_bytes": {"dit": _nbytes(dit.module), "clip_vision_h": _nbytes(vision.module)},
+           "steps": WAN_I2V_STEPS, "cfg_scale": WAN_CFG, **WAN_SIZE,
+           "clip_vision_k1_launches": vision_launches, **row, "k1_launches_expected": want}
+    emit(res)
+    if row["k1_launches_by_variant"] != want or not _video_ok(row):
+        raise RuntimeError(f"wan_i2v check failed: {res}")
+    del video
+    x = torch.randn((2, *_wan_latent(WAN_I2V_CHECK_FRAMES), 36), generator=gen, device=dev)
+    ctx = torch.randn((2, t5_tok.max_len, t5.cfg.d_model), generator=gen, device=dev)
+    t = torch.tensor([0.9, 0.9], device=dev)
+    forward = _wan_forward_vs_plain(pm, "wan_i2v_vs_plain_attention", x, t, ctx,
+                                    {"sm90": WAN14_SM90_PER_FORWARD},
+                                    clip_fea=penultimate.expand(2, -1, -1))
+    pm.cleanup()
+    del pm, pipe, dit, vision
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "wan_i2v_seconds", "seconds": time.perf_counter() - start})
+    return {"wan_i2v": row["k1_launches_by_variant"], "wan_i2v_vs_plain": forward,
+            "wan_i2v_clip_vision": vision_launches}
+
+
 def main() -> int:
     import tempfile
 
@@ -3386,6 +3733,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as graph_dir:
         graph_launches, graph_paths = phase_graph(graph_dir)
         stock_launches = phase_graph_stock(graph_paths, graph_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wan_launches, (wan_vae, umt5, umt5_tok) = phase_wan()
+    wan_i2v_launches = phase_wan_i2v(wan_vae, umt5, umt5_tok)
+    del wan_vae, umt5
     # A captured path's launches are those its graphs replayed: K1's launches recorded
     # at capture times the replays.
     paths = {"main_path": main_launches, "main_path_captured": main_captured, **pipe_launches,
@@ -3393,7 +3745,7 @@ def main() -> int:
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
              "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
              **sd3_launches, **placement_launches, **stream_launches, **checkpoint_launches,
-             **graph_launches, **stock_launches}
+             **graph_launches, **stock_launches, **wan_launches, **wan_i2v_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

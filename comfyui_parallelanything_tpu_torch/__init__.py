@@ -14,7 +14,8 @@ from .host import WorkflowCache, WorkflowError, run_workflow
 from .nodes import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS
 from .parallel.chain import DeviceChain, DeviceLink
 from .parallel.orchestrator import ParallelConfig, ParallelModel, parallelize
-from .pipelines import FluxPipeline, Sd3Pipeline, StableDiffusionPipeline
+from .models.generic import derive_pipeline_spec, wrap_module
+from .pipelines import FluxPipeline, Sd3Pipeline, StableDiffusionPipeline, WanVideoPipeline
 
 __all__ = [
     "NODE_CLASS_MAPPINGS",
@@ -26,11 +27,14 @@ __all__ = [
     "ParallelModel",
     "Sd3Pipeline",
     "StableDiffusionPipeline",
+    "WanVideoPipeline",
     "WorkflowCache",
     "WorkflowError",
     "available_devices",
     "default_device",
+    "derive_pipeline_spec",
     "get_device",
     "parallelize",
     "run_workflow",
+    "wrap_module",
 ]

@@ -33,6 +33,15 @@ conversion is a rename plus layout changes:
   to ``weight``; ``class_embedding`` and ``pos_emb`` keep their names.
 - ``from_jax_upscale_params`` — the ESRGAN ``RRDBNet`` (``body_0/rdb1/conv1/kernel``
   → ``body.0.rdb1.conv1.weight``): Conv kernels as the VAE's.
+- ``from_jax_wan_params`` — the Wan video DiT (``blocks_0/self_q/kernel`` →
+  ``blocks.0.self_q.weight``): Dense kernels transposed, the RMS/LayerNorm scales
+  renamed to ``weight``; ``blocks_{i}/modulation`` and ``head_modulation/bias``
+  keep their names.
+- ``from_jax_video_vae_params`` — the causal video VAE
+  (``encoder/down_0_block_0/conv1/conv/kernel`` →
+  ``encoder.down_0_block_0.conv1.conv.weight``): 3D Conv kernels
+  (kt, kh, kw, in, out) → (out, in, kt, kh, kw), RMS norm scales renamed to
+  ``weight``.
 """
 
 from __future__ import annotations
@@ -152,3 +161,19 @@ def from_jax_upscale_params(tree: Mapping) -> dict[str, torch.Tensor]:
     state dict (``body.3.rdb1.conv2.weight``): Conv kernels as the VAE's."""
     return _convert({_UPSCALE_BODY.sub(r"\1body.\2/", p): a
                      for p, a in _flatten(tree).items()}, _vae_leaf)
+
+
+def from_jax_wan_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``WanModel`` tree → ``wan.WanModel`` state dict."""
+    return _convert(tree, _text_leaf)
+
+
+def _video_vae_leaf(leaf: str, arr: np.ndarray):
+    if leaf == "kernel":
+        return "weight", arr.transpose(4, 3, 0, 1, 2)
+    return _renamed(leaf, arr)
+
+
+def from_jax_video_vae_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``VideoAutoencoderKL`` tree → ``video_vae.VideoAutoencoderKL`` state dict."""
+    return _convert(tree, _video_vae_leaf)

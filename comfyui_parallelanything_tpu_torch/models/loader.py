@@ -24,9 +24,6 @@ a ready model (counterpart of ``comfyui_parallelanything_tpu/models/loader.py``)
   ``pin_params_host`` lays tensors back to back in one host buffer, page-locked
   for a GPU, and ``carve_ranges`` / ``segment_nbytes`` / ``carve_stages`` group a
   ``PipelineSpec``'s segments into byte-bounded stages.
-
-Left out, with the work that needs it: the Wan loaders (ROADMAP Queue 1 item 10),
-whose ``load_wan_checkpoint`` raises.
 """
 
 from __future__ import annotations
@@ -519,8 +516,52 @@ def load_mmdit_checkpoint(src: Any, cfg, lora: Any = None, lora_strength: float 
                        state_dict=convert_mmdit_checkpoint(sd, cfg))
 
 
-def load_wan_checkpoint(*args, **kwargs):
-    """The Wan family is not ported yet (``sniff_model_family`` names it)."""
-    raise NotImplementedError("Wan checkpoints are not ported to PyTorch yet "
-                              "(ROADMAP Queue 1 item 10, the other model families)")
+def load_wan_checkpoint(src: Any, cfg, lora: Any = None, lora_strength: float = 1.0,
+                        params_converter=None, name: str = "wan",
+                        device=None) -> DiffusionModel:
+    """Wan checkpoint (path or state dict, the public Wan2.x layout) →
+    DiffusionModel on ``device``, LoRA baked before conversion as for the other
+    families. ``params_converter(state_dict, cfg) -> state dict`` serves repacked
+    layouts; a state dict already in the port's names (``blocks.0.self_q.weight``)
+    is taken as it is (no LoRA then)."""
+    from .convert_wan import convert_wan_checkpoint
+    from .wan import build_wan
 
+    sd = _resolve_state_dict(src)
+    if params_converter is not None:
+        state = params_converter(_maybe_bake(dict(sd), lora, lora_strength), cfg)
+    elif any(k.startswith("blocks.0.self_q.") for k in sd):
+        if lora is not None:
+            raise ValueError("lora baking needs the public checkpoint layout; pass the "
+                             "state dict / file instead of a converted state dict")
+        state = dict(sd)
+    else:
+        try:
+            state = convert_wan_checkpoint(_maybe_bake(sd, lora, lora_strength), cfg)
+        except KeyError as e:
+            raise ValueError(
+                f"state dict is not the public Wan2.x layout (missing {e}); pass "
+                "params_converter=(state_dict, cfg) -> state dict for repacked layouts"
+            ) from e
+    return build_wan(cfg, name=name, device=device, state_dict=state)
+
+
+def load_wan_vae_checkpoint(src: Any, cfg=None, device=None):
+    """Wan video-VAE checkpoint (the public Wan2.x VAE layout, bare or under a
+    ``vae.`` / ``first_stage_model.`` / ``model.`` prefix) → VideoVAE; ``cfg``
+    defaults to ``wan_vae_config()``."""
+    from .convert_wan_vae import convert_wan_vae_checkpoint
+    from .video_vae import build_video_vae, wan_vae_config
+
+    sd = _resolve_state_dict(src)
+    for prefix in ("vae.", "first_stage_model.", "model."):
+        stripped = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if any(k.startswith("encoder.conv1.") for k in stripped):
+            sd = stripped
+            break
+    cfg = cfg or wan_vae_config()
+    try:
+        state = convert_wan_vae_checkpoint(sd, cfg)
+    except KeyError as e:
+        raise ValueError(f"state dict is not the public Wan2.x VAE layout (missing {e})") from e
+    return build_video_vae(cfg, device=device, state_dict=state)

@@ -11,10 +11,12 @@ which are the wire format of the ``examples/*.json`` graphs:
   is written and never read);
 - the ``TPU*`` host nodes around them: loaders, text encode, latents, the
   samplers (KSampler, KSamplerAdvanced and the custom-sampling set), VAE encode /
-  decode, images, ControlNet, inpaint conditioning and the ESRGAN upscaler.
+  decode (images, and 5-D video latents through the Wan video VAE), images,
+  ControlNet, inpaint conditioning, Wan image-to-video conditioning and the
+  ESRGAN upscaler.
 
-Where the work runs: the loader nodes, ``TPUEmptyLatent`` and ``TPULoadImage``
-take a hidden ``device`` input that the graph host fills in
+Where the work runs: the loader nodes, ``TPUEmptyLatent``, ``TPUEmptyVideoLatent``
+and ``TPULoadImage`` take a hidden ``device`` input that the graph host fills in
 (``host.run_workflow(device=...)``, default ``cuda:0``); called directly they use
 ``devices.discovery.default_device()``, which raises without a GPU. Everything
 downstream runs where its inputs live. A seed's noise is drawn from a seeded CPU
@@ -26,9 +28,8 @@ The stock-ComfyUI class names (``CheckpointLoaderSimple``, ``KSampler``, …) co
 from ``nodes_compat.py``, merged into ``NODE_CLASS_MAPPINGS`` at the end of this
 module (native names win), so exported stock graphs run unchanged.
 
-Left out, each with its ROADMAP Queue 1 item: ``TPUEmptyVideoLatent`` and the Wan
-family (10), and the serving decode queue that the JAX ``TPUVAEDecode`` asks first
-(9): decodes run inline.
+Left out, with its ROADMAP Queue 1 item: the serving decode queue that the JAX
+``TPUVAEDecode`` asks first (9): decodes run inline.
 """
 
 from __future__ import annotations
@@ -50,11 +51,6 @@ SEED_MAX = 2**64 - 1
 
 # The hidden input the graph host fills with the device a run places its work on.
 DEVICE_INPUT = {"device": "DEVICE"}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -315,13 +311,14 @@ class TPUCheckpointLoader:
         from . import models as M
 
         dev = resolve_device(device)
-        if family.startswith("wan"):
-            raise _not_ported(f"the Wan family ({family!r})", "10")
         # The int8 path builds the full-precision model on the host, quantizes it
         # there and moves only the int8 payload to the device.
         load_dev = torch.device("cpu") if quantize == "int8" else dev
         lora = lora_path or None
         sd = M.load_safetensors(ckpt_path)
+        if family.startswith("wan"):
+            return self._load_wan(sd, family, vae_path, lora, lora_strength, quantize,
+                                  load_vae, load_dev, dev)
         if family in ("sd15", "sd15-inpaint"):
             # Kwargs only for the inpaint variant: tests monkeypatch the preset
             # factories with zero-argument tiny versions.
@@ -375,6 +372,35 @@ class TPUCheckpointLoader:
                 "flux/bare-UNet checkpoints don't bundle one; set vae_path to the "
                 "autoencoder file (e.g. ae.safetensors)")
         return model, M.load_vae_checkpoint(vae_sd, cfg=vae_cfg, device=dev)
+
+    @staticmethod
+    def _load_wan(sd, family, vae_path, lora, lora_strength, quantize, load_vae, load_dev,
+                  dev):
+        """The Wan family: the video DiT, and the causal video VAE from its own file
+        (Wan releases do not bundle it). i2v checkpoints are told by their
+        ``patch_embedding`` input width (36 = latent + frame mask + cond latent),
+        the Wan2.1-style ones by the ``img_emb`` branch (its proj.1 input width is
+        the CLIP hidden size)."""
+        import dataclasses
+
+        from . import models as M
+
+        wcfg = (M.wan_14b_config if family == "wan-14b" else M.wan_1_3b_config)()
+        pe = sd.get("patch_embedding.weight")
+        img_w = sd.get("img_emb.proj.1.weight")
+        wcfg = dataclasses.replace(
+            wcfg, in_channels=int(pe.shape[1]) if pe is not None else wcfg.in_channels,
+            img_dim=int(img_w.shape[1]) if img_w is not None else None)
+        model = M.load_wan_checkpoint(sd, wcfg, lora, lora_strength, device=load_dev)
+        if quantize == "int8":
+            model = M.quantize_model(model)
+            model.module.to(dev)
+        if not load_vae:
+            return model, None
+        if not vae_path:
+            raise ValueError("wan checkpoints don't bundle a VAE — set vae_path to the Wan "
+                             "VAE safetensors file")
+        return model, M.load_wan_vae_checkpoint(vae_path, device=dev)
 
 
 class TPUCLIPLoader:
@@ -639,6 +665,45 @@ class TPUEmptyLatent:
                                         device=resolve_device(device))},)
 
 
+class TPUEmptyVideoLatent:
+    """(width, height, frames, batch) → 5-D video LATENT of zeros (NTHWC, f32) on
+    the run's device, for the Wan family; the frame count follows the causal 4k+1
+    schedule (81 by convention)."""
+
+    DESCRIPTION = "Allocate an empty video latent batch (Wan-class, 5-D)."
+    RETURN_TYPES = ("LATENT",)
+    RETURN_NAMES = ("latent",)
+    FUNCTION = "generate"
+    CATEGORY = CATEGORY
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "width": ("INT", {"default": 832, "min": 16, "max": 8192, "step": 16}),
+                "height": ("INT", {"default": 480, "min": 16, "max": 8192, "step": 16}),
+                "frames": ("INT", {"default": 81, "min": 1, "max": 1024, "step": 4,
+                                   "tooltip": "pixel frames; must be 1 mod 4 "
+                                              "(causal VAE schedule)"}),
+                "batch_size": ("INT", {"default": 1, "min": 1, "max": 16}),
+                "channels": ("INT", {"default": 16, "min": 1, "max": 64}),
+            },
+            "hidden": DEVICE_INPUT,
+        }
+
+    def generate(self, width: int, height: int, frames: int, batch_size: int,
+                 channels: int | None = None, device=None):
+        from .models.video_vae import wan_vae_config
+
+        cfg = wan_vae_config()
+        t_lat = cfg.latent_frames(frames)  # raises on off-schedule counts
+        f = cfg.spatial_factor
+        if channels is None:
+            channels = cfg.z_channels
+        return ({"samples": torch.zeros((batch_size, t_lat, height // f, width // f, channels),
+                                        device=resolve_device(device))},)
+
+
 class TPUVAEEncode:
     """(VAE, IMAGE in [0, 1]) → LATENT: the img2img entry. ``seed`` >= 0 samples the
     posterior from a generator seeded with it; -1 takes the posterior mean."""
@@ -815,31 +880,36 @@ def _split_lora_delegate(model, positive):
 
 
 def _model_with_control(model, specs, inpaint=None, i2v=None):
-    """Compose ControlNet residual injection and inpaint conditioning into the MODEL
-    (``apply_inpaint_conditioning`` innermost, then each ControlNet; stacked
+    """Compose ControlNet residual injection, inpaint and Wan i2v conditioning into
+    the MODEL (``apply_i2v_conditioning`` innermost, then
+    ``apply_inpaint_conditioning``, then each ControlNet; stacked
     ControlNets sum). A ``ParallelModel`` is re-parallelized over its own chain and
     config. Control conditions every model call, cond and uncond alike (the host's
     ControlNetApplyAdvanced). The composition is cached on the model, keyed by the
     specs' identities, so a repeat run reuses it; a new setup replaces the entry
     and cleans up the old composition."""
-    if i2v:
-        raise _not_ported("Wan image-to-video conditioning", "10")
-    if not specs and not inpaint:
+    if not specs and not inpaint and not i2v:
         return model
     from .models.api import DiffusionModel
     from .models.controlnet import apply_control
     from .models.unet import apply_inpaint_conditioning
+    from .models.wan import apply_i2v_conditioning
 
     key = tuple(
         (id(s["model"]), id(s["hint"]), float(s.get("strength", 1.0)),
          float(s.get("start_percent", 0.0)), float(s.get("end_percent", 1.0)))
         for s in specs
-    ) + ((id(inpaint["mask"]), id(inpaint["masked_latent"])) if inpaint else ())
+    ) + ((id(inpaint["mask"]), id(inpaint["masked_latent"])) if inpaint else ()) + (
+        (id(i2v.get("cond")), id(i2v.get("clip_fea"))) if i2v else ())
     cached = getattr(model, "_control_composed", None)
     if cached is not None and cached[0] == key:
         return cached[1]
 
     def compose(base):
+        if i2v:
+            # Innermost: the Wan i2v channel-concat (and CLIP branch) wraps the raw
+            # model; control residuals apply to the wrapped step.
+            base = apply_i2v_conditioning(base, i2v.get("cond"), i2v.get("clip_fea"))
         if inpaint:
             base = apply_inpaint_conditioning(base, inpaint["mask"], inpaint["masked_latent"])
         for spec in specs:
@@ -864,7 +934,7 @@ def _model_with_control(model, specs, inpaint=None, i2v=None):
         cached[1].cleanup()
     # The specs stay in the entry: the id()-based key holds only while they live.
     try:
-        object.__setattr__(model, "_control_composed", (key, composed, specs, inpaint))
+        object.__setattr__(model, "_control_composed", (key, composed, specs, inpaint, i2v))
     except (AttributeError, TypeError):
         pass
     return composed
@@ -1705,6 +1775,7 @@ NODE_CLASS_MAPPINGS = {
     "TPUTextEncode": TPUTextEncode,
     "TPUConditioningCombine": TPUConditioningCombine,
     "TPUEmptyLatent": TPUEmptyLatent,
+    "TPUEmptyVideoLatent": TPUEmptyVideoLatent,
     "TPUVAEEncode": TPUVAEEncode,
     "TPUSetLatentNoiseMask": TPUSetLatentNoiseMask,
     "TPULatentUpscale": TPULatentUpscale,
@@ -1744,6 +1815,7 @@ NODE_DISPLAY_NAME_MAPPINGS = {
     "TPUImageScale": "Image Scale (TPU)",
     "TPUConditioningCombine": "Conditioning Combine (TPU, SDXL/FLUX)",
     "TPUEmptyLatent": "Empty Latent (TPU)",
+    "TPUEmptyVideoLatent": "Empty Video Latent (TPU, WAN)",
     "TPUVAEEncode": "VAE Encode (TPU)",
     "TPUSetLatentNoiseMask": "Set Latent Noise Mask (TPU)",
     "TPULatentUpscale": "Latent Upscale (TPU)",

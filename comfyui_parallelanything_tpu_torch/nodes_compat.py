@@ -31,11 +31,8 @@ File resolution (the stand-ins for ComfyUI's folder_paths):
   tables of CLIP towers read out of checkpoints (which carry no tokenizer data).
 - ``PA_T5_TOKENIZER_JSON``: the T5/UMT5 tokenizer.
 
-Left out, each raising ``NotImplementedError`` with its ROADMAP Queue 1 item:
-``WanImageToVideo``, ``EmptyHunyuanLatentVideo`` and ``VAELoader``'s Wan-video
-branch (10, the Wan family). ``LoraLoader`` bakes, re-bakes and stacks as the JAX
-shim does; the serving tier's ``lora_delegate`` it also attaches there comes with
-item 9.
+``LoraLoader`` bakes, re-bakes and stacks as the JAX shim does; the serving tier's
+``lora_delegate`` it also attaches there comes with ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -48,7 +45,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from .nodes import DEVICE_INPUT, SEED_MAX, _log, _not_ported, resolve_device
+from .nodes import DEVICE_INPUT, SEED_MAX, _log, resolve_device
 
 CATEGORY = "TPU-ParallelAnything/compat"
 
@@ -466,8 +463,9 @@ class TripleCLIPLoader:
 
 class VAELoader:
     """Stock external-VAE loader: (vae_name) → VAE, resolved through
-    ``$PA_MODELS_DIR/vae``; the image families are sniffed by ``sniff_vae_config``.
-    Wan's causal video VAE (``decoder.upsamples.*``) is not ported yet."""
+    ``$PA_MODELS_DIR/vae``. The file's key layout picks the family: Wan's causal 3D
+    video VAE (``encoder.downsamples``/``decoder.upsamples`` flat Sequentials), else
+    the AutoencoderKL image families, sniffed by ``sniff_vae_config``."""
 
     DESCRIPTION = "Stock-name external VAE loader (image + WAN video layouts)."
     RETURN_TYPES = ("VAE",)
@@ -480,14 +478,14 @@ class VAELoader:
         return {"required": {"vae_name": ("STRING", {"default": ""})}, "hidden": DEVICE_INPUT}
 
     def load(self, vae_name: str, device=None):
-        from .models.loader import load_vae_checkpoint, peek_safetensors
+        from .models.loader import load_vae_checkpoint, load_wan_vae_checkpoint, peek_safetensors
 
         path = resolve_model_file(vae_name, "vae")
         if not os.path.isfile(path):
             raise ValueError(f"VAE file not found: {vae_name!r} (searched $PA_MODELS_DIR/vae "
                              "and the name as a path)")
         if any("decoder.upsamples." in k for k in peek_safetensors(path)):
-            raise _not_ported("the Wan video VAE (VAELoader)", "10")
+            return (load_wan_vae_checkpoint(path, device=resolve_device(device)),)
         return (load_vae_checkpoint(path, device=resolve_device(device)),)
 
 
@@ -879,8 +877,14 @@ class CLIPVisionEncode:
 
 
 class WanImageToVideo:
-    """Stock Wan i2v entry node (the empty video latent and the i2v conditioning
-    tags): the Wan family is not ported yet."""
+    """Stock Wan i2v entry node: allocates the empty video latent and tags both
+    conditionings with the i2v conditioning the sampler composes into the model
+    (``nodes._model_with_control`` → ``models.wan.apply_i2v_conditioning``): a
+    4-channel latent frame mask ‖ the VAE-encoded start frames (channel-concat, the
+    Wan2.2 contract) and, when ``clip_vision_output`` is wired, the CLIP-vision
+    penultimate states for the Wan2.1-style checkpoints' img_emb branch. The stock
+    node's concat_latent_image / concat_mask / clip_vision_output keys collapse into
+    the one ``i2v`` tag. The latent lies on the VAE's device."""
 
     DESCRIPTION = "Stock-name WAN image→video conditioning + empty latent."
     RETURN_TYPES = ("CONDITIONING", "CONDITIONING", "LATENT")
@@ -906,8 +910,46 @@ class WanImageToVideo:
             },
         }
 
-    def encode(self, *args, **kwargs):
-        raise _not_ported("WanImageToVideo (the Wan family)", "10")
+    def encode(self, positive, negative, vae, width: int, height: int, length: int,
+               batch_size: int, start_image=None, clip_vision_output=None):
+        from .models.vae import images_to_vae_input
+        from .ops.resize import resize
+
+        t_lat = vae.cfg.latent_frames(length)  # validates the 4k+1 schedule
+        f = vae.spatial_factor
+        zc = vae.cfg.z_channels
+        dev = vae.device
+        latent = {"samples": torch.zeros((batch_size, t_lat, height // f, width // f, zc),
+                                         device=dev)}
+        tag: dict = {}
+        if start_image is not None:
+            img = torch.as_tensor(start_image, device=dev).float()
+            if img.ndim == 3:
+                img = img[None]
+            n = min(img.shape[0], length)
+            img = img[:n]
+            if tuple(img.shape[1:3]) != (height, width):
+                img = resize(img, (n, height, width, img.shape[-1]), method="bilinear")
+            clip = torch.cat([images_to_vae_input(img)[None],  # the frames of one clip
+                              img.new_zeros((1, length - n, height, width, img.shape[-1]))],
+                             dim=1)
+            cond_latent = vae.encode(clip)
+            h, w = cond_latent.shape[2], cond_latent.shape[3]
+            # Frame mask: channel c of latent frame j marks the pixel frame it folds.
+            # Frame 0 fills all 4 channels of latent frame 0 (the causal VAE's lone
+            # first frame); latent frame j ≥ 1, channel c folds pixel 4(j-1)+1+c.
+            mask = torch.zeros((1, t_lat, h, w, 4), device=dev)
+            for j in range(t_lat):
+                for c in range(4):
+                    if (0 if j == 0 else 4 * (j - 1) + 1 + c) < n:
+                        mask[:, j, :, :, c] = 1.0
+            tag["cond"] = torch.cat([mask, cond_latent.float()], dim=-1)
+        if clip_vision_output is not None:
+            tag["clip_fea"] = clip_vision_output["penultimate"]
+        if tag:
+            positive = {**positive, "i2v": tag}
+            negative = {**negative, "i2v": tag}
+        return positive, negative, latent
 
 
 class ControlNetLoader:
@@ -2688,8 +2730,9 @@ class ModelSamplingDiscrete:
 
 
 class EmptyHunyuanLatentVideo:
-    """Stock empty video latent (Wan/Hunyuan t2v): the Wan family is not ported
-    yet (it needs ``TPUEmptyVideoLatent``)."""
+    """Stock empty video latent (the t2v entry of Wan/Hunyuan template exports):
+    16 channels, 8× spatial and 4× temporal compression, (B, (length-1)//4 + 1,
+    H/8, W/8, 16) in the NTHWC convention, through ``TPUEmptyVideoLatent``."""
 
     DESCRIPTION = "Stock-name empty video latent (WAN/Hunyuan t2v)."
     RETURN_TYPES = ("LATENT",)
@@ -2704,11 +2747,17 @@ class EmptyHunyuanLatentVideo:
             "height": ("INT", {"default": 480, "min": 16, "max": 8192, "step": 16}),
             "length": ("INT", {"default": 25, "min": 1, "max": 1024, "step": 4}),
             "batch_size": ("INT", {"default": 1, "min": 1, "max": 16}),
-        }}
+        }, "hidden": DEVICE_INPUT}
 
-    def generate(self, *args, **kwargs):
-        raise _not_ported("EmptyHunyuanLatentVideo (TPUEmptyVideoLatent, the Wan family)",
-                          "10")
+    def generate(self, width: int, height: int, length: int, batch_size: int = 1,
+                 device=None):
+        from .nodes import TPUEmptyVideoLatent
+
+        # Stock floors off-schedule lengths (((length-1)//4)+1 latent frames); API
+        # submissions bypass widget steps, so any length is accepted.
+        frames = max(1, (int(length) - 1) // 4 * 4 + 1)
+        return TPUEmptyVideoLatent().generate(width=width, height=height, frames=frames,
+                                              batch_size=batch_size, device=device)
 
 
 class _FreeUBase:

@@ -1,5 +1,5 @@
-"""End-to-end text→image: tokenize → encode → (parallel) denoise → decode
-(counterpart of ``comfyui_parallelanything_tpu/pipelines.py``).
+"""End-to-end text→image and text→video: tokenize → encode → (parallel) denoise →
+decode (counterpart of ``comfyui_parallelanything_tpu/pipelines.py``).
 
 ``StableDiffusionPipeline`` (SD1.5 / SD2.x / SDXL: CLIP context, SDXL's pooled
 and size vector, k-sampler or DDIM sampling with batched CFG), ``FluxPipeline``
@@ -8,8 +8,10 @@ and size vector, k-sampler or DDIM sampling with batched CFG), ``FluxPipeline``
 CFG, flow shift 3) are ported, each with txt2img, img2img and inpainting through
 ``run_sampler`` and a VAE decode. The diffusion model slot takes a bare
 ``DiffusionModel`` or the ``ParallelModel`` ``parallelize`` returns, so every
-sampler step runs over the device chain. ``WanVideoPipeline`` is not ported yet
-(ROADMAP Queue 1, the other model families).
+sampler step runs over the device chain. ``WanVideoPipeline`` (UMT5 context,
+flow matching, the causal video VAE) covers text→video, video→video, video
+inpainting and image→video (channel-concat conditioning and the Wan2.1 CLIP-vision
+branch), and the Wan2.2 A14B expert pair.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ from typing import Any
 
 import torch
 
+from .models.experts import WAN22_I2V_BOUNDARY, WAN22_T2V_BOUNDARY, TimestepExpertSwitch
 from .models.text_encoders import sd3_text_conditioning, sdxl_text_conditioning
-from .models.vae import images_to_vae_input, vae_output_to_images
+from .models.vae import decode_maybe_tiled, images_to_vae_input, vae_output_to_images
 from .ops.resize import resize
 from .parallel.orchestrator import model_config_of
 from .sampling.runner import run_sampler
@@ -73,19 +76,26 @@ def _encode_init(vae, init, denoise: float, batch: int, expect: tuple[int, ...],
 
 
 def _latent_mask_for(mask, init, f: int, height: int, width: int,
-                     what: str = "init_image") -> torch.Tensor | None:
-    """Inpainting mask (B, H, W[, 1]) → latent-resolution blend mask (1 =
-    regenerate), resized bilinearly as ``jax.image.resize`` does."""
+                     t_lat: int | None = None, what: str = "init_image") -> torch.Tensor | None:
+    """Inpainting mask → latent-resolution blend mask (1 = regenerate), resized
+    bilinearly as ``jax.image.resize`` does. Image masks are (B, H, W[, 1]); with
+    ``t_lat`` set (video) masks are (B, T, H, W[, 1]) and the time axis resizes to
+    the latent frame count."""
     if mask is None:
         return None
     if init is None:
         raise ValueError(f"mask (inpainting) requires {what}")
     m = torch.as_tensor(mask).float()
-    if m.ndim == 3:
+    rank = m.ndim
+    want_rank = 4 if t_lat is None else 5
+    if m.ndim == want_rank - 1:
         m = m[..., None]
-    if m.ndim != 4:
-        raise ValueError(f"mask rank {m.ndim} does not fit an image latent")
-    return resize(m, (m.shape[0], height // f, width // f, 1), method="bilinear")
+    if m.ndim != want_rank:
+        raise ValueError(f"mask rank {rank} does not fit a "
+                         f"{'video' if t_lat is not None else 'image'} latent")
+    target = ((m.shape[0], height // f, width // f, 1) if t_lat is None
+              else (m.shape[0], t_lat, height // f, width // f, 1))
+    return resize(m, target, method="bilinear")
 
 
 def _start_latents(vae, batch: int, height: int, width: int, rng, init_image, denoise: float,
@@ -351,3 +361,166 @@ class Sd3Pipeline:
             latent_mask=latent_mask, y=y,
         )
         return vae_output_to_images(self.vae.decode(latents))
+
+
+@dataclasses.dataclass
+class WanVideoPipeline:
+    """Wan text→video: UMT5 context + flow matching + the causal 3D VAE.
+
+    ``dit`` may be a ``DiffusionModel`` or a ``ParallelModel``. Wan2.2 A14B: a
+    second, low-noise expert in ``dit_low_noise`` makes ``dit`` the high-noise one,
+    and every step routes by flow time (``models/experts.py``)."""
+
+    dit: Any  # Wan-class DiffusionModel or ParallelModel
+    vae: Any  # VideoVAE (causal 3D)
+    t5: Any  # UMT5/T5 TextEncoder (context)
+    t5_tokenizer: Any
+    dit_low_noise: Any = None
+    boundary: float | None = None
+
+    def encode_prompt(self, prompts: list[str]):
+        ids, mask = self.t5_tokenizer(prompts)
+        return self.t5(ids, mask=mask)
+
+    def __call__(
+        self,
+        prompt: str | list[str],
+        negative_prompt: str | list[str] = "",
+        *,
+        steps: int = 30,
+        sampler: str = "flow_euler",
+        cfg_scale: float = 5.0,
+        shift: float = 5.0,
+        height: int = 480,
+        width: int = 832,
+        frames: int = 81,
+        rng: torch.Generator | None = None,
+        decode_tile: int = 0,
+        callback=None,
+        init_video=None,
+        denoise: float = 1.0,
+        image=None,
+        mask=None,
+        clip_vision_output: Any | None = None,
+        compile_loop: bool = False,
+    ) -> torch.Tensor:
+        """Returns float video (B, frames, height, width, 3) in [0, 1]. Wan runs true
+        CFG (``cfg_scale != 1`` with the negative prompt, cond ‖ uncond in one
+        batch) and a large flow shift; ``frames`` must be ≡ 1 mod the VAE's temporal
+        factor (81 by convention). ``rng`` draws the initial noise (a generator
+        seeded with 0 when None). video2video: ``init_video`` (B or 1, frames,
+        height, width, 3 in [0, 1]) with ``denoise < 1``. image→video: ``image``
+        (B or 1, height, width, 3 in [0, 1]) for an i2v checkpoint (the frame mask
+        and the encoded first frame ride the DiT's extra in-channels); Wan2.1-style
+        i2v checkpoints (config ``img_dim``) also take ``clip_vision_output`` (a
+        CLIP_VISION_OUTPUT dict or a (B|1, 257, img_dim) tensor of penultimate
+        states). Video inpainting: ``mask`` (B or 1, frames, height, width[, 1];
+        1 = regenerate) with ``init_video`` re-pins the keep region every step."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        denoiser = self.dit
+        if self.dit_low_noise is not None:
+            default_boundary = WAN22_I2V_BOUNDARY if image is not None else WAN22_T2V_BOUNDARY
+            denoiser = TimestepExpertSwitch(
+                self.dit, self.dit_low_noise,
+                self.boundary if self.boundary is not None else default_boundary)
+        f = self.vae.spatial_factor
+        patch = getattr(model_config_of(denoiser), "patch_size", (1, 2, 2))
+        unit_h, unit_w = f * patch[1], f * patch[2]
+        if height % unit_h or width % unit_w:
+            raise ValueError(f"height/width must be multiples of {unit_h}/{unit_w}")
+        t_lat = self.vae.cfg.latent_frames(frames)  # validates the 4k+1 schedule
+        if t_lat % patch[0]:
+            raise ValueError(f"latent frame count {t_lat} not divisible by temporal patch "
+                             f"{patch[0]}")
+
+        context = self.encode_prompt(prompts)
+        use_cfg = cfg_scale != 1.0
+        uncond_context = None
+        if use_cfg:
+            uncond_context = self.encode_prompt(_match_negatives(prompts, negative_prompt))
+
+        B = len(prompts)
+        zc = self.vae.cfg.z_channels
+        device = self.vae.device
+        noise = initial_noise((B, t_lat, height // f, width // f, zc), rng, device)
+        latent_mask = _latent_mask_for(mask, init_video, f, height, width, t_lat=t_lat,
+                                       what="init_video")
+        if latent_mask is not None:
+            latent_mask = latent_mask.to(device)
+        init_latent = _encode_init(self.vae, init_video, denoise, B, (frames, height, width),
+                                   what="init_video", allow_full_denoise=mask is not None)
+        if image is not None:
+            denoiser = self._i2v_conditioned(denoiser, image, B, frames, height, width, t_lat,
+                                             clip_vision_output=clip_vision_output)
+        elif clip_vision_output is not None:
+            raise ValueError("clip_vision_output without `image` — the CLIP branch rides "
+                             "the i2v conditioning; pass the start image too")
+        latents = run_sampler(
+            denoiser, noise, context, sampler=sampler, prediction="flow", steps=steps,
+            shift=shift, guidance=None, cfg_scale=cfg_scale if use_cfg else 1.0,
+            uncond_context=uncond_context, callback=callback, compile_loop=compile_loop,
+            init_latent=init_latent, denoise=denoise, latent_mask=latent_mask,
+        )
+        return vae_output_to_images(decode_maybe_tiled(self.vae, latents, decode_tile))
+
+    def _i2v_conditioned(self, denoiser, image, B, frames, height, width, t_lat,
+                         clip_vision_output=None):
+        """``denoiser`` with Wan i2v channel-concat conditioning: the DiT's extra
+        in-channels carry [frame mask (4) ‖ encoded first-frame latent] beside the
+        noisy latent. The conditioning is fixed across steps, so one closure serves
+        every sampler call (and every expert); CFG's doubled batch tiles it."""
+        cfg = model_config_of(denoiser)
+        zc = self.vae.cfg.z_channels
+        expect = zc + 4 + zc
+        got_in = getattr(cfg, "in_channels", None)
+        if got_in is not None and got_in != expect:
+            raise ValueError(
+                f"image→video needs an i2v checkpoint with in_channels={expect} (latent "
+                f"{zc} + mask 4 + cond {zc}); this model has {got_in} — load the i2v "
+                "variant or drop `image`")
+        image = torch.as_tensor(image, device=self.vae.device).float()
+        if tuple(image.shape[1:3]) != (height, width):
+            raise ValueError(f"image is {tuple(image.shape[1:3])}, pipeline is "
+                             f"({height}, {width})")
+        if image.shape[0] == 1 and B > 1:
+            image = image.repeat_interleave(B, dim=0)
+        # The conditioning clip: the image as frame 0, zeros after, encoded by the
+        # same causal VAE, so the first latent frame holds the image.
+        clip = torch.cat([images_to_vae_input(image)[:, None],
+                          image.new_zeros((B, frames - 1, height, width, image.shape[-1]))],
+                         dim=1)
+        cond_latent = self.vae.encode(clip)
+        del clip
+        # 4-channel frame mask: the first latent frame given, the rest generated.
+        h, w = cond_latent.shape[2], cond_latent.shape[3]
+        frame_mask = cond_latent.new_zeros((B, t_lat, h, w, 4))
+        frame_mask[:, 0] = 1.0
+        cond = torch.cat([frame_mask, cond_latent], dim=-1)
+
+        clip_fea = None
+        if clip_vision_output is not None:
+            if getattr(cfg, "img_dim", None) is None:
+                raise ValueError(
+                    "clip_vision_output needs a Wan2.1-style i2v checkpoint with the "
+                    "img_emb branch (config img_dim) — this model has none (Wan2.2 i2v "
+                    "conditions by channel-concat only); drop clip_vision_output")
+            clip_fea = torch.as_tensor(
+                clip_vision_output["penultimate"] if isinstance(clip_vision_output, dict)
+                else clip_vision_output)
+            if clip_fea.shape[0] == 1 and B > 1:
+                clip_fea = clip_fea.repeat_interleave(B, dim=0)
+
+        def conditioned(x, t, context=None, **kw):
+            c, fea = cond, clip_fea
+            if x.shape[0] != c.shape[0]:
+                # CFG doubles the batch (cond ‖ uncond in one forward): the
+                # conditioning rides along for both halves.
+                reps = x.shape[0] // c.shape[0]
+                c = c.repeat(reps, 1, 1, 1, 1)
+                if fea is not None:
+                    fea = fea.repeat(reps, 1, 1)
+            if fea is not None:
+                kw = {**kw, "clip_fea": fea}
+            return denoiser(torch.cat([x, c.to(x.dtype)], dim=-1), t, context, **kw)
+
+        return conditioned

@@ -76,7 +76,7 @@ def _compiled_spec(model, callback):
     spec = trace_spec_of(model)
     if spec is None:
         logger.info("compile_loop: the model cannot run as one captured loop (a "
-                    "heterogeneous chain); eager path")
+                    "heterogeneous chain or a per-step expert switch); eager path")
     return spec
 
 

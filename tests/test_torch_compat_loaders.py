@@ -5,8 +5,9 @@ layout (``checkpoints/``, ``clip/``, ``vae/``, ``unet/``, ``loras/``,
 files into the same weights (exactly, through ``convert_jax``; LoRA-baked tensors at
 f32 rounding, 1e-6) and encode the same conditioning (2e-4). The SD1.5 world and its
 patched configs are ``test_torch_graphs_sd15``'s; OpenCLIP-G, OpenCLIP-H, T5 and the
-SD2.1-unCLIP UNet are patched to tiny widths in both packages. The Wan shims raise
-naming ROADMAP item 10."""
+SD2.1-unCLIP UNet are patched to tiny widths in both packages. The Wan shims are
+held against the JAX package in ``test_torch_wan_pipeline.py``; here, what they
+make without a model and what they refuse."""
 
 import dataclasses
 import os
@@ -438,11 +439,23 @@ def test_unclip_checkpoint_loader_matches_jax(world):
 
 
 def test_wan_shims_raise_naming_item_10(world):
-    for call in (lambda: pc.WanImageToVideo().encode({}, {}, None, 832, 480, 81, 1),
-                 lambda: pc.EmptyHunyuanLatentVideo().generate(848, 480, 25)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    # The Wan shims are ported (ROADMAP item 10 is done): the empty video latents
+    # without a model, WanImageToVideo with neither start image nor CLIP output
+    # (no tag), and VAELoader refusing a file with the Wan VAE's keys but not its
+    # layout.
+    import types
+
+    from comfyui_parallelanything_tpu_torch.models.video_vae import wan_vae_config
+
+    (latent,) = pc.EmptyHunyuanLatentVideo().generate(848, 480, 25, device="cpu")
+    assert latent["samples"].shape == (1, 7, 60, 106, 16)
+    vae = types.SimpleNamespace(cfg=wan_vae_config(), spatial_factor=8,
+                                device=torch.device("cpu"))
+    pos, neg, latent = pc.WanImageToVideo().encode({"context": 1}, {"context": 2}, vae, 832,
+                                                   480, 81, 1)
+    assert pos == {"context": 1} and neg == {"context": 2}
+    assert latent["samples"].shape == (1, 21, 60, 104, 16)
     wan_vae = os.path.join(world["root"], "vae", "wan_vae.safetensors")
     save_safetensors(wan_vae, {"decoder.upsamples.0.weight": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="Wan2.x VAE layout"):
         pc.VAELoader().load("wan_vae.safetensors", device="cpu")

@@ -72,7 +72,9 @@ def _no_tf32():
 # batch·heads; then the wide variant at the edges of its padded widths (136, 192,
 # 384) and in f16 at D=160, and the d512 variant at an unaligned D=264; then
 # tf32x3 at the edges of its head dims (4, 64, 252, 256), a single query and key,
-# and 77 keys at D=128.
+# and 77 keys at D=128; then Wan-shaped ragged calls: 32760 space-time tokens
+# (255·128 + 120) at D=128, and the video VAE's D=384 over views of a fused q/k/v
+# projection (6240 = 48·128 + 96 positions a frame) and against 257 keys.
 @pytest.mark.parametrize(
     "qshape,kshape,dtype_name,layout,variant",
     [c[1:] for c in chip_smoke.KERNEL_CASES]
@@ -91,7 +93,10 @@ def _no_tf32():
        ((2, 130, 3, 252), (2, 200, 3, 252), "float32", "contiguous", "tf32x3"),
        ((2, 130, 3, 256), (2, 200, 3, 256), "float32", "contiguous", "tf32x3"),
        ((1, 1, 1, 128), (1, 1, 1, 128), "float32", "contiguous", "tf32x3"),
-       ((1, 100, 2, 128), (1, 77, 2, 128), "float32", "contiguous", "tf32x3")],
+       ((1, 100, 2, 128), (1, 77, 2, 128), "float32", "contiguous", "tf32x3"),
+       ((1, 32760, 2, 128), (1, 32760, 2, 128), "bfloat16", "contiguous", "sm90"),
+       ((3, 6240, 1, 384), (3, 6240, 1, 384), "bfloat16", "fused_qkv", "wide"),
+       ((2, 1000, 2, 384), (2, 257, 2, 384), "bfloat16", "contiguous", "wide")],
 )
 def test_flash_attention_kernel_matches_plain(cuda_device, qshape, kshape, dtype_name, layout,
                                               variant):

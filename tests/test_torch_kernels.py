@@ -6,6 +6,7 @@ tests (rtol/atol 2e-4 in f32). The CUDA kernel itself is held against the plain
 version in ``tests/test_torch_cuda.py``.
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
@@ -20,6 +21,8 @@ import jax.numpy as jnp  # noqa: E402
 from comfyui_parallelanything_tpu.ops.pallas.flash_attention import (  # noqa: E402
     flash_attention as jax_flash,
 )
+from comfyui_parallelanything_tpu_torch.models import video_vae as pvv  # noqa: E402
+from comfyui_parallelanything_tpu_torch.models import wan as pwan  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops.kernels import build  # noqa: E402
 from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 
@@ -79,6 +82,26 @@ def test_kernel_check_rejects_planted_tail_bugs(dtype, head_dim):
     assert set(bugs) == {"tail_unmasked", "last_key_dropped"}
     for bug, out in bugs.items():
         assert not chip_smoke.kernel_error(out.to(dtype), q, k, v)["ok"], bug
+
+
+def test_sliced_kernel_check_takes_the_worst_batch_elements_error(monkeypatch):
+    # Past PLAIN_SLICE_BYTES the check runs per (batch element, head) pair; the
+    # relative L2 error stays each element's, so one bad element of 8 is not
+    # diluted by the other 7 as it is in the check over the whole tensor.
+    import chip_smoke
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 8, 40, 70, 3, 16))
+    want = fa.flash_attention_plain(q, k, v)
+    got = want.clone()
+    got[3] *= 1 + 2e-5
+    whole = chip_smoke.kernel_error(got, q, k, v)
+    monkeypatch.setattr(chip_smoke, "PLAIN_SLICE_BYTES", 0)
+    sliced = chip_smoke.kernel_error(got, q, k, v)
+    assert sliced["checked_by_batch_element_head"] == 24
+    np.testing.assert_allclose(sliced["rel_l2_err"], 2e-5, rtol=1e-2)  # f32 rounding of got
+    assert whole["rel_l2_err"] < 1e-5 < sliced["rel_l2_err"]
+    assert not sliced["ok"]
+    assert sliced["max_abs_err"] == whole["max_abs_err"]
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -409,3 +432,66 @@ def test_auto_routes_what_no_variant_takes_to_xla():
     assert attention.resolved_backends() == ("xla",)
     want = attention._xla_attention(q, q, q, 520 ** -0.5)
     torch.testing.assert_close(got, want)
+
+
+@pytest.mark.parametrize("name,per_forward", [("wan_1_3b_config", 60),
+                                              ("wan_14b_i2v_clip_config", 120)])
+def test_full_size_attention_takes_sm90_at_the_smoke_runs_shapes(monkeypatch, name,
+                                                                 per_forward):
+    # The full-width DiTs at 480×832×81 (CFG's batch 2) on the meta device: every
+    # self-, text and image cross-attention call as the blocks lay it out goes to
+    # sm90, and the card's smoke run holds K1 at each (a contiguous KERNEL_CASES row).
+    # Every block makes the same calls, so one block stands for the full depth.
+    from collections import Counter
+
+    import chip_smoke
+
+    seen = Counter()
+
+    def spy(q, k, v, scale=None):
+        seen[(fa.kernel_variant(q, k, v, scale), tuple(q.shape), tuple(k.shape))] += 1
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(pwan, "attention", spy)
+    full = getattr(pwan, name)()
+    cfg = dataclasses.replace(full, depth=1)
+    with torch.device("meta"):
+        kw = {"clip_fea": torch.empty(2, 257, 1280)} if cfg.img_dim else {}
+        module = pwan.WanModel(cfg)
+        out = module(torch.empty(2, 21, 60, 104, cfg.in_channels), torch.empty(2),
+                     torch.empty(2, 512, 4096), **kw)
+    assert out.shape == (2, 21, 60, 104, 16)
+    assert sum(seen.values()) * full.depth == per_forward
+    assert {v for v, _, _ in seen} == {"sm90"}
+    held = {(variant, q, k) for _, q, k, dtype, layout, variant in chip_smoke.KERNEL_CASES
+            if dtype == "bfloat16" and layout == "contiguous"}
+    assert set(seen) <= held, set(seen) - held
+
+
+def test_wan_vae_attention_takes_the_wide_variant(monkeypatch):
+    # The Wan VAE at 480×832×81 on the meta device: its encoder's and decoder's
+    # mid-block attention are each one (21, 6240, 1, 384) call over views of one
+    # fused q/k/v projection, which the rule sends to the wide variant; the card's
+    # smoke run holds K1 against its plain version at that call (wan_vae_mid_d384).
+    from collections import Counter
+
+    import chip_smoke
+
+    seen = Counter()
+
+    def spy(q, k, v, scale=None):
+        assert q.stride() == k.stride() == v.stride() == (6240 * 1152, 1152, 1152, 1)
+        seen[(fa.kernel_variant(q, k, v, scale), tuple(q.shape), k.shape[1])] += 1
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(pvv, "attention_local", spy)
+    monkeypatch.setattr(pvv, "CHUNK_ELEMS", 2**40)  # meta tensors hold no memory
+    cfg = pvv.wan_vae_config()
+    with torch.device("meta"):
+        module = pvv.VideoAutoencoderKL(cfg)
+        z = module.encode(torch.empty(1, 81, 480, 832, 3, dtype=cfg.dtype))
+        out = module.decode(z)
+    assert z.shape == (1, 21, 60, 104, 16) and out.shape == (1, 81, 480, 832, 3)
+    assert dict(seen) == {("wide", (21, 6240, 1, 384), 6240): 2}
+    assert ("wan_vae_mid_d384", (21, 6240, 1, 384), (21, 6240, 1, 384), "bfloat16",
+            "fused_qkv", "wide") in chip_smoke.KERNEL_CASES

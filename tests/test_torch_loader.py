@@ -276,9 +276,13 @@ class TestLoaders:
         _same_state(got.module.state_dict(), cj.from_jax_text_params(_jnp_tree(want.params)))
 
     def test_wan_sniffs_but_does_not_load(self):
+        # The Wan loaders are ported (tests/test_torch_wan.py loads real layouts): a
+        # dict that is not the public layout does not load.
+        from comfyui_parallelanything_tpu_torch.models import wan as pwan
+
         assert pload.sniff_model_family(FAMILIES["wan-14b"]) == "wan-14b"
-        with pytest.raises(NotImplementedError, match="item 10"):
-            pload.load_wan_checkpoint({}, None)
+        with pytest.raises(ValueError, match="public Wan2.x layout"):
+            pload.load_wan_checkpoint({}, pwan.wan_1_3b_config(), device="cpu")
 
 
 class TestParamsRoundTrip:

@@ -87,7 +87,8 @@ def test_int8_load_keeps_int8_on_the_device(graph_env, loaded):
     from comfyui_parallelanything_tpu_torch.models.quantize import param_bytes
 
     assert param_bytes(qm.module) < param_bytes(pm.module)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # An SD1.5 file is no Wan checkpoint: the (ported) Wan branch refuses it.
+    with pytest.raises(ValueError, match="public Wan2.x layout"):
         pn.TPUCheckpointLoader().load(graph_env["ckpt"], "wan-1.3b", device="cpu")
 
 
@@ -295,10 +296,9 @@ def test_node_names_are_the_jax_packages():
 
     from comfyui_parallelanything_tpu_torch import nodes_compat
 
-    left_out = {"TPUEmptyVideoLatent"}  # the Wan family, ROADMAP Queue 1 item 10
-    # Every JAX name, native and stock (nodes_compat's shims); the Wan shims that
-    # raise count as registered.
-    names = set(jn.NODE_CLASS_MAPPINGS) - left_out
+    # Every JAX name, native and stock (nodes_compat's shims), the Wan family's
+    # included.
+    names = set(jn.NODE_CLASS_MAPPINGS)
     assert set(NODE_CLASS_MAPPINGS) == names
     assert {k: jn.NODE_DISPLAY_NAME_MAPPINGS[k] for k in names} == NODE_DISPLAY_NAME_MAPPINGS
     stock = set(nodes_compat.stock_node_mappings())
