@@ -189,6 +189,20 @@ the error.
    forward at 17 frames against plain attention. The 14B model is freed after it.
    The kernel phase holds K1 at both phases' calls (``wan_*`` rows of
    ``KERNEL_CASES``), the self-attention rows one (batch, head) pair at a time.
+17. serving — the port's server (``server.py``) in this process on the graph phase's
+   SD1.5 files: K1 at the lanes' shapes (``SERVING_K1_SHAPES``), then 8
+   ``workflow_sd15_txt2img`` prompts at 512² (batch 1, euler / dpmpp_2m /
+   euler_ancestral / heun, 20 or 28 steps, two texts, save node kept) through 1
+   worker (inline) and 4 workers (the continuous-batching scheduler and the decode
+   tail): dispatches, lane occupancy, images/s, latency p50/p95, s per dispatch
+   against the inline s/it, peak memory, exactly 20 ``sm90`` + 10 ``wide`` per
+   dispatch and one ``wide`` per decode dispatch; the images through ``/history``
+   and ``/view``; each lane against its inline run and its run alone in a width-4
+   bucket; then the same 8 lanes in float32 through the scheduler directly, bitwise
+   their runs alone and within 1e-3 of inline. ``serving_flux`` (after
+   ``main_path_captured``, while FLUX-dev is alive): K1 at (4, 4608, 24, 128), four
+   flow lanes of 4 / 4 / 3 / 2 steps through a width-4 scheduler, 57 ``sm90`` a
+   dispatch, each lane within 5e-2 of its inline run.
 ``hybrid`` also prints ``hybrid_rows``: the GPU group's rows of one CFG forward
 against the same rows of the 8-row forward on the card alone.
 Then the script's wall time, the ``kernels`` line, and last
@@ -2986,17 +3000,20 @@ GRAPH_K1_SHAPES = {
 }
 
 
-def graph_k1_shapes(fa) -> dict:
-    """K1 at ``GRAPH_K1_SHAPES``, each through the variant the rule picks: the check
-    against the plain version (``KERNEL_LIMITS``), then the timing row (K1, plain,
-    SDPA, the bound, and K1 over back-to-back calls)."""
+def graph_k1_shapes(fa, shapes=None) -> dict:
+    """K1 at ``shapes`` (default ``GRAPH_K1_SHAPES``; rows ``(q shape, k shape,
+    iterations, plain iterations[, dtype])``, bf16 unless named), each through the
+    variant the rule picks: the check against the plain version (``KERNEL_LIMITS``),
+    then the timing row (K1, plain, SDPA, the bound, and K1 over back-to-back calls)."""
     import torch
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(11)
     rows = {}
-    for name, (qshape, kshape, iters, plain_iters) in GRAPH_K1_SHAPES.items():
-        q, k, v = make_case(qshape, kshape, "bfloat16", "contiguous", gen, dev)
+    for name, (qshape, kshape, iters, plain_iters, *dtype) in (
+            shapes or GRAPH_K1_SHAPES).items():
+        q, k, v = make_case(qshape, kshape, dtype[0] if dtype else "bfloat16", "contiguous",
+                            gen, dev)
         variant = fa.kernel_variant(q, k, v)
         # Above PLAIN_SLICE_BYTES the check runs per (batch, head) pair and the plain
         # version is timed on one batch element.
@@ -3403,6 +3420,506 @@ def phase_graph_stock(paths: dict, directory) -> dict:
     return launches
 
 
+# The continuous-batching serving path (server.py → host.run_workflow → run_sampler →
+# the scheduler → a step bucket → the per-lane step program → the UNet → K1).
+SERVING_WORKERS = 4  # the scheduler's default lane width too
+# (seed, sampler, steps): two prompts a sampler, steps 20 or 28, so the lanes' schedules
+# are ragged and a bucket runs four samplers at once.
+SERVING_PROMPTS = [(101, "euler", 20), (102, "dpmpp_2m", 28), (103, "euler_ancestral", 20),
+                   (104, "heun", 28), (105, "euler", 28), (106, "dpmpp_2m", 20),
+                   (107, "euler_ancestral", 28), (108, "heun", 20)]
+# Two prompts' texts: one bucket serves both, in stacked cond rows.
+SERVING_TEXT_B = "an old harbour town at dusk, oil painting, warm light"
+# A lane's latent against its inline run. float32 (TF32 off): the lane's update math
+# alone, SERVING_REL_TOL. bf16: a bf16 UNet's result for a sample depends on its row in
+# the batch (8.9e-3 relative for one forward with its rows permuted; identical rows of
+# one inline batch-4 run differ, and that run is 2.4e-2 from the batch-1 run after 20
+# steps: PERF.md §6), so bf16 lanes are held at SD_REL_TOL, the bf16 forward tolerance.
+SERVING_REL_TOL = 1e-3
+SERVING_F32_STEPS = (6, 8)  # the float32 lanes' steps, ragged
+SERVING_FLUX_STEPS = (4, 4, 3, 2)
+SERVING_FLUX_REL_TOL = 5e-2  # FLUX-dev lanes at batch 4 against batch-1 inline runs, bf16
+# K1 at the lanes' shapes: SD1.5 at 512² in a width-4 bucket with CFG (8 rows), in bf16
+# and float32, the decode tail at width 4, and FLUX-dev at 1024² in a width-4 bucket.
+SERVING_K1_SHAPES = {
+    "sd15_w4_self_4096_d40": ((8, 4096, 8, 40), (8, 4096, 8, 40), 20, 2),
+    "sd15_w4_self_1024_d80": ((8, 1024, 8, 80), (8, 1024, 8, 80), 50, 5),
+    "sd15_w4_self_256_d160": ((8, 256, 8, 160), (8, 256, 8, 160), 50, 5),
+    "sd15_w4_cross_4096x77_d40": ((8, 4096, 8, 40), (8, 77, 8, 40), 50, 5),
+    "sd15_w4_cross_1024x77_d80": ((8, 1024, 8, 80), (8, 77, 8, 80), 50, 5),
+    "sd15_w4_cross_256x77_d160": ((8, 256, 8, 160), (8, 77, 8, 160), 50, 5),
+    "sd15_vae_512_b4_d512": ((4, 4096, 1, 512), (4, 4096, 1, 512), 20, 2),
+    # The float32 lanes (TF32 off): tf32x3.
+    "sd15_f32_w4_self_4096_d40": ((8, 4096, 8, 40), (8, 4096, 8, 40), 10, 1, "float32"),
+    "sd15_f32_w4_self_1024_d80": ((8, 1024, 8, 80), (8, 1024, 8, 80), 20, 2, "float32"),
+    "sd15_f32_w4_self_256_d160": ((8, 256, 8, 160), (8, 256, 8, 160), 50, 5, "float32"),
+    "sd15_f32_w4_cross_4096x77_d40": ((8, 4096, 8, 40), (8, 77, 8, 40), 50, 5, "float32"),
+    "sd15_f32_w4_cross_1024x77_d80": ((8, 1024, 8, 80), (8, 77, 8, 80), 50, 5, "float32"),
+    "sd15_f32_w4_cross_256x77_d160": ((8, 256, 8, 160), (8, 77, 8, 160), 50, 5, "float32"),
+}
+SERVING_FLUX_K1_SHAPES = {
+    "flux_w4_4608_d128": ((4, 4608, 24, 128), (4, 4608, 24, 128), 10, 1),
+}
+
+
+def _quantile(values, q: float) -> float:
+    """Linear-interpolated quantile (0-100) of a list."""
+    v = sorted(values)
+    if len(v) == 1:
+        return v[0]
+    pos = (len(v) - 1) * q / 100.0
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, len(v) - 1)
+    return v[lo] + (v[hi] - v[lo]) * (pos - lo)
+
+
+def _http(method: str, url: str, body=None):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=600) as r:
+        payload = r.read()
+        return json.loads(payload) if "json" in r.headers.get("Content-Type", "") else payload
+
+
+def _png_size(png: bytes) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR."""
+    import struct
+
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError("not a PNG")
+    return struct.unpack(">II", png[16:24])
+
+
+def _serve_prompts(base: str, graphs: list, together: bool) -> dict:
+    """POST ``graphs`` to the server at ``base`` (all at once, or each after the
+    previous finished), wait for every history entry, fetch each image through
+    ``/view``. Returns per-prompt latencies (POST to history), the wall, and the
+    images' sizes."""
+    posted, done, pids = {}, {}, []
+    start = time.perf_counter()
+
+    def post(wf):
+        pid = _http("POST", f"{base}/prompt", {"prompt": wf})["prompt_id"]
+        posted[pid] = time.perf_counter()
+        pids.append(pid)
+        return pid
+
+    def wait(want):
+        while not want <= set(done):
+            hist = _http("GET", f"{base}/history")
+            now = time.perf_counter()
+            for pid in want:
+                if pid in hist and pid not in done:
+                    done[pid] = (now, hist[pid])
+            time.sleep(0.02)
+
+    if together:
+        for wf in graphs:
+            post(wf)
+        wait(set(pids))
+    else:
+        for wf in graphs:
+            wait({post(wf)})
+    wall = time.perf_counter() - start
+    sizes = []
+    for pid in pids:
+        entry = done[pid][1]
+        if entry["status"]["status_str"] != "success":
+            raise RuntimeError(f"serving: prompt {pid} failed: {entry['status']}")
+        (out,) = entry["outputs"].values()
+        (img,) = out["images"]
+        png = _http("GET", f"{base}/view?filename={img['filename']}&subfolder={img['subfolder']}")
+        sizes.append(_png_size(png))
+    return {"wall_s": wall, "latency_s": [done[p][0] - posted[p] for p in pids],
+            "image_sizes": sizes, "pids": pids}
+
+
+def _serve_lanes(calls, width: int = 4) -> tuple:
+    """Run ``calls`` (zero-argument ``run_sampler`` callables) as concurrent
+    submitters on a width-``width`` scheduler pumped by hand, all queued before the
+    first dispatch. Returns (results in order, dispatches)."""
+    import threading
+
+    from comfyui_parallelanything_tpu_torch.serving import ContinuousBatchingScheduler
+
+    sched = ContinuousBatchingScheduler(max_width=width, auto=False).install()
+    results: dict = {}
+
+    def lane(i, call):
+        try:
+            results[i] = call()
+        except BaseException as e:  # noqa: BLE001 - raised below, on this thread
+            results[i] = e
+
+    try:
+        threads = [threading.Thread(target=lane, args=(i, c), daemon=True)
+                   for i, c in enumerate(calls)]
+        for t in threads:
+            t.start()
+        t0 = time.monotonic()
+        while sum(len(b.queue) for b in list(sched.buckets.values())) < len(calls):
+            if time.monotonic() - t0 > 120:
+                raise RuntimeError("serving: the lanes never queued")
+            time.sleep(0.002)
+        sched.drain(timeout=600)
+        for t in threads:
+            t.join(600)
+        dispatches = sched.total_dispatches()
+    finally:
+        sched.shutdown()
+    out = [results.get(i, RuntimeError("a lane never returned")) for i in range(len(calls))]
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    return out, dispatches
+
+
+def _row_probe(model, latent_shape, ctx_dim: int) -> dict:
+    """One 8-row forward against the same rows permuted: whether a row's result
+    depends on where it sits in the batch."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((8,) + tuple(latent_shape[1:]), generator=g, device=dev)
+    t = torch.linspace(10.0, 990.0, 8, device=dev)
+    c = torch.randn((8, 77, ctx_dim), generator=g, device=dev)
+    perm = torch.tensor([2, 3, 0, 1, 6, 7, 4, 5], device=dev)
+    with torch.no_grad():
+        a, b = model(x, t, c), model(x[perm], t[perm], c[perm])
+    return {"rows_permuted_bitwise": bool(torch.equal(b, a[perm])),
+            "rows_permuted_rel_l2": rel_l2(b, a[perm])}
+
+
+def phase_serving(paths: dict, directory) -> dict:
+    """The port's server (``server.py``, in this process on ``127.0.0.1:0``) on the
+    graph phase's SD1.5 files at full width in bf16: ``workflow_sd15_txt2img`` at
+    512², batch 1, CFG 7.5, its save node kept (the images come back through
+    ``/history`` and ``/view``), one prompt a ``SERVING_PROMPTS`` row (euler,
+    dpmpp_2m, euler_ancestral and heun, 20 or 28 steps, distinct seeds, two texts).
+    First K1 at the lanes' shapes (``SERVING_K1_SHAPES``); then the 8 prompts through
+    a 1-worker server (the inline path: the reference latents and the images/s to
+    beat) and through a 4-worker one (the scheduler and the decode tail installed),
+    all posted at once: dispatches, the lanes' mean occupancy and
+    ``batched_fraction``, images/s against 1 worker, per-prompt latency p50/p95, s
+    per dispatch against the inline s/it, peak memory and K1's launches, which must
+    be exactly 20 ``sm90`` + 10 ``wide`` per dispatch plus one ``wide`` per decode
+    dispatch; every latent finite and within ``SD_REL_TOL`` of its inline run (the
+    stochastic lanes with the same generator). Then each prompt alone through the
+    4-worker server (alone in a width-4 bucket, slot 0): a lane that sat in slot 0
+    of the concurrent run must be bitwise its alone run (a bf16 row's result depends
+    on its slot, so the others are reported). Last the same SD1.5 in float32 (TF32
+    off) through the scheduler directly, 8 lanes of ``SERVING_F32_STEPS`` steps:
+    every lane bitwise its run alone (in slot 0, whatever its slot was) and within
+    ``SERVING_REL_TOL`` of its inline run, exactly 30 ``tf32x3`` per dispatch.
+    Returns K1's launches of the concurrent bf16 run and of the float32 lanes."""
+    import os
+    import threading
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import models, nodes, parallelize
+    from comfyui_parallelanything_tpu_torch.host import WorkflowCache
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.k_samplers import (
+        broadcast_cond_batch,
+        make_sigmas,
+    )
+    from comfyui_parallelanything_tpu_torch.sampling.lane_specs import lane_eval_count
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+    from comfyui_parallelanything_tpu_torch.server import make_server
+    from comfyui_parallelanything_tpu_torch.serving.bucket import (
+        StepBucket,
+        batched_fraction,
+        reset_batch_stats,
+    )
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    start = time.perf_counter()
+    shapes = graph_k1_shapes(fa, SERVING_K1_SHAPES)
+    emit({"phase": "serving", "k1_shapes": shapes})
+    dev = torch.device("cuda", 0)
+    out_dir = os.path.join(directory, "serving_out")
+    latents: dict = {}
+
+    class RecordingKSampler(nodes.TPUKSampler):
+        """The graph's sampler node, keeping each run's latent by seed."""
+
+        def sample(self, *args, **kwargs):
+            out = super().sample(*args, **kwargs)
+            latents[kwargs["seed"]] = out[0]["samples"].clone()
+            return out
+
+    def graph(seed, sampler, steps, i):
+        wf = graph_example("workflow_sd15_txt2img", paths)
+        wf["latent"]["inputs"]["batch_size"] = 1
+        wf["sampler"]["inputs"].update(seed=seed, sampler_name=sampler, steps=steps)
+        if i % 2:
+            wf["positive"]["inputs"]["text"] = SERVING_TEXT_B
+        wf["save"] = {"class_type": "TPUSaveImage",
+                      "inputs": {"images": ["decode", 0], "filename_prefix": f"serve_{seed}",
+                                 "output_dir": out_dir}}
+        return wf
+
+    graphs = [graph(s, sa, n, i) for i, (s, sa, n) in enumerate(SERVING_PROMPTS)]
+    seeds = [s for s, _, _ in SERVING_PROMPTS]
+    cache = WorkflowCache()
+
+    def fresh_samplers():
+        # Each pass re-runs the samplers: nothing of the last pass's sampler, decode
+        # or save may be served from the cache.
+        for nid in ("sampler", "decode", "save"):
+            cache.evict(nid)
+
+    def server(workers):
+        srv, q = make_server(port=0, workers=workers, output_dir=out_dir, cache=cache,
+                             class_mappings={"TPUKSampler": RecordingKSampler})
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv, q, f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def stop(srv, q):
+        srv.shutdown()
+        srv.server_close()
+        q.shutdown()
+
+    def fallbacks():
+        return sum(float(line.rsplit(" ", 1)[1]) for line in registry.render().splitlines()
+                   if line.startswith("pa_serving_inline_fallback_total"))
+
+    # 1 worker: the inline path. Two warm-up prompts load the files and encode both
+    # texts first (not timed).
+    srv, q, base = server(1)
+    try:
+        _serve_prompts(base, [graph(1, "euler", 2, 0), graph(2, "euler", 2, 1)],
+                       together=False)
+        fresh_samplers()
+        torch.cuda.synchronize()
+        inline_run = _serve_prompts(base, graphs, together=True)
+    finally:
+        stop(srv, q)
+    inline = {s: latents.pop(s) for s in seeds}
+    # The inline s/it at the graph's shapes (batch 1, CFG in one batch-2 forward).
+    res = cache.results
+    pm, pos, neg = res["parallel"][0], res["positive"][0], res["negative"][0]
+    latent_shape = tuple(res["latent"][0]["samples"].shape)
+    side = latent_shape[1] * 2 ** (len(res["checkpoint"][1].cfg.channel_mult) - 1)
+    x = nodes.initial_noise(0, latent_shape, dev)
+    kw = dict(cfg_scale=7.5, uncond_context=broadcast_cond_batch(neg["context"], 1),
+              uncond_kwargs={"y": broadcast_cond_batch(neg["pooled"], 1)},
+              y=broadcast_cond_batch(pos["pooled"], 1))
+    run_sampler(pm, x, pos["context"], sampler="euler", steps=2, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_sampler(pm, x, pos["context"], sampler="euler", steps=10, **kw)
+    torch.cuda.synchronize()
+    inline_s_per_it = (time.perf_counter() - t0) / 10
+    # Why bf16 lanes are held at SD_REL_TOL: a row's result depends on its row.
+    rows_bf16 = _row_probe(pm, latent_shape, pos["context"].shape[-1])
+    b4 = run_sampler(pm, x.repeat(4, 1, 1, 1), pos["context"].repeat(4, 1, 1),
+                     sampler="euler", steps=10, cfg_scale=7.5,
+                     uncond_context=neg["context"].repeat(4, 1, 1))
+    rows_bf16["inline_batch4_row0_vs_row3_rel_l2"] = rel_l2(b4[3], b4[0])
+    del pm, pos, neg, res, b4
+
+    # 4 workers: the scheduler and the decode tail. Each lane's slot is recorded.
+    slots: dict = {}
+    set_lane = StepBucket._set_lane
+
+    def recording_set_lane(bucket, i, req):
+        slots[req.prompt_id] = i
+        return set_lane(bucket, i, req)
+
+    srv, q, base = server(SERVING_WORKERS)
+    StepBucket._set_lane = recording_set_lane
+    try:
+        sched, dq = q.scheduler, q.decode_queue
+
+        def step_seconds():
+            got = [registry.get("pa_serving_step_seconds", {"bucket": b.label})
+                   for b in list(sched.buckets.values())]
+            got = [g for g in got if g is not None]
+            return sum(g[0] for g in got), sum(g[1] for g in got)
+
+        fresh_samplers()
+        fallbacks_before = fallbacks()
+        reset_batch_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        d0, dec0, (ss0, sc0) = sched.total_dispatches(), dq.dispatches, step_seconds()
+        fa.reset_launches()
+        served_run = _serve_prompts(base, graphs, together=True)
+        torch.cuda.synchronize()
+        launches = _launched(fa)
+        dispatches = sched.total_dispatches() - d0
+        decodes = dq.dispatches - dec0
+        ss1, sc1 = step_seconds()
+        peak = torch.cuda.max_memory_allocated(dev)
+        occupancy = batched_fraction()
+        fell_back = fallbacks() - fallbacks_before
+        served = {s: latents.pop(s) for s in seeds}
+        served_slots = {s: slots.get(pid) for s, pid in zip(seeds, served_run["pids"])}
+        buckets = len(sched.buckets)
+        # Each prompt alone: alone in a width-4 bucket, in slot 0.
+        fresh_samplers()
+        d1 = sched.total_dispatches()
+        _serve_prompts(base, graphs, together=False)
+        ss2, sc2 = step_seconds()
+        alone_dispatches = sched.total_dispatches() - d1
+        alone = {s: latents.pop(s) for s in seeds}
+    finally:
+        StepBucket._set_lane = set_lane
+        stop(srv, q)
+    n = len(SERVING_PROMPTS)
+    lane_evals = sum(lane_eval_count(sa, make_sigmas("karras", st).numpy())
+                     for _, sa, st in SERVING_PROMPTS)
+    want = {v: c * dispatches for v, c in SD15_PER_FORWARD.items()}
+    want["wide"] = want.get("wide", 0) + decodes  # the decode's mid-block attention
+    rows = {str(s): {"sampler": sa, "steps": st, "slot": served_slots[s],
+                     "bitwise_alone": bool(torch.equal(served[s], alone[s])),
+                     "rel_l2_vs_alone": rel_l2(served[s], alone[s]),
+                     "rel_l2_vs_inline": rel_l2(served[s], inline[s]),
+                     "finite": bool(torch.isfinite(served[s]).all().item())}
+            for s, sa, st in SERVING_PROMPTS}
+    row = {
+        "phase": "serving", "dtype": "bfloat16", "prompts": n, "workers": SERVING_WORKERS,
+        "buckets": buckets, "dispatches": dispatches, "decode_dispatches": decodes,
+        "lane_evals": lane_evals, "mean_occupancy": lane_evals / max(1, dispatches),
+        "batched_fraction": occupancy,
+        "images_per_s": n / served_run["wall_s"],
+        "images_per_s_1_worker": n / inline_run["wall_s"],
+        "speedup": inline_run["wall_s"] / served_run["wall_s"],
+        "latency_p50_s": _quantile(served_run["latency_s"], 50),
+        "latency_p95_s": _quantile(served_run["latency_s"], 95),
+        "latency_p50_s_1_worker": _quantile(inline_run["latency_s"], 50),
+        "latency_p95_s_1_worker": _quantile(inline_run["latency_s"], 95),
+        "s_per_dispatch": (ss1 - ss0) / max(1, sc1 - sc0),
+        "s_per_dispatch_alone": (ss2 - ss1) / max(1, sc2 - sc1),
+        "alone_dispatches": alone_dispatches, "inline_s_per_it": inline_s_per_it,
+        "peak_gb": peak / 1e9, "k1_launches_by_variant": launches, "k1_launches_expected": want,
+        "inline_fallbacks": fell_back, "image_sizes": sorted(set(served_run["image_sizes"])),
+        "tol_vs_inline": SD_REL_TOL, "row_probe": rows_bf16, "lanes": rows,
+    }
+    emit(row)
+    slot0 = [s for s, r in rows.items() if r["slot"] == 0]
+    bad = [s for s, r in rows.items()
+           if not (r["finite"] and r["rel_l2_vs_inline"] <= SD_REL_TOL)
+           or (r["slot"] == 0 and not r["bitwise_alone"])]
+    if (launches != want or bad or not slot0 or fell_back or dispatches == 0
+            or row["image_sizes"] != [(side, side)] or occupancy <= 0.0):
+        raise RuntimeError(f"serving: lanes {bad} failed (slot-0 lanes {slot0}), or K1 "
+                           f"launched {launches} (want {want}), or {fell_back} runs fell "
+                           "back inline")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32, TF32 off: the lanes' update math held at SERVING_REL_TOL.
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = torch.Generator(device=dev).manual_seed(15)
+        cfg32 = models.sd15_config(dtype=torch.float32)
+        f32 = parallelize(models.build_unet(cfg32, device=dev, generator=gen),
+                          [("cuda:0", 100)])
+        conds = [torch.randn((1, 77, cfg32.context_dim), generator=gen, device=dev)
+                 for _ in range(3)]
+        reqs = [(torch.randn(latent_shape, generator=gen, device=dev), conds[i % 2], sa,
+                 SERVING_F32_STEPS[i % 2], s)
+                for i, (s, sa, _) in enumerate(SERVING_PROMPTS)]
+
+        def call(r):
+            noise, ctx, sampler, steps, seed = r
+            return lambda: run_sampler(
+                f32, noise, ctx, sampler=sampler, steps=steps, cfg_scale=7.5,
+                uncond_context=conds[2], rng=torch.Generator(device=dev).manual_seed(seed))
+
+        rows_f32 = _row_probe(f32, latent_shape, cfg32.context_dim)
+        fa.reset_launches()
+        together, f32_dispatches = _serve_lanes([call(r) for r in reqs])
+        f32_launches = _launched(fa)
+        alone32 = [_serve_lanes([call(r)])[0][0] for r in reqs]
+        inline32 = [call(r)() for r in reqs]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    want32 = {v: c * f32_dispatches for v, c in SD15_F32_PER_FORWARD.items()}
+    lanes32 = [{"sampler": r[2], "steps": r[3], "bitwise_alone": bool(torch.equal(t, a)),
+                "rel_l2_vs_inline": rel_l2(t, i)}
+               for r, t, a, i in zip(reqs, together, alone32, inline32)]
+    row32 = {"phase": "serving", "dtype": "float32", "lanes": lanes32,
+             "dispatches": f32_dispatches, "k1_launches_by_variant": f32_launches,
+             "k1_launches_expected": want32, "tol_vs_inline": SERVING_REL_TOL,
+             "row_probe": rows_f32, "seconds": time.perf_counter() - start}
+    emit(row32)
+    if f32_launches != want32 or not all(
+            r["bitwise_alone"] and r["rel_l2_vs_inline"] <= SERVING_REL_TOL for r in lanes32):
+        raise RuntimeError(f"serving float32: {row32}")
+    del f32, together, alone32, inline32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serving": launches, "serving_f32": f32_launches}
+
+
+def phase_serving_flux(pm, main_s_per_it: float | None = None) -> dict:
+    """FLUX-dev through the scheduler directly, before the main path's model is freed:
+    four flow lanes (``sampler="euler"``, ``prediction="flow"``, guidance 3.5) of
+    ``SERVING_FLUX_STEPS`` steps at 1024² submitted from four threads to a width-4
+    scheduler pumped by hand (``_serve_lanes``), so every dispatch is one (4, 4608,
+    24, 128) K1 call a block: K1 at that shape first (``SERVING_FLUX_K1_SHAPES``),
+    then exactly 57 ``sm90`` a dispatch, s per dispatch against the main path's
+    s/it, and each latent within ``SERVING_FLUX_REL_TOL`` of its inline run."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.models.flux import flux_dev_config
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    start = time.perf_counter()
+    shapes = graph_k1_shapes(fa, SERVING_FLUX_K1_SHAPES)
+    emit({"phase": "serving_flux", "k1_shapes": shapes})
+    cfg = flux_dev_config()
+    inputs = [_flux_inputs(cfg, 1, 200 + i) for i in range(len(SERVING_FLUX_STEPS))]
+
+    def run(i):
+        x, ctx, y = inputs[i]
+        return run_sampler(pm, x, ctx, sampler="euler", steps=SERVING_FLUX_STEPS[i],
+                           prediction="flow", guidance=3.5, y=y)
+
+    # One width-4 dispatch first (not counted): the batch-4 shapes' first library calls.
+    _serve_lanes([lambda i=i: run_sampler(pm, *inputs[i][:2], sampler="euler", steps=1,
+                                          prediction="flow", guidance=3.5, y=inputs[i][2])
+                  for i in range(len(inputs))])
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    lanes, dispatches = _serve_lanes([lambda i=i: run(i) for i in range(len(inputs))])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    launches = _launched(fa)
+    results = dict(enumerate(lanes))
+    t1 = time.perf_counter()
+    inline = [run(i) for i in range(len(inputs))]
+    torch.cuda.synchronize()
+    inline_s_per_it = (time.perf_counter() - t1) / sum(SERVING_FLUX_STEPS)
+    rels = [rel_l2(results[i], inline[i]) for i in range(len(inputs))]
+    per_forward = cfg.depth + cfg.depth_single_blocks
+    want = {"sm90": per_forward * dispatches}
+    row = {"phase": "serving_flux", "lanes": len(inputs), "steps": list(SERVING_FLUX_STEPS),
+           "dispatches": dispatches, "s_per_dispatch": serve_s / max(1, dispatches),
+           "inline_s_per_it": inline_s_per_it, "main_path_s_per_it": main_s_per_it,
+           "lane_steps_per_s": sum(SERVING_FLUX_STEPS) / serve_s,
+           "inline_steps_per_s": 1.0 / inline_s_per_it,
+           "k1_launches_by_variant": launches, "k1_launches_expected": want,
+           "rel_l2_vs_inline": rels, "tol": SERVING_FLUX_REL_TOL,
+           "finite": all(bool(torch.isfinite(r).all().item()) for r in results.values()),
+           "seconds": time.perf_counter() - start}
+    emit(row)
+    if (launches != want or dispatches != max(SERVING_FLUX_STEPS) or not row["finite"]
+            or max(rels) > SERVING_FLUX_REL_TOL):
+        raise RuntimeError(f"serving_flux: {row}")
+    return {"serving_flux": launches}
+
+
 WAN_PROMPT = "a red fox running through fresh snow at dawn, cinematic, highly detailed"
 WAN_NEGATIVE = "blurry, static, low quality, watermark"
 WAN_SIZE = dict(height=480, width=832, frames=81)  # latent 21×60×104: 32760 tokens
@@ -3704,6 +4221,7 @@ def main() -> int:
     pm, main_launches, main_ref = phase_main_path()
     pipe_launches = phase_pipeline(pm)
     main_captured = phase_main_path_captured(pm)
+    serving_flux_launches = phase_serving_flux(pm, main_ref["s_per_it"])
     placement_launches = phase_pipeline_placement(pm)
     stream_launches = phase_stream(pm, main_ref)
     del main_ref
@@ -3733,6 +4251,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as graph_dir:
         graph_launches, graph_paths = phase_graph(graph_dir)
         stock_launches = phase_graph_stock(graph_paths, graph_dir)
+        serving_launches = phase_serving(graph_paths, graph_dir)
     gc.collect()
     torch.cuda.empty_cache()
     wan_launches, (wan_vae, umt5, umt5_tok) = phase_wan()
@@ -3745,7 +4264,8 @@ def main() -> int:
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
              "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
              **sd3_launches, **placement_launches, **stream_launches, **checkpoint_launches,
-             **graph_launches, **stock_launches, **wan_launches, **wan_i2v_launches}
+             **graph_launches, **stock_launches, **serving_launches, **serving_flux_launches,
+             **wan_launches, **wan_i2v_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

@@ -2,9 +2,12 @@
 blend reads and the budget its weights-don't-fit check compares against
 (counterpart of ``free_memory_bytes``/``total_memory_bytes``/``usable_hbm_bytes``
 in ``comfyui_parallelanything_tpu/devices/memory.py``). A CPU device reports 0, so
-CPU chains keep the user's weights. ``ResidencyTracker`` is the weight-streaming
-executor's account of the stage weights it holds on its device; its gauges
-(``publish_gauges``) wait for the telemetry utils (ROADMAP Queue 1 item 9)."""
+CPU chains keep the user's weights. ``memory_snapshot``/``publish_memory_gauges``
+are the per-card view the server's ``/health`` and ``/metrics`` read (the CUDA
+caching allocator's counters; a host without a card reports no device).
+``ResidencyTracker`` is the weight-streaming executor's account of the stage
+weights it holds on its device; its gauges (``publish_gauges``) wait for the
+streaming telemetry (ROADMAP Queue 1 item 9)."""
 
 from __future__ import annotations
 
@@ -71,3 +74,52 @@ class ResidencyTracker:
     @property
     def live_tags(self) -> tuple:
         return tuple(self._tags)
+
+
+def memory_snapshot(devices=None) -> list[dict]:
+    """One record per CUDA device (or per device in ``devices``): the allocator's
+    ``bytes_in_use`` and ``peak_bytes_in_use`` (``memory_allocated`` /
+    ``max_memory_allocated``), ``bytes_reserved``, the card's ``bytes_limit`` and
+    ``bytes_free`` (``mem_get_info``) and ``utilization`` (in use over the limit).
+    The body of ``GET /health``'s ``hbm`` section; empty without a card (the JAX
+    package's pseudo-accounting of host arrays has no counterpart here)."""
+    if devices is None:
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if torch.cuda.is_available() else [])
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type != "cuda":
+            continue
+        free, total = torch.cuda.mem_get_info(d)
+        in_use = int(torch.cuda.memory_allocated(d))
+        out.append({
+            "device": str(d),
+            "kind": torch.cuda.get_device_name(d),
+            "bytes_in_use": in_use,
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(d)),
+            "bytes_reserved": int(torch.cuda.memory_reserved(d)),
+            "bytes_limit": int(total),
+            "bytes_free": int(free),
+            "utilization": round(in_use / total, 6) if total > 0 else None,
+        })
+    return out
+
+
+def publish_memory_gauges(devices=None) -> list[dict]:
+    """Export ``pa_hbm_bytes_limit`` / ``pa_hbm_bytes_in_use`` /
+    ``pa_hbm_utilization`` per device (the Prometheus view of the snapshot);
+    returns the snapshot."""
+    from ..utils.metrics import registry
+
+    snap = memory_snapshot(devices)
+    for s in snap:
+        lbl = {"device": s["device"]}
+        registry.gauge("pa_hbm_bytes_limit", s["bytes_limit"], labels=lbl,
+                       help="device memory capacity")
+        registry.gauge("pa_hbm_bytes_in_use", s["bytes_in_use"], labels=lbl,
+                       help="device memory held by tensors (the caching allocator's count)")
+        if s["utilization"] is not None:
+            registry.gauge("pa_hbm_utilization", s["utilization"], labels=lbl,
+                           help="bytes_in_use / bytes_limit")
+    return snap

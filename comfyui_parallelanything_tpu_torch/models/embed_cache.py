@@ -36,13 +36,21 @@ def cache_budget_bytes() -> int:
         return DEFAULT_BYTES
 
 
+_token_lock = threading.Lock()
+
+
 def lifetime_token(obj, attr: str = "_pa_embed_token") -> str:
     """A token unique to ``obj`` for its lifetime (unlike ``id()``, never reused),
-    kept on the object."""
+    kept on the object. Made under a lock: concurrent prompt workers asking for the
+    first time must get one token, or one object keys two cache entries (two
+    decode groups)."""
     tok = getattr(obj, attr, None)
     if tok is None:
-        tok = uuid.uuid4().hex
-        object.__setattr__(obj, attr, tok)
+        with _token_lock:
+            tok = getattr(obj, attr, None)
+            if tok is None:
+                tok = uuid.uuid4().hex
+                object.__setattr__(obj, attr, tok)
     return tok
 
 

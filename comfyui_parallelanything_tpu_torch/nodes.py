@@ -1182,8 +1182,10 @@ class TPUKSamplerAdvanced:
 
 
 class TPUVAEDecode:
-    """(VAE, LATENT) → IMAGE floats in [0, 1]; tiled when ``tile_size`` > 0. Decodes
-    run inline (the serving decode queue comes with ROADMAP Queue 1 item 9)."""
+    """(VAE, LATENT) → IMAGE floats in [0, 1]; tiled when ``tile_size`` > 0. With a
+    decode queue installed (``serving/decode.py``; the server installs one beside
+    its scheduler) an eligible latent batches into a shared decode with other
+    prompts'; ineligible work (tiled, video) decodes inline."""
 
     DESCRIPTION = "Decode latents to images (auto-tiled for large resolutions)."
     RETURN_TYPES = ("IMAGE",)
@@ -1201,7 +1203,13 @@ class TPUVAEDecode:
 
     def decode(self, vae, latent, tile_size: int = 0):
         from .models.vae import decode_maybe_tiled, vae_output_to_images
+        from .serving.decode import get_decode_queue
 
+        q = get_decode_queue()
+        if q is not None:
+            ticket = q.submit(vae, latent["samples"], tile_size)
+            if ticket is not None:
+                return (vae_output_to_images(ticket.result()),)
         return (vae_output_to_images(decode_maybe_tiled(vae, latent["samples"], tile_size)),)
 
 

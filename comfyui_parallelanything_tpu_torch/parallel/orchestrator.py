@@ -489,6 +489,19 @@ class ParallelModel:
             return TraceSpec(tuple(g.replicas), tuple(g.devices))
         return TraceSpec((self._lead_replica(),), (self.lead_device,))
 
+    def serving_bucket_width(self, requested: int) -> int:
+        """How many concurrent serving lanes one step dispatch may co-batch on this
+        chain (``serving/scheduler.py`` asks at admission). A streaming model stays
+        width 1: every step already streams the weights under a budget carved for
+        one request's activations, and co-batched lanes would multiply them. A
+        heterogeneous chain is width 1 for the reason it has no captured loop: no
+        single step program exists to widen. Either keeps step-boundary scheduling
+        (cancel, metrics, ragged retire) without co-batching. Any other chain takes
+        the requested width."""
+        if self._stream or self.traceable() is None:
+            return 1
+        return max(1, int(requested))
+
     # -- degradation ---------------------------------------------------------------
 
     def _demote(self) -> None:

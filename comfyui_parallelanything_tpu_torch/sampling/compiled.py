@@ -50,13 +50,21 @@ Where the JAX package scans one XLA program, this module records one CUDA graph.
 The cache holds at most ``_LOOP_CACHE_MAX`` loops and keeps their replicas alive;
 ``clear_compiled_loops`` (reached from ``ParallelModel.cleanup()``) drops them and
 their graphs' memory pools.
+
+The other half of the module is the serving layer's per-lane step
+(``lane_step_program``): ONE batched model eval that advances a fixed-width batch
+of lanes, each at its own sigma in its own schedule with its own sampler, the unit
+``serving/bucket.py`` dispatches. It runs eager; capturing it per bucket as a CUDA
+graph is a later optimisation (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
+import threading
 import time
 import traceback
 from collections.abc import Mapping
@@ -68,6 +76,7 @@ from ..parallel.orchestrator import is_out_of_memory
 from ..parallel.split import concat_results, pad_leaf, partition_kwargs, slice_padded
 from ..parallel.split import static_kwargs_key, tree_map
 from . import k_samplers
+from .cfg import rescale_guidance
 from .ddim import ddim_sample
 from .flow import flow_euler_sample
 
@@ -78,6 +87,7 @@ __all__ = [
     "compiled_k_sample",
     "compiled_ddim_sample",
     "compiled_flow_sample",
+    "lane_step_program",
     "loop_records",
 ]
 
@@ -185,6 +195,27 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return _side_streams[device]
 
 
+# Captures run one at a time: every warm-up and capture on a device shares its
+# side stream.
+_capture_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _capture_guard():
+    """Hold for a loop's warm-up and capture: one capture at a time, and no
+    serving dispatch meanwhile. With a scheduler installed (``server.py`` with
+    several workers) a ``compile_loop=True`` prompt captures on its worker thread
+    while the dispatcher thread runs lanes; the guard takes the scheduler's
+    dispatch lock, so the capture waits for the round in flight and the next
+    waits for the capture. Replays need neither."""
+    from ..serving.scheduler import get_scheduler
+
+    sched = get_scheduler()
+    with _capture_lock, (sched.dispatch_lock if sched is not None
+                         else contextlib.nullcontext()):
+        yield
+
+
 def clear_compiled_loops() -> None:
     """Drop every cached loop, its graph and its memory pool (reached from
     ``ParallelModel.cleanup()``, and from a step-OOM demotion)."""
@@ -256,6 +287,10 @@ class _Loop:
         torch.cuda.current_stream(self.device).wait_stream(side)
 
     def _capture(self, inputs: dict) -> None:
+        with _capture_guard():
+            self._capture_alone(inputs)
+
+    def _capture_alone(self, inputs: dict) -> None:
         from ..ops.kernels import flash_attention as fa
 
         start = time.perf_counter()
@@ -269,8 +304,11 @@ class _Loop:
         try:
             # The outer stream context gives the caller its stream back even when
             # closing a broken capture raises before the graph's own context does.
+            # "thread_local": what other threads do meanwhile (a prompt worker's
+            # eager sampler, a decode, an allocation) cannot break this capture.
             with torch.cuda.stream(torch.cuda.current_stream(self.device)), \
-                    torch.cuda.graph(graph, stream=_side_stream(self.device)), torch.no_grad():
+                    torch.cuda.graph(graph, stream=_side_stream(self.device),
+                                     capture_error_mode="thread_local"), torch.no_grad():
                 out = self.body(self.replica, self.static)
         except Exception as e:
             if is_out_of_memory(e):
@@ -449,3 +487,163 @@ def compiled_flow_sample(
     meta = (float(cfg_scale), float(cfg_rescale), None if guidance is None else float(guidance),
             _bytes(ts))
     return _run("flow", "flow_euler", spec, meta, body, x.shape[0], inputs, static)
+
+
+# ---------------------------------------------------------------------------
+# per-lane batched step (serving/): ONE model eval advances a fixed-width batch of
+# lanes, each carrying its OWN (sigma, state, sampler); each lane's sampler update
+# is the host-computed linear combination its LaneStepSpec plan emitted
+# (sampling/lane_specs.py), so lanes running different samplers share the eval.
+# Padded and retired lanes are masked with torch.where, a select: a pad lane's
+# value, NaN included, never reaches a live lane.
+# ---------------------------------------------------------------------------
+
+
+def _lane_scalars(sigmas, active, prediction: str, log_sigmas=None):
+    """Per-lane model-input scalars, on the host: ``(s, t, scale)`` as float32 CPU
+    tensors ``[W]``. ``s`` is the lane's sigma (pinned to 1 where ``active`` is
+    false, so a pad lane divides by nothing small); ``t`` the model timestep (flow:
+    ``s`` itself; eps/v: the log-sigma interpolation into ``log_sigmas``); ``scale``
+    the eps/v input scale ``1/√(s²+1)`` (None for flow). Each lane's scalars are
+    computed one 0-d tensor at a time with ``EpsDenoiser``'s own operations, so a
+    lane's timestep and input scale equal the inline sampler's bit for bit."""
+    ss, ts, scales = [], [], []
+    for sigma, live in zip(sigmas, active):
+        s = k_samplers._f32(float(sigma) if live else 1.0)
+        ss.append(s)
+        if prediction == "flow":
+            ts.append(s)
+        else:
+            ts.append(k_samplers.interp(torch.log(s), log_sigmas,
+                                        torch.arange(len(log_sigmas), dtype=torch.float32)))
+            scales.append(1.0 / torch.sqrt(s**2 + 1.0))
+    stack = lambda v: torch.stack(v).reshape(-1)  # noqa: E731
+    return stack(ss), stack(ts), (stack(scales) if scales else None)
+
+
+def lane_step_program(model, *, prediction: str, use_cfg: bool, cfg_rescale: float,
+                      static_kwargs: dict, broadcast_cond: bool = False,
+                      broadcast_kwargs: bool = False):
+    """The per-step program of one serving bucket (W lanes of per-request batch b):
+
+    ``fn(x[W,b,...], xe, h1, h2, sigma_eval[W] (host floats), active[W] (host
+    bools), cfg_scale[W] (host floats), coef[W,4,6], noise[W,b,...] | None,
+    context[W,b,L,D] | [b,L,D] | None, uncond_context, kwargs, u_kwargs,
+    log_sigmas | None, mask[W,b,...] | None, mask_init, mask_noise,
+    mask_mix[W,3] | None) -> (x', xe', h1', h2')``
+
+    One batched model eval at per-lane ``(xe, sigma_eval)``: the σ→timestep
+    log-interpolation and the 1/√(σ²+1) input scale (``_lane_scalars``, host
+    scalars moved to the device before the forward), cond ‖ uncond in one forward and the
+    CFG mix with a per-lane ``cfg_scale``, then the denoised estimate ``x0``. Each
+    state slot then becomes its ``coef``-weighted combination of
+    ``(x, xe, x0, h1, h2, noise)``: ``noise`` holds each drawing lane's own
+    pre-drawn ``step_noise`` row (zeros for the rest; None when no lane draws), so
+    a stochastic lane is the same alone or co-batched. The sampler never appears
+    in the program. Inactive lanes get sigma 1, and a ``torch.where`` select keeps
+    their state as it was.
+
+    ``broadcast_cond`` / ``broadcast_kwargs``: ``context`` / ``uncond_context``
+    and the traced kwargs trees arrive as ONE per-request ``[b, ...]`` value shared
+    by every lane and are expanded over the lane axis here (the sibling-seed
+    fan-out of one prompt holds one cond), giving the same ``[W·b, ...]`` values
+    the stacked variant reshapes to.
+
+    Denoise masks (img2img, inpaint): ``mask_mix[W, 3]`` is ``(gate, keep_a,
+    keep_b)`` per lane; where the gate is on (a masked lane completing its
+    σ-interval), x' and xe' re-pin the keep region to ``keep_a·mask_init +
+    keep_b·mask_noise``, the inline sampler's mask callback; histories are left
+    alone, as the callback never sees them. ``mask`` None skips the blend (no
+    masked lane in the bucket).
+
+    Rounding follows the inline ``EpsDenoiser``: the guidance product and σ·eps
+    are taken in float32 and rounded to the model's output dtype before they meet
+    the float32 latent, as PyTorch rounds a reduced-precision tensor times a
+    Python scalar."""
+    def fn(x, xe, h1, h2, sigma_eval, active, cfg_scale, coef, noise, context,
+           uncond_context, kwargs, u_kwargs, log_sigmas, mask, mask_init, mask_noise,
+           mask_mix):
+        W, b = x.shape[0], x.shape[1]
+        n = W * b
+        dev = x.device
+
+        def flatten(t):
+            return t.reshape((n,) + tuple(t.shape[2:]))
+
+        def expand(t):
+            return t[None].expand((W,) + tuple(t.shape))
+
+        def col(v, ndim):
+            return v.reshape(v.shape + (1,) * (ndim - 1))
+
+        if broadcast_cond:
+            context = None if context is None else expand(context)
+            uncond_context = None if uncond_context is None else expand(uncond_context)
+        if broadcast_kwargs:
+            kwargs = {k: expand(v) for k, v in (kwargs or {}).items()}
+            u_kwargs = {k: expand(v) for k, v in (u_kwargs or {}).items()}
+        s, t, scale = _lane_scalars(sigma_eval, active, prediction, log_sigmas)
+        scalars = torch.stack([s, t] + ([scale] if scale is not None else []) +
+                              [torch.as_tensor(cfg_scale, dtype=torch.float32)])
+        # Every host value moves before the model call: a copy after it would hold
+        # the host until the forward's kernels finish.
+        scalars = scalars.to(dev).repeat_interleave(b, dim=1)
+        s_flat, t_flat = scalars[0], scalars[1]
+        scale_flat = scalars[2] if scale is not None else None
+        cfg_flat = scalars[-1]
+        coef = coef.to(dev)
+        live = torch.as_tensor(list(active), dtype=torch.bool).to(dev)
+        mix_rows = None if mask is None else mask_mix.to(dev)
+        flat = flatten(xe)
+        x_in = flat if scale_flat is None else flat * col(scale_flat, flat.ndim)
+        ctx = None if context is None else flatten(context)
+        kw = {k: flatten(v) for k, v in (kwargs or {}).items()}
+        if use_cfg:
+            u_kw = {k: flatten(v) for k, v in (u_kwargs or {}).items()}
+            extra_keys = set(u_kw) - set(kw)
+            if extra_keys:
+                raise ValueError(f"uncond kwargs carry keys absent from cond kwargs: "
+                                 f"{sorted(extra_keys)}")
+            out = model(torch.cat([x_in, x_in]), torch.cat([t_flat, t_flat]),
+                        None if ctx is None else torch.cat([ctx, flatten(uncond_context)]),
+                        **{k: torch.cat([v, u_kw.get(k, v)]) for k, v in kw.items()},
+                        **static_kwargs)
+            eps_c, eps_u = out.chunk(2, dim=0)
+            guided = (eps_c - eps_u).float() * col(cfg_flat, eps_c.ndim)
+            eps = eps_u + guided.to(eps_c.dtype)
+            eps = rescale_guidance(eps, eps_c, float(cfg_rescale))
+        else:
+            eps = model(x_in, t_flat, ctx, **kw, **static_kwargs)
+        dt = eps.dtype
+        s_col = col(s_flat, eps.ndim)
+        if prediction == "v":
+            v_term = ((eps.float() * s_col).to(dt).float()
+                      * col(scale_flat, eps.ndim)).to(dt)
+            x0_flat = flat / (s_col**2 + 1.0) - v_term
+        else:
+            # eps: x0 = x − σ·eps. flow: x0 = x − σ·v, the same expression.
+            x0_flat = flat - (eps.float() * s_col).to(dt)
+        x0 = x0_flat.reshape(x.shape)
+        basis = (x, xe, x0, h1, h2, noise)
+
+        def mix(j):
+            acc = None
+            for k, term in enumerate(basis):
+                if term is None:
+                    continue
+                part = col(coef[:, j, k], x.ndim) * term
+                acc = part if acc is None else acc + part
+            return acc.to(x.dtype)
+
+        live = col(live, x.ndim)
+        new = [torch.where(live, mix(j), old) for j, old in enumerate((x, xe, h1, h2))]
+        if mix_rows is not None:
+            gate = col(mix_rows[:, 0] > 0, x.ndim)
+            keep = (col(mix_rows[:, 1], x.ndim) * mask_init
+                    + col(mix_rows[:, 2], x.ndim) * mask_noise)
+            for j in (0, 1):
+                blend = _mask_blend(new[j], mask, keep).to(x.dtype)
+                new[j] = torch.where(gate, blend, new[j])
+        return tuple(new)
+
+    return fn

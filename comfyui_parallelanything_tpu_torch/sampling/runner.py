@@ -13,9 +13,18 @@ inputs, and each such case is logged: a user callback, combined conditioning,
 a weight-streaming model and a heterogeneous chain. A capture that fails raises instead of falling back
 (the JAX runner's compile-failure rung does fall back). Per-request LoRA
 (``lora=``, a factor map from ``models/lora.py``) runs the eagerly merged model
-(``lora_model``) on every branch, as the JAX runner's inline legs do; the serving
-scheduler's continuous-batching seam is not ported, and the port's runs are the
-JAX runner's runs with no scheduler installed.
+(``lora_model``) on every branch, as the JAX runner's inline legs do.
+
+Continuous batching (``serving/``): with a scheduler installed
+(``ContinuousBatchingScheduler.install()``, which ``server.py`` does for several
+prompt workers), an eligible k-sampler run (a ``LaneStepSpec`` sampler, no user
+callback, no ``compile_loop``) is handed to it and shares one batched model step
+with the other requests in flight; the caller blocks until its lane retires.
+Ineligible work (``maybe_submit`` returns None) and work the scheduler's OOM ladder
+sheds (``DegradedToInline``) runs the inline path below, counted by
+``pa_serving_inline_fallback_total{reason=}``. ``compile_loop=True`` callers
+asked for the captured loop and are never handed over; their capture is made safe
+beside the dispatcher in ``sampling/compiled.py``.
 
 Every eager loop reports each step through ``utils/progress.report_progress``
 (the progress hook, the latent preview hook, and the cooperative interrupt,
@@ -78,6 +87,38 @@ def _compiled_spec(model, callback):
         logger.info("compile_loop: the model cannot run as one captured loop (a "
                     "heterogeneous chain or a per-step expert switch); eager path")
     return spec
+
+
+def _serve(callback=None, **request):
+    """The continuous-batching seam: hand the prepared run to the installed
+    scheduler and wait for its lane, or return None for the inline path (no
+    scheduler; a user callback, which a lane cannot call between its steps; the
+    scheduler could not take it; or its OOM ladder shed it)."""
+    from ..serving.scheduler import get_scheduler
+
+    sched = get_scheduler()
+    if sched is None:
+        return None
+    from ..utils.degrade import DegradedToInline, record_rung
+    from ..utils.metrics import registry
+
+    sampler = request["sampler"]
+    ticket = None if callback is not None else sched.maybe_submit(**request)
+    if ticket is not None:
+        try:
+            return ticket.result()
+        except DegradedToInline as e:
+            # The serving layer shed this request (its OOM ladder ran out of
+            # width): the inline eager path is the last rung, the prompt completes.
+            record_rung("inline-fallback", f"{sampler}: {e}", sampler=sampler)
+            reason = "degraded"
+    else:
+        reason = "ineligible"
+    registry.counter("pa_serving_inline_fallback_total",
+                     labels={"reason": reason, "sampler": sampler},
+                     help="sampler runs that ran the inline eager loop with a scheduler "
+                          "installed")
+    return None
 
 
 def run_sampler(
@@ -314,6 +355,19 @@ def run_sampler(
             x = init_latent + x
     if sampler in RNG_SAMPLERS and rng is None:
         rng = torch.Generator(device=noise.device).manual_seed(0)
+    if not compile_loop:
+        served = _serve(
+            callback=callback, model=model, x=x, sigmas=sigmas, context=context, sampler=sampler,
+            cfg_scale=eff_cfg, uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
+            alphas_cumprod=acp, prediction=prediction, cfg_rescale=cfg_rescale,
+            model_kwargs=model_kwargs, rng=rng if sampler in RNG_SAMPLERS else None,
+            latent_mask=latent_mask,
+            mask_init=init_latent if latent_mask is not None else None,
+            mask_noise=noise if latent_mask is not None else None,
+            extra_conds=extra_conds, cond_area=cond_area, cond_area_pct=cond_area_pct,
+            cond_mask=cond_mask, lora=lora)
+        if served is not None:
+            return served
     if spec is not None:
         return compiled_k_sample(
             spec, sampler, x, sigmas, context, cfg_scale=eff_cfg,

@@ -2,7 +2,8 @@
 small FLUX, UNet, ControlNet and SD3 models through ``parallelize`` on the card
 against the same models on the CPU, a small FLUX streamed from pinned host memory
 against the same model resident, the whole-loop compiled sampler's captured
-graphs against the eager loop, a ``cuda:0`` + ``cpu`` chain, the example graphs
+graphs against the eager loop (beside a busy serving dispatcher too), a
+``cuda:0`` + ``cpu`` chain, the example graphs
 (native and stock names) and the CLIP vision tower on the card against the CPU.
 Every test here needs a CUDA device and skips without one.
 
@@ -620,6 +621,59 @@ def test_small_flux_captured_loop_matches_eager(cuda_device, no_loops):
     pm = parallelize(model, [("cuda:0", 100)])
     _captured_against_eager(pm, 3, {"sm90": cfg.depth + cfg.depth_single_blocks}, noise, ctx,
                             sampler="flow_euler", steps=3, guidance=3.5, y=y)
+
+
+def test_capture_beside_a_busy_serving_dispatcher_matches_eager(cuda_device, no_loops):
+    # A compile_loop=True prompt is never handed to an installed scheduler; it
+    # captures on its own thread while the dispatcher thread runs lanes. The capture
+    # holds the dispatcher's lock and captures in thread-local mode
+    # (sampling/compiled._capture_guard): it must neither fail nor disturb the lanes.
+    import threading
+    import time
+
+    from comfyui_parallelanything_tpu_torch.serving import ContinuousBatchingScheduler
+
+    cfg = flux.flux_dev_config(**SMALL, dtype=torch.bfloat16)
+    model = flux.build_flux(cfg, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    noise = torch.randn((1, 32, 32, 4), generator=g, device=cuda_device)
+    ctx = torch.randn((1, 16, 64), generator=g, device=cuda_device)
+    y = torch.randn((1, 32), generator=g, device=cuda_device)
+    pm = parallelize(model, [("cuda:0", 100)])
+    kw = dict(sampler="euler", steps=3, prediction="flow", guidance=3.5, y=y)
+    eager = run_sampler(pm, noise, ctx, **kw)
+    sched = ContinuousBatchingScheduler(max_width=4).install()
+    stop, lanes, errors = threading.Event(), [], []
+
+    def client():
+        while not stop.is_set():
+            try:
+                lanes.append(run_sampler(pm, noise, ctx, **kw))
+            except BaseException as e:  # noqa: BLE001 - asserted below
+                errors.append(e)
+                return
+
+    clients = [threading.Thread(target=client, daemon=True) for _ in range(3)]
+    try:
+        for t in clients:
+            t.start()
+        while sched.total_dispatches() < 2:
+            time.sleep(0.001)
+        dispatched = sched.total_dispatches()
+        captured = [run_sampler(pm, noise, ctx, compile_loop=True, **kw) for _ in range(2)]
+        assert sched.total_dispatches() > dispatched  # the lanes ran beside the loop
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(60)
+        sched.shutdown()
+    assert not errors, errors
+    (rec,) = [r for r in compiled.loop_records() if r["sampler"] == "euler"]
+    assert rec["replays"] == 2
+    assert torch.equal(captured[0], captured[1])
+    assert _rel(captured[0], eager) <= 1e-3
+    assert lanes and all(_rel(lane, eager) <= 3e-2 for lane in lanes)
 
 
 def test_cuda_and_cpu_chain_matches_the_card_alone(cuda_device, monkeypatch, no_loops):
