@@ -83,7 +83,12 @@ the error.
    against the same forward on plain attention and one profiled step. Every call
    then runs again captured, each within 1e-3 relative L2 of its eager run with the
    same generator, and ``dpmpp_2m`` over 10 steps captured against eager in turns,
-   then profiled captured.
+   then profiled captured; every captured run must take no ``compile-eager`` rung.
+   capture_fallback — the same SD1.5 through a model that reads a device value on
+   the host while a CUDA graph captures (``compile_loop=True``, dpmpp_2m, 4 steps):
+   exactly one ``compile-eager`` rung and one ``degradation`` span, the latent
+   bitwise the eager loop's, K1's launches the eager loop's plus the warm-up forward
+   that preceded the broken capture, no loop left cached, no memory left allocated.
    hybrid — the same SD1.5 UNet on ``[("cuda:0", 75), ("cpu", 25)]`` at 512², batch
    4, CFG 7, 2 euler steps with ``compile_loop=True``, which must run eager: the
    weights blended from the H100's and the host's roofline specs, each 8-row
@@ -136,7 +141,11 @@ the error.
    device peak (the run's peak less the rest of the card, the resident submodules
    and the resident run's activations) and the tracker's peak within two stages,
    exactly 57 ``sm90`` a forward, every latent bitwise its
-   resident run's (or within 1e-3).
+   resident run's (or within 1e-3). ``stream_traced``: one step with the span tracer
+   on in a ``torch.profiler`` window: one ``stream-run`` and a prefetch and a compute
+   span a stage, each within max(10 %, 0.5 ms) of the profiler's copy and of the
+   extent of the kernels launched in that stage, the overlap efficiency within 0.05
+   of the profiler's, the latent bitwise the untraced step's.
 12. checkpoint — after FLUX-dev is freed: a FLUX-dev state dict in the public BFL
    layout made on the card (fp8 block weights) with a rank-16 kohya LoRA over every
    block's qkv, proj, MLP, linear1 and linear2, through ``load_flux_checkpoint`` →
@@ -199,7 +208,22 @@ the error.
    dispatch and one ``wide`` per decode dispatch; the images through ``/history``
    and ``/view``; each lane against its inline run and its run alone in a width-4
    bucket; then the same 8 lanes in float32 through the scheduler directly, bitwise
-   their runs alone and within 1e-3 of inline. ``serving_flux`` (after
+   their runs alone and within 1e-3 of inline. Traced (``serving_traced``): the 8
+   prompts through a server started with ``trace=True``: each prompt's timeline from
+   ``GET /trace?prompt_id=`` (``prompt`` → ``workflow-node`` → ``sampler-run`` →
+   ``lane-wait``/``lane``/``step``, ``decode``, nested), as many ``serving-dispatch``
+   spans as ``pa_serving_dispatch_total`` grew, the SLO stages' p50/p95 (the
+   exposition's and the spans'), each request's ``lane_wait`` ≤ ``eval``,
+   ``decode_wait`` ≤ ``decode`` and stages within its residency, what the stages
+   leave uncovered; then (``serving_traced_profile``) 12 width-4 dispatches of 4
+   euler lanes in a ``hardware_trace`` window: each span within max(5 %, 0.5 ms) of
+   its profiler range, the kernels launched in it ending inside it, the device busy
+   share (union of its kernels over it, and over the median unprofiled dispatch, since
+   CPU activity tracing stretches the window); the synchronise calls of the same
+   dispatches with tracing off equal; the median dispatch seconds off and on in
+   turns; and (``serving_row_bisect``) the first UNet module whose output row
+   depends on the row's place, with cuDNN's default and deterministic algorithms.
+   ``serving_flux`` (after
    ``main_path_captured``, while FLUX-dev is alive): K1 at (4, 4608, 24, 128), four
    flow lanes of 4 / 4 / 3 / 2 steps through a width-4 scheduler, 57 ``sm90`` a
    dispatch, each lane within 5e-2 of its inline run.
@@ -1001,6 +1025,14 @@ def rel_l2(got, want) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
+def compile_eager_rungs() -> float:
+    """``pa_degradation_total{rung="compile-eager"}`` so far: a captured phase must
+    leave it unchanged, so the eager fallback cannot hide a capture failure."""
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    return registry.get("pa_degradation_total", {"rung": "compile-eager"}) or 0.0
+
+
 def replayed_launches(records) -> dict[str, int]:
     """K1's launches by variant that cached loops' replays made: each loop's
     launches recorded at its capture times its replays, summed."""
@@ -1027,6 +1059,7 @@ def captured_turns(phase: str, run, steps: int, per_replay: dict, denoise_of=Non
 
     dev = torch.device("cuda", 0)
     compiled.clear_compiled_loops()
+    rungs0 = compile_eager_rungs()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -1057,9 +1090,10 @@ def captured_turns(phase: str, run, steps: int, per_replay: dict, denoise_of=Non
         "bitwise_equal": bool(torch.equal(got, want)), "tol": CAPTURED_REL_TOL,
         "finite": bool(torch.isfinite(got).all().item()),
         "k1_captured_per_replay": per_replay, "k1_replayed_launches": replayed,
+        "compile_eager_rungs": compile_eager_rungs() - rungs0,
     }
     emit(res)
-    if not (len(records) == 1 and records[0]["replays"] == 3
+    if not (len(records) == 1 and records[0]["replays"] == 3 and res["compile_eager_rungs"] == 0
             and records[0]["captured"] == per_replay and res["finite"]
             and res["rel_l2_vs_eager"] <= CAPTURED_REL_TOL
             and replayed == {v: 3 * n for v, n in per_replay.items()}):
@@ -1488,6 +1522,7 @@ def phase_sd_samplers() -> dict:
 
     compiled.clear_compiled_loops()
     captured_rows = {}
+    rungs0 = compile_eager_rungs()
     for name, kw in calls:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1504,13 +1539,13 @@ def phase_sd_samplers() -> dict:
             "finite": bool(torch.isfinite(got).all().item())}
         row = captured_rows[name]
         if not (rec["sampler"] == kw["sampler"] and rec["captured"] == want
-                and rec["replays"] == 1 and row["finite"]
+                and rec["replays"] == 1 and row["finite"] and compile_eager_rungs() == rungs0
                 and row["rel_l2_vs_eager"] <= CAPTURED_REL_TOL):
             emit({"phase": "sd_samplers_captured_each", "runs": captured_rows})
             raise RuntimeError(f"captured {name} check failed: {row}, want {want}")
     each = replayed_launches(compiled.loop_records())
     emit({"phase": "sd_samplers_captured_each", "tol": CAPTURED_REL_TOL, "runs": captured_rows,
-          "k1_replayed_launches": each})
+          "k1_replayed_launches": each, "compile_eager_rungs": compile_eager_rungs() - rungs0})
     captured = captured_turns(
         "sd_samplers_captured", lambda c: run_sampler(pm, noise, ctx, sampler="dpmpp_2m",
                                                       steps=10, compile_loop=c, **common),
@@ -1520,9 +1555,87 @@ def phase_sd_samplers() -> dict:
         require_k1=False)
     compiled.clear_compiled_loops()
     torch.cuda.empty_cache()
+    fallback = capture_fallback(pm, noise, ctx, common)
     replayed = {v: each.get(v, 0) + captured["k1_replayed_launches"].get(v, 0)
                 for v in set(each) | set(captured["k1_replayed_launches"])}
-    return total, replayed, unet
+    return total, replayed, fallback, unet
+
+
+CAPTURE_FALLBACK_STEPS = 4
+# Device bytes a fallback may leave allocated: a broken capture's pool kept alive
+# would hold a forward's activations (hundreds of MB for SD1.5 at 512²); library
+# state and the result latent are far below this.
+CAPTURE_FALLBACK_SLACK = 16 * 2**20
+
+
+def capture_fallback(pm, noise, ctx, common) -> dict:
+    """SD1.5 ``compile_loop=True`` at 512² through a model whose forward reads a
+    device value on the host (``.item()``) while a CUDA graph is capturing, so the
+    capture breaks on the card: the call must take the ``compile-eager`` rung exactly
+    once, record a ``degradation`` span, give exactly the eager loop's latent, and
+    launch K1 as the eager loop does, plus the one warm-up forward that preceded the
+    broken capture; the failed loop leaves the cache, and the device's allocated and
+    reserved bytes grow by less than ``CAPTURE_FALLBACK_SLACK`` (a broken graph's
+    private pool, left routed or held, would keep its bytes reserved)."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+    from comfyui_parallelanything_tpu_torch.utils import tracing
+
+    forwards = [0]
+
+    def host_read(x, t, context=None, **kw):
+        forwards[0] += 1
+        if torch.cuda.is_current_stream_capturing():
+            float(x[0, 0, 0, 0])  # a host read: a CUDA graph cannot capture it
+        return pm(x, t, context, **kw)
+
+    kw = dict(sampler="dpmpp_2m", steps=CAPTURE_FALLBACK_STEPS, **common)
+    compiled.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    eager = run_sampler(host_read, noise, ctx, **kw)
+    torch.cuda.synchronize()
+    eager_launches, eager_forwards = _launched(fa), forwards[0]
+    torch.cuda.empty_cache()
+    allocated0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    rungs0 = compile_eager_rungs()
+    tracing.enable()
+    forwards[0] = 0
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    got = run_sampler(host_read, noise, ctx, compile_loop=True, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launched(fa)
+    spans = [e for e in tracing.export()["traceEvents"] if e.get("name") == "degradation"]
+    tracing.disable()
+    tracing.tracer.clear()
+    del_loops = compiled.loop_records()
+    torch.cuda.empty_cache()
+    per_forward = {v: n for v, n in SD15_PER_FORWARD.items()}
+    want = {v: eager_launches.get(v, 0) + n for v, n in per_forward.items()}
+    row = {"phase": "capture_fallback", "model": "sd15", "sampler": kw["sampler"],
+           "steps": CAPTURE_FALLBACK_STEPS, "seconds": seconds,
+           "compile_eager_rungs": compile_eager_rungs() - rungs0,
+           "degradation_spans": [e["args"] for e in spans],
+           "bitwise_vs_eager": bool(torch.equal(got, eager)), "rel_l2_vs_eager": rel_l2(got, eager),
+           "eager_forwards": eager_forwards, "fallback_forwards": forwards[0],
+           "k1_launches_by_variant": launches, "k1_eager_launches": eager_launches,
+           "k1_launches_expected": want, "cached_loops_after": len(del_loops),
+           "allocated_before": allocated0, "allocated_after": torch.cuda.memory_allocated(),
+           "reserved_before": reserved0, "reserved_after": torch.cuda.memory_reserved()}
+    emit(row)
+    if not (row["compile_eager_rungs"] == 1 and len(spans) == 1
+            and spans[0]["args"]["rung"] == "compile-eager" and row["bitwise_vs_eager"]
+            and launches == want and not del_loops
+            and row["allocated_after"] <= allocated0 + CAPTURE_FALLBACK_SLACK
+            and row["reserved_after"] <= reserved0 + CAPTURE_FALLBACK_SLACK):
+        raise RuntimeError(f"capture_fallback check failed: {row}")
+    return {"capture_fallback": launches}
 
 
 SD15_F32_PER_FORWARD = {"tf32x3": 30}  # head dims 40, 80 and 160, 10 calls each; no f32
@@ -1975,10 +2088,12 @@ def hybrid_split(pm, batch: int) -> tuple[int, ...]:
 
 class _row_trace:
     """Record, in call order, every leaf module's first input and output at batch
-    row ``row`` (where their dim0 is the batch) while the context is open."""
+    row ``row`` (where their dim0 is the batch: with ``batch`` given, only outputs
+    whose dim0 is exactly ``batch``) while the context is open."""
 
-    def __init__(self, module, row: int):
+    def __init__(self, module, row: int, batch: int | None = None):
         self.module, self.row, self.calls, self.handles = module, row, [], []
+        self.batch = batch
 
     def __enter__(self):
         import torch
@@ -1986,7 +2101,8 @@ class _row_trace:
         def record(name):
             def hook(m, args, out):
                 x = args[0] if args and isinstance(args[0], torch.Tensor) else None
-                if isinstance(out, torch.Tensor) and out.ndim and out.shape[0] > self.row:
+                if (isinstance(out, torch.Tensor) and out.ndim and out.shape[0] > self.row
+                        and self.batch in (None, out.shape[0])):
                     self.calls.append((name, None if x is None or x.shape[0] != out.shape[0]
                                        else x[self.row].clone(), out[self.row].clone()))
             return hook
@@ -2428,6 +2544,105 @@ def stream_profile(phase: str, step) -> dict:
     return result
 
 
+def stream_traced(runner, step, profiled: dict, want_launches: dict) -> dict:
+    """One streamed step with the tracer on, inside a ``hardware_trace`` window,
+    against an untraced step just before it: one ``stream-run``, one
+    ``stream-stage-prefetch`` and one ``stream-stage-compute`` a stage; each stage's
+    prefetch span (CUDA events on the copy stream) against the profiler's copy of
+    that stage, and its compute span against the extent of the kernels launched
+    inside the stage's profiler range, within max(10 %, 0.5 ms); the overlap
+    efficiency (the spans' and ``pa_stream_overlap_efficiency``) against the same
+    ratio from the profiler's intervals (stage kernel extents over the call's device
+    extent) within 0.05; the traced latent bitwise the untraced one, and K1's
+    launches those of an untraced step."""
+    import tempfile
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.utils import tracing
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    torch.cuda.synchronize()
+    untraced = step()
+    torch.cuda.synchronize()
+    tracing.enable()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            with tracing.hardware_trace(d):
+                traced = step()
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = _launched(fa)
+            events = _chrome_events(tracing.tracer.hardware_traces[-1])
+        xs = [e for e in tracing.export()["traceEvents"] if e.get("ph") == "X"
+              and e.get("cat") == "stream"]
+        gauge = registry.get("pa_stream_overlap_efficiency", {"device": str(runner.device)})
+    finally:
+        tracing.disable()
+        tracing.tracer.clear()
+    n = runner.n_stages
+
+    def by_stage(name):
+        return sorted((e for e in xs if e["name"] == name), key=lambda e: e["args"]["stage"])
+
+    runs, pre, comp = [e for e in xs if e["name"] == "stream-run"], by_stage(
+        "stream-stage-prefetch"), by_stage("stream-stage-compute")
+    copies = sorted((e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]
+                     and e.get("args", {}).get("bytes", 0) >= 2**20), key=lambda e: e["ts"])
+    stage_windows = _annotations(events, "stream-stage-compute")
+    extents = []
+    for acts in _launched_in(events, stage_windows):
+        kern = [a for a in acts if a.get("cat") == "kernel"]
+        extents.append((min(a["ts"] for a in kern), max(a["ts"] + a["dur"] for a in kern))
+                       if kern else None)
+    [run_window] = _annotations(events, "stream-run") or [None]
+    call_acts = _launched_in(events, [run_window])[0] if run_window else []
+    call_acts += copies
+    call_us = (max(a["ts"] + a["dur"] for a in call_acts) - min(a["ts"] for a in call_acts)
+               if call_acts else None)
+    stages = []
+    for k in range(n):
+        p_us = pre[k]["dur"] if k < len(pre) else None
+        c_us = comp[k]["dur"] if k < len(comp) else None
+        copy_us = copies[k]["dur"] if k < len(copies) else None
+        ext_us = extents[k][1] - extents[k][0] if k < len(extents) and extents[k] else None
+        stages.append({
+            "stage": k, "prefetch_span_ms": p_us and p_us / 1e3,
+            "profiler_copy_ms": copy_us and copy_us / 1e3,
+            "compute_span_ms": c_us and c_us / 1e3,
+            "profiler_kernel_extent_ms": ext_us and ext_us / 1e3,
+            "prefetch_ok": None not in (p_us, copy_us) and _agree(
+                p_us, copy_us, STREAM_SPAN_REL, SPAN_VS_PROFILER_MS),
+            "compute_ok": None not in (c_us, ext_us) and _agree(
+                c_us, ext_us, STREAM_SPAN_REL, SPAN_VS_PROFILER_MS)})
+    span_eff = tracing.stream_overlap_efficiency(xs)
+    prof_eff = (sum(e[1] - e[0] for e in extents if e) / call_us) if call_us else None
+    row = {"phase": "stream_traced", "stages": n, "stream_runs": len(runs),
+           "prefetch_spans": len(pre), "compute_spans": len(comp),
+           "profiler_copies": len(copies), "profiler_stage_ranges": len(stage_windows),
+           "per_stage": stages, "overlap_efficiency_spans": span_eff,
+           "overlap_efficiency_gauge": gauge, "overlap_efficiency_profiler": prof_eff,
+           "run_span_ms": runs[0]["dur"] / 1e3 if runs else None,
+           "profiler_call_ms": call_us and call_us / 1e3,
+           "stream_profile_copy_total_ms": profiled["copy_total_ms"],
+           "stream_profile_kernel_busy_ms": profiled["kernel_busy_ms"],
+           "traced_step_wall_s": wall_s, "untraced_step_wall_s": profiled["step_wall_s"],
+           "bitwise_vs_untraced": bool(torch.equal(traced, untraced)),
+           "k1_launches_by_variant": launches, "k1_launches_expected": want_launches}
+    emit(row)
+    if not (len(runs) == 1 and len(pre) == n and len(comp) == n and len(copies) == n
+            and all(st["prefetch_ok"] and st["compute_ok"] for st in stages)
+            and None not in (span_eff, prof_eff, gauge)
+            and abs(span_eff - prof_eff) <= STREAM_EFF_TOL
+            and abs(gauge - prof_eff) <= STREAM_EFF_TOL and row["bitwise_vs_untraced"]
+            and launches == want_launches):
+        raise RuntimeError(f"stream_traced check failed: {row}")
+    return row
+
+
 def _stream_carve(runner) -> dict:
     return {"n_stages": runner.n_stages,
             "stage_ranges": [list(st.range) for st in runner.stages],
@@ -2568,7 +2783,8 @@ def phase_stream(pm, ref) -> dict:
                      bound_at_master_rate_s_per_it=max(
                          ref["s_per_it"], runner.streamed_nbytes / (master_rate * 1e9)))
     emit(b1)
-    stream_profile("stream_profile", lambda: sample(sp, xs1, 1))
+    profiled = stream_profile("stream_profile", lambda: sample(sp, xs1, 1))
+    traced = stream_traced(runner, lambda: sample(sp, xs1, 1), profiled, {"sm90": per_fwd})
     # The serialised step: the same runner with ``overlap`` off, which is what
     # ``ParallelConfig(stream_overlap=False)`` builds (a second wrap would pin the
     # 30 GB master copy again; tests/test_torch_cuda.py drives that route).
@@ -2621,6 +2837,7 @@ def phase_stream(pm, ref) -> dict:
         if not _stream_ok(row, hold):
             raise RuntimeError(f"{row['phase']} check failed: {row}")
     return {"stream_bf16": b1["k1_launches_by_variant"],
+            "stream_traced": traced["k1_launches_by_variant"],
             "stream_overlap_off": serial["k1_launches_by_variant"],
             "stream_bf16_b4": b4["k1_launches_by_variant"],
             "stream_int8": int8["k1_launches_by_variant"]}
@@ -3536,10 +3753,11 @@ def _serve_prompts(base: str, graphs: list, together: bool) -> dict:
             "image_sizes": sizes, "pids": pids}
 
 
-def _serve_lanes(calls, width: int = 4) -> tuple:
+def _serve_lanes(calls, width: int = 4, ordered: bool = False) -> tuple:
     """Run ``calls`` (zero-argument ``run_sampler`` callables) as concurrent
     submitters on a width-``width`` scheduler pumped by hand, all queued before the
-    first dispatch. Returns (results in order, dispatches)."""
+    first dispatch (``ordered``: each queued before the next starts, so call i sits
+    in slot i). Returns (results in order, dispatches)."""
     import threading
 
     from comfyui_parallelanything_tpu_torch.serving import ContinuousBatchingScheduler
@@ -3556,13 +3774,14 @@ def _serve_lanes(calls, width: int = 4) -> tuple:
     try:
         threads = [threading.Thread(target=lane, args=(i, c), daemon=True)
                    for i, c in enumerate(calls)]
-        for t in threads:
-            t.start()
         t0 = time.monotonic()
-        while sum(len(b.queue) for b in list(sched.buckets.values())) < len(calls):
-            if time.monotonic() - t0 > 120:
-                raise RuntimeError("serving: the lanes never queued")
-            time.sleep(0.002)
+        for i, t in enumerate(threads):
+            t.start()
+            want = i + 1 if ordered else (len(calls) if i == len(calls) - 1 else 0)
+            while sum(len(b.queue) for b in list(sched.buckets.values())) < want:
+                if time.monotonic() - t0 > 120:
+                    raise RuntimeError("serving: the lanes never queued")
+                time.sleep(0.002)
         sched.drain(timeout=600)
         for t in threads:
             t.join(600)
@@ -3574,6 +3793,52 @@ def _serve_lanes(calls, width: int = 4) -> tuple:
         if isinstance(r, BaseException):
             raise r
     return out, dispatches
+
+
+def _row_bisect(model, latent_shape, ctx_dim: int) -> dict:
+    """The ``_row_probe`` forward layer by layer: which rows of the permuted forward
+    differ from the same samples in the original order, then, for the first that
+    does, leaf-module hooks on the UNet record that sample's row in both forwards and
+    the first module whose output row differs is named (``_first_divergence``); the
+    same with ``torch.backends.cudnn.deterministic = True`` and ``benchmark =
+    False``."""
+    import torch
+
+    module = getattr(model, "_module", None) or model.module
+    dev = torch.device("cuda", 0)
+    perm = [2, 3, 0, 1, 6, 7, 4, 5]
+    out = {}
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        for name, det in (("default", False), ("cudnn_deterministic", True)):
+            torch.backends.cudnn.deterministic = det
+            torch.backends.cudnn.benchmark = False if det else cudnn[1]
+            g = torch.Generator(device=dev).manual_seed(21)
+            x = torch.randn((8,) + tuple(latent_shape[1:]), generator=g, device=dev)
+            t = torch.linspace(10.0, 990.0, 8, device=dev)
+            c = torch.randn((8, 77, ctx_dim), generator=g, device=dev)
+            p = torch.tensor(perm, device=dev)
+            with torch.no_grad():
+                a = model(x, t, c)
+                b = model(x[p], t[p], c[p])
+                per_row = [rel_l2(b[r], a[perm[r]]) for r in range(8)]
+                row = next((r for r in range(8) if not torch.equal(b[r], a[perm[r]])), None)
+                divergence = None
+                if row is not None:
+                    with _row_trace(module, perm[row], batch=8) as calls_a:
+                        model(x, t, c)
+                    with _row_trace(module, row, batch=8) as calls_b:
+                        model(x[p], t[p], c[p])
+                    divergence = _first_divergence(calls_b, calls_a)
+                    del calls_a, calls_b
+            out[name] = {"rows_permuted_bitwise": bool(torch.equal(b, a[p])),
+                         "rows_permuted_rel_l2": rel_l2(b, a[p]),
+                         "rel_l2_per_slot": per_row,
+                         "traced_slot": row, "traced_sample": None if row is None else perm[row],
+                         "first_divergence": divergence}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    return out
 
 
 def _row_probe(model, latent_shape, ctx_dim: int) -> dict:
@@ -3591,6 +3856,326 @@ def _row_probe(model, latent_shape, ctx_dim: int) -> dict:
         a, b = model(x, t, c), model(x[perm], t[perm], c[perm])
     return {"rows_permuted_bitwise": bool(torch.equal(b, a[perm])),
             "rows_permuted_rel_l2": rel_l2(b, a[perm])}
+
+
+SERVING_TRACED_STEPS = 12  # the profiled lanes: 4 euler lanes, one width-4 dispatch a step
+SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
+SPAN_VS_PROFILER_REL = 0.05  # a dispatch span against its profiler window: max(5 %, 0.5 ms)
+SPAN_VS_PROFILER_MS = 0.5
+STREAM_SPAN_REL = 0.10  # a stream stage's device span against the profiler: max(10 %, 0.5 ms)
+STREAM_EFF_TOL = 0.05  # the overlap efficiency against the profiler's intervals
+
+
+def _chrome_events(path: str) -> list[dict]:
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _launched_in(events: list[dict], windows: list[dict]) -> list[list[dict]]:
+    """For each CPU window (a ``user_annotation`` event), the device activities
+    (kernels and copies) whose runtime call lies inside it on its thread, joined
+    through the profiler's correlation ids."""
+    device = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "correlation" in e.get(
+                "args", {}):
+            device.setdefault(e["args"]["correlation"], []).append(e)
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})]
+    out = []
+    for w in windows:
+        a, b = w["ts"], w["ts"] + w["dur"]
+        out.append([d for c in calls if c.get("tid") == w.get("tid") and a <= c["ts"] <= b
+                    for d in device.get(c["args"]["correlation"], ())])
+    return out
+
+
+def _annotations(events: list[dict], name: str) -> list[dict]:
+    return sorted((e for e in events if e.get("cat") == "user_annotation"
+                   and e.get("name") == name), key=lambda e: e["ts"])
+
+
+def _agree(a_us: float, b_us: float, rel: float, floor_ms: float) -> bool:
+    return abs(a_us - b_us) <= max(rel * abs(b_us), floor_ms * 1e3)
+
+
+def _hist_delta(before: str, after: str, name: str) -> str:
+    """The ``_bucket`` lines of histogram ``name`` in ``after`` less ``before``: the
+    observations made between two scrapes."""
+    def buckets(text):
+        return {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+                for ln in text.splitlines() if ln.startswith(name + "_bucket")}
+
+    b = buckets(before)
+    return "\n".join(f"{k} {v - b.get(k, 0.0)}" for k, v in buckets(after).items()) + "\n"
+
+
+def _counter_sum(text: str, name: str) -> float:
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith(name + "{") or ln.startswith(name + " "))
+
+
+def _nested(events: list[dict]) -> bool:
+    """Whether X events on one tid nest (each inside or apart from the one above)."""
+    by_tid: dict = {}
+    for e in events:
+        by_tid.setdefault(e["tid"], []).append(e)
+    for evs in by_tid.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack: list = []
+        for e in evs:
+            while stack and e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"] - 1e-3:
+                stack.pop()
+            if stack and e["ts"] + e["dur"] > stack[-1]["ts"] + stack[-1]["dur"] + 1.0:
+                return False
+            stack.append(e)
+    return True
+
+
+def _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, directory) -> dict:
+    """The ``serving`` phase's traced run: the same 8 prompts through a 4-worker server
+    started with ``trace=True``, each prompt's timeline from ``GET /trace?prompt_id=``,
+    the dispatch spans against ``pa_serving_dispatch_total``, the SLO stages; then
+    width-4 dispatches through the scheduler in profiler windows with tracing on and
+    off (the spans against the profiler, the device busy share, the synchronise
+    calls per dispatch) and in turns without a profiler (the overhead)."""
+    import os
+    import threading
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.k_samplers import broadcast_cond_batch
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+    from comfyui_parallelanything_tpu_torch.serving import decode as decode_mod
+    from comfyui_parallelanything_tpu_torch.serving.bucket import StepBucket
+    from comfyui_parallelanything_tpu_torch.utils import metrics, slo, tracing
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    start = time.perf_counter()
+    waits: dict = {}
+    dispatch = decode_mod.DecodeQueue._dispatch
+
+    def recording_dispatch(self, key, tickets):
+        now = time.monotonic()
+        for t in tickets:
+            waits[t.prompt_id] = now - t.submit_ts  # the decode_wait stage's own sample
+        return dispatch(self, key, tickets)
+
+    srv, q, base = server(SERVING_WORKERS, trace=True)
+    decode_mod.DecodeQueue._dispatch = recording_dispatch
+    try:
+        fresh_samplers()
+        for nid in ("positive", "negative"):  # the encode stage runs again
+            cache.evict(nid)
+        tracing.enable()
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        text0 = registry.render()
+        run = _serve_prompts(base, graphs, together=True)
+        torch.cuda.synchronize()
+        text1 = registry.render()
+        launches = _launched(fa)
+        timelines = {pid: _http("GET", f"{base}/trace?prompt_id={pid}") for pid in run["pids"]}
+        whole = _http("GET", f"{base}/trace")
+    finally:
+        decode_mod.DecodeQueue._dispatch = dispatch
+        stop(srv, q)
+    dispatches = _counter_sum(text1, "pa_serving_dispatch_total") - _counter_sum(
+        text0, "pa_serving_dispatch_total")
+    decodes = _counter_sum(text1, "pa_decode_dispatch_total") - _counter_sum(
+        text0, "pa_decode_dispatch_total")
+    want = {v: c * int(dispatches) for v, c in SD15_PER_FORWARD.items()}
+    want["wide"] += int(decodes)  # the decode's mid-block attention
+    spans = [e for e in whole["traceEvents"] if e.get("ph") == "X"]
+    n_dispatch_spans = sum(e["name"] == "serving-dispatch" for e in spans)
+    need = {"prompt", "workflow-node", "sampler-run", "lane-wait", "lane", "step", "decode"}
+    per_prompt, bad = {}, []
+    for seed, pid in zip(seeds, run["pids"]):
+        xs = [e for e in timelines[pid]["traceEvents"] if e.get("ph") == "X"]
+        names = {e["name"] for e in xs}
+        by_class: dict = {}
+        for e in xs:
+            if e["name"] == "workflow-node":
+                ct = e["args"]["class_type"]
+                by_class[ct] = by_class.get(ct, 0.0) + e["dur"] / 1e6
+        prompt = next(e for e in xs if e["name"] == "prompt")
+        row = {
+            "spans": sorted(names), "n_steps": sum(e["name"] == "step" for e in xs),
+            "admission_s": sum(e["dur"] for e in xs if e["name"] == "admission-wait") / 1e6,
+            "encode_s": sum(v for k, v in by_class.items() if "TextEncode" in k),
+            "lane_wait_s": sum(e["dur"] for e in xs if e["name"] == "lane-wait") / 1e6,
+            "eval_s": sum(v for k, v in by_class.items() if "Sampler" in k),
+            "decode_wait_s": waits.get(pid),
+            "decode_s": sum(v for k, v in by_class.items() if "Decode" in k),
+            "prompt_s": prompt["dur"] / 1e6,
+            "uncovered_nodes_s": {k: v for k, v in by_class.items()
+                                  if not any(m in k for m in ("TextEncode", "Sampler", "Decode"))},
+        }
+        row["request_s"] = row["admission_s"] + row["prompt_s"]
+        covered = row["admission_s"] + row["encode_s"] + row["eval_s"] + row["decode_s"]
+        row["uncovered_s"] = row["request_s"] - covered
+        ok = (need <= names and _nested([e for e in xs if e["name"] != "admission-wait"])
+              and row["lane_wait_s"] <= row["eval_s"]
+              and row["decode_wait_s"] is not None and row["decode_wait_s"] <= row["decode_s"]
+              and covered <= row["request_s"] + 1e-4)
+        if not ok:
+            bad.append(seed)
+        per_prompt[str(seed)] = row
+    stages = {}
+    for stage in ("admission", "encode", "lane_wait", "eval", "decode_wait", "decode"):
+        delta = _hist_delta(text0, text1, "pa_slo_stage_seconds")
+        stages[stage] = {f"p{q}": slo.histogram_quantile(delta, "pa_slo_stage_seconds", q,
+                                                         labels={"stage": stage})
+                         for q in (50, 95)}
+    delta = _hist_delta(text0, text1, "pa_slo_request_seconds")
+    stages["request"] = {f"p{q}": slo.histogram_quantile(delta, "pa_slo_request_seconds", q)
+                         for q in (50, 95)}
+    # The same stages per request from the spans (exact, where the exposition's
+    # quantiles interpolate inside bucket edges).
+    span_stages = {k: {f"p{q}": _quantile([r[f"{k}_s"] for r in per_prompt.values()], q)
+                       for q in (50, 95)}
+                   for k in ("admission", "encode", "lane_wait", "eval", "decode_wait",
+                             "decode", "request")
+                   if all(r[f"{k}_s"] is not None for r in per_prompt.values())}
+    row = {"phase": "serving_traced", "prompts": len(graphs), "dispatches": dispatches,
+           "span_stage_quantiles_s": span_stages,
+           "decode_dispatches": decodes, "k1_launches_by_variant": launches,
+           "k1_launches_expected": want,
+           "serving_dispatch_spans": n_dispatch_spans, "bad_timelines": bad,
+           "slo_stage_quantiles_s": stages, "requests": per_prompt,
+           "uncovered_mean_s": statistics.mean(r["uncovered_s"] for r in per_prompt.values()),
+           "enabled": whole["enabled"], "host_id": whole["host_id"]}
+    emit(row)
+    if bad or n_dispatch_spans != dispatches or dispatches == 0 or launches != want:
+        raise RuntimeError(f"serving_traced: timelines {bad} incomplete or not nested, or "
+                           f"{n_dispatch_spans} dispatch spans for {dispatches} dispatches, "
+                           f"or K1 launched {launches} (want {want})")
+
+    # Width-4 dispatches through the scheduler: 4 euler lanes of SERVING_TRACED_STEPS.
+    res = cache.results
+    pm, pos, neg = res["parallel"][0], res["positive"][0], res["negative"][0]
+    shape = tuple(res["latent"][0]["samples"].shape)
+    dev = torch.device("cuda", 0)
+    kw = dict(cfg_scale=7.5, uncond_context=broadcast_cond_batch(neg["context"], 1),
+              uncond_kwargs={"y": broadcast_cond_batch(neg["pooled"], 1)},
+              y=broadcast_cond_batch(pos["pooled"], 1))
+    noises = [torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(300 + i),
+                          device=dev) for i in range(4)]
+
+    def lanes(steps=SERVING_TRACED_STEPS):
+        # In order: lane i sits in slot i every time, so runs compare bitwise.
+        return _serve_lanes([lambda x=x: run_sampler(pm, x, pos["context"], sampler="euler",
+                                                      steps=steps, **kw) for x in noises],
+                            ordered=True)
+
+    lanes(2)  # the batch shapes' first library calls, outside every window
+    main_tid = threading.get_native_id()
+
+    def syncs(events):
+        calls = [e for e in events if e.get("name") in SYNC_CALLS]
+        return {"main_thread": sum(e.get("tid") == main_tid for e in calls),
+                "all_threads": len(calls)}
+
+    tracing.enable()
+    torch.cuda.synchronize()
+    with tracing.hardware_trace(os.path.join(directory, "hw_on")):
+        on_out, on_dispatches = lanes()
+        torch.cuda.synchronize()
+    on_events = _chrome_events(tracing.tracer.hardware_traces[-1])
+    on_spans = sorted((e for e in tracing.export()["traceEvents"]
+                       if e.get("name") == "serving-dispatch"), key=lambda e: e["ts"])
+    tracing.disable()
+    windows = _annotations(on_events, "serving-dispatch")
+    inside = _launched_in(on_events, windows)
+    per_dispatch, mismatched = [], []
+    for i, (w, acts) in enumerate(zip(windows, inside)):
+        kern = [(a["ts"], a["ts"] + a["dur"]) for a in acts if a.get("cat") == "kernel"]
+        union = _union_ms(kern)
+        busy_us = sum(b - a for a, b in union)
+        end = w["ts"] + w["dur"]
+        span_us = on_spans[i]["dur"] if i < len(on_spans) else None
+        d = {"window_ms": w["dur"] / 1e3, "span_ms": None if span_us is None else span_us / 1e3,
+             "kernels": len(kern), "busy_ms": busy_us / 1e3,
+             "busy_share": busy_us / w["dur"] if w["dur"] else None,
+             "kernels_inside": all(b <= end + 50.0 for _, b in kern)}
+        if (span_us is None or not kern or not d["kernels_inside"]
+                or not _agree(span_us, w["dur"], SPAN_VS_PROFILER_REL, SPAN_VS_PROFILER_MS)):
+            mismatched.append(i)
+        per_dispatch.append(d)
+    torch.cuda.synchronize()
+    with metrics.trace(os.path.join(directory, "hw_off")) as off_window:
+        off_out, off_dispatches = lanes()
+        torch.cuda.synchronize()
+    off_events = _chrome_events(off_window.path)
+    sync_on, sync_off = syncs(on_events), syncs(off_events)
+
+    # The overhead: dispatch seconds in turns, off, on, on, off, without a profiler.
+    seconds: dict = {"off": [], "on": []}
+    timed = StepBucket.dispatch
+
+    def timing_dispatch(bucket, mode=None):
+        t0 = time.perf_counter()
+        ran = timed(bucket)
+        if ran:
+            seconds[current[0]].append(time.perf_counter() - t0)
+        return ran
+
+    current = ["off"]
+    StepBucket.dispatch = timing_dispatch
+    try:
+        for mode in ("off", "on", "on", "off"):
+            current[0] = mode
+            if mode == "on":
+                tracing.enable()
+            lanes()
+            tracing.disable()
+    finally:
+        StepBucket.dispatch = timed
+        tracing.tracer.clear()
+    busy = [d["busy_share"] for d in per_dispatch if d["busy_share"] is not None]
+    # CPU activity tracing slows the host's launches, so a profiled window is longer
+    # than the same dispatch unprofiled: its kernels' union (device time, which the
+    # profiler does not stretch) over the unprofiled median is the second reading.
+    busy_ms = [d["busy_ms"] for d in per_dispatch]
+    window_ms = [d["window_ms"] for d in per_dispatch]
+    unprofiled_ms = {k: statistics.median(v) * 1e3 for k, v in seconds.items()}
+    unprofiled = {
+        "profiled_window_ms": window_ms,
+        "profiled_window_ms_median": statistics.median(window_ms) if window_ms else None,
+        "unprofiled_dispatch_ms_median": unprofiled_ms,
+        "profiler_stretch": (statistics.median(window_ms) / unprofiled_ms["on"]
+                             if window_ms else None),
+        "busy_ms_median": statistics.median(busy_ms) if busy_ms else None,
+        "busy_share_of_unprofiled_median": {
+            k: statistics.median(busy_ms) / v if busy_ms else None
+            for k, v in unprofiled_ms.items()},
+    }
+    print(f"serving_traced_profile: profiled windows {[round(w, 3) for w in window_ms]} ms, "
+          f"unprofiled dispatch medians {unprofiled_ms} ms, kernels' union median "
+          f"{unprofiled['busy_ms_median']} ms", flush=True)
+    prof = {"phase": "serving_traced_profile", "dispatches_on": on_dispatches,
+            "dispatches_off": off_dispatches, "profiled_windows": len(windows),
+            "serving_dispatch_spans": len(on_spans), "mismatched": mismatched,
+            "per_dispatch": per_dispatch,
+            "busy_share_median": statistics.median(busy) if busy else None,
+            "busy_share_min": min(busy) if busy else None,
+            "busy_share_max": max(busy) if busy else None, **unprofiled,
+            "syncs_on": sync_on, "syncs_off": sync_off,
+            "syncs_per_dispatch_on": {k: v / max(1, on_dispatches) for k, v in sync_on.items()},
+            "syncs_per_dispatch_off": {k: v / max(1, off_dispatches) for k, v in sync_off.items()},
+            "dispatch_s_median_off": statistics.median(seconds["off"]),
+            "dispatch_s_median_on": statistics.median(seconds["on"]),
+            "dispatches_timed": {k: len(v) for k, v in seconds.items()},
+            "lanes_bitwise_on_vs_off": all(torch.equal(a, b) for a, b in zip(on_out, off_out)),
+            "trace_file_bytes": os.path.getsize(tracing.tracer.hardware_traces[-1]),
+            "seconds": time.perf_counter() - start}
+    emit(prof)
+    if (on_dispatches < 10 or len(windows) != on_dispatches or len(on_spans) != on_dispatches
+            or mismatched or sync_on != sync_off or on_dispatches != off_dispatches
+            or not prof["lanes_bitwise_on_vs_off"]):
+        raise RuntimeError(f"serving_traced_profile check failed: {prof}")
+    return {"traced": row, "profile": prof, "launches": launches}
 
 
 def phase_serving(paths: dict, directory) -> dict:
@@ -3673,9 +4258,9 @@ def phase_serving(paths: dict, directory) -> dict:
         for nid in ("sampler", "decode", "save"):
             cache.evict(nid)
 
-    def server(workers):
+    def server(workers, trace=None):
         srv, q = make_server(port=0, workers=workers, output_dir=out_dir, cache=cache,
-                             class_mappings={"TPUKSampler": RecordingKSampler})
+                             class_mappings={"TPUKSampler": RecordingKSampler}, trace=trace)
         threading.Thread(target=srv.serve_forever, daemon=True).start()
         return srv, q, f"http://127.0.0.1:{srv.server_address[1]}"
 
@@ -3814,6 +4399,18 @@ def phase_serving(paths: dict, directory) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # Traced: the same prompts through a traced server, then profiled dispatches, and
+    # the bf16 row effect bisected layer by layer.
+    traced = _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, directory)
+    latents.clear()
+    res = cache.results
+    bisect = _row_bisect(res["parallel"][0], tuple(res["latent"][0]["samples"].shape),
+                         res["positive"][0]["context"].shape[-1])
+    del res
+    emit({"phase": "serving_row_bisect", **bisect})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # float32, TF32 off: the lanes' update math held at SERVING_REL_TOL.
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -3857,7 +4454,8 @@ def phase_serving(paths: dict, directory) -> dict:
     del f32, together, alone32, inline32
     gc.collect()
     torch.cuda.empty_cache()
-    return {"serving": launches, "serving_f32": f32_launches}
+    return {"serving": launches, "serving_f32": f32_launches,
+            "serving_traced": traced["launches"]}
 
 
 def phase_serving_flux(pm, main_s_per_it: float | None = None) -> dict:
@@ -4234,7 +4832,7 @@ def main() -> int:
     sd_launches, sd_captured = phase_sd_pipeline()
     gc.collect()
     torch.cuda.empty_cache()
-    sampler_launches, sampler_captured, sd15 = phase_sd_samplers()
+    sampler_launches, sampler_captured, fallback_launches, sd15 = phase_sd_samplers()
     hybrid_launches = phase_hybrid(sd15)
     del sd15
     gc.collect()
@@ -4262,7 +4860,8 @@ def main() -> int:
     paths = {"main_path": main_launches, "main_path_captured": main_captured, **pipe_launches,
              "sd_pipeline": sd_launches, "sd_pipeline_captured": sd_captured,
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
-             "hybrid": hybrid_launches, "sd15_f32": f32_launches, **controlnet_launches,
+             **fallback_launches, "hybrid": hybrid_launches, "sd15_f32": f32_launches,
+             **controlnet_launches,
              **sd3_launches, **placement_launches, **stream_launches, **checkpoint_launches,
              **graph_launches, **stock_launches, **serving_launches, **serving_flux_launches,
              **wan_launches, **wan_i2v_launches}

@@ -7,7 +7,7 @@ are the per-card view the server's ``/health`` and ``/metrics`` read (the CUDA
 caching allocator's counters; a host without a card reports no device).
 ``ResidencyTracker`` is the weight-streaming executor's account of the stage
 weights it holds on its device; its gauges (``publish_gauges``) wait for the
-streaming telemetry (ROADMAP Queue 1 item 9)."""
+remaining telemetry (ROADMAP Queue 1 item 9d)."""
 
 from __future__ import annotations
 

@@ -19,9 +19,13 @@ names a node of the graph, so a genuine two-element list literal stays literal.
 Hidden inputs (``INPUT_TYPES()["hidden"]``) are the host's: ``PROMPT`` (the
 workflow dict), ``UNIQUE_ID`` (the node id) and, in the port, ``DEVICE``: the
 ``device`` a run places its weights and latents on (``run_workflow(device=...)``,
-default ``cuda:0``; pass ``"cpu"`` to run on the host). Left out until the
-telemetry utils (ROADMAP Queue 1 item 9): the JAX host's per-node tracing spans
-and SLO stage observations.
+default ``cuda:0``; pass ``"cpu"`` to run on the host).
+
+Each executed node (a cached one never runs) is one ``workflow-node`` span
+(``utils/tracing.py``), the graph layer of the prompt's timeline, and feeds the
+SLO stage of its class (``utils/slo.py``): a node whose class name holds
+"Decode" is the ``decode`` stage, "Sampler" the ``eval`` stage, "TextEncode" the
+``encode`` stage, each its node's wall on the same clock as the span.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import hashlib
 import json
 import os
 import threading
+import time
 from typing import Any
 
+from .utils import slo, tracing
 from .utils.progress import Interrupted, check_interrupt
 
 DEFAULT_DEVICE = "cuda:0"
@@ -398,7 +404,17 @@ def run_workflow(workflow: Any, class_mappings: dict[str, type] | None = None,
             on_node(nid)
         fn = getattr(cls(), cls.FUNCTION)
         try:
-            out = fn(**kwargs)
+            ct = str(spec.get("class_type") or "")
+            t0_node = time.monotonic() if slo.enabled() else 0.0
+            with tracing.span("workflow-node", cat="graph", node=nid,
+                              class_type=spec.get("class_type")):
+                out = fn(**kwargs)
+            if slo.enabled():
+                # The stage by node class: the same boundary the span measures.
+                stage = ("decode" if "Decode" in ct else "eval" if "Sampler" in ct
+                         else "encode" if "TextEncode" in ct else None)
+                if stage is not None:
+                    slo.observe_stage(stage, time.monotonic() - t0_node)
         except (WorkflowError, Interrupted):
             raise
         except Exception as e:

@@ -11,7 +11,7 @@ race the same miss, the first insert wins and the loser's value goes back to its
 caller uncached. A hit returns the cached tensors themselves, so cached and fresh
 values are bitwise equal.
 
-Left out until serving (ROADMAP Queue 1 item 9): the remote tier (a fetch from
+Left out until the fleet tier (ROADMAP Queue 1 item 9d): the remote tier (a fetch from
 encode-pool hosts) and the metrics gauges and counters.
 """
 

@@ -32,7 +32,7 @@ File resolution (the stand-ins for ComfyUI's folder_paths):
 - ``PA_T5_TOKENIZER_JSON``: the T5/UMT5 tokenizer.
 
 ``LoraLoader`` bakes, re-bakes and stacks as the JAX shim does; the serving tier's
-``lora_delegate`` it also attaches there comes with ROADMAP Queue 1 item 9.
+``lora_delegate`` it also attaches there comes with ROADMAP Queue 1 item 9c.
 """
 
 from __future__ import annotations

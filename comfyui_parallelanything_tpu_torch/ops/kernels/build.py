@@ -43,6 +43,11 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched. Nothing falls
+    back from it: a fallback would hide the kernel (``utils.degrade``)."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -52,7 +57,7 @@ def _nvcc() -> str:
     for c in candidates:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+    raise KernelError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
 def sources_of(name: str) -> list[Path]:
@@ -136,7 +141,7 @@ def build_all(names=None) -> dict[str, dict]:
         results[name] = {"seconds": time.perf_counter() - t0, "cached": False, "units": times,
                          "log": "\n".join(logs)}
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelError("kernel build failed: " + "\n".join(failed))
     return results
 
 
@@ -145,5 +150,8 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         build_all([name])
-        lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        try:
+            lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        except OSError as e:
+            raise KernelError(f"kernel {name}: loading its library failed: {e}") from e
     return lib

@@ -207,7 +207,7 @@ def _launch(q, k, v, scale: float, variant: str) -> torch.Tensor:
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention {variant} kernel launch failed with CUDA error {rc}")
+        raise build.KernelError(f"flash_attention {variant} kernel launch failed with CUDA error {rc}")
     launches += 1
     launches_by_variant[variant] += 1
     return out

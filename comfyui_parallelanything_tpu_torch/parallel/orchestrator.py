@@ -433,8 +433,9 @@ class ParallelModel:
 
     def _stream_call(self, x, timesteps, context, kwargs):
         """Streamed execution with the stream form of the OOM demotion: an
-        out-of-memory error re-carves the stages at half the size and retries,
-        until a stage is one segment; then, and for any other error, it raises."""
+        out-of-memory error re-carves the stages at half the size and retries (the
+        ``stream-recarve`` rung, ``utils/degrade.py``), until a stage is one
+        segment; then (``ladder_exhausted``), and for any other error, it raises."""
         while True:
             runner = self._get_streaming_runner()
             try:
@@ -442,13 +443,19 @@ class ParallelModel:
             except Exception as e:
                 if not is_out_of_memory(e):
                     raise
+                from ..utils import degrade
+
                 deeper = runner.recarved()
                 if deeper is None:
-                    logger.error("stream-recarve: %s at %d stages, no finer carve", e,
-                                 runner.n_stages)
+                    # The ladder is exhausted (no finer carve): a clean, attributed
+                    # failure with the original error.
+                    degrade.ladder_exhausted(
+                        "stream-recarve", e, detail=f"{runner.n_stages} stages, no finer carve")
                     raise
-                logger.warning("stream-recarve: %s; re-carving the weight stream %d -> %d "
-                               "stages", type(e).__name__, runner.n_stages, deeper.n_stages)
+                degrade.record_rung(
+                    "stream-recarve", f"{type(e).__name__}; re-carving the weight stream "
+                    f"{runner.n_stages} -> {deeper.n_stages} stages",
+                    stages_before=runner.n_stages, stages_after=deeper.n_stages)
                 self._stream_runner = deeper
             runner = None
             _release_memory(True)

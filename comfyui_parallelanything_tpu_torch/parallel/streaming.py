@@ -36,11 +36,22 @@ stages. On one device:
   allocates it again), so the orchestrator's re-carve on an out-of-memory error
   (``ParallelModel._stream_call``, ``recarved``) starts from a clean allocator.
 
+Tracing (``utils/tracing.py``, the JAX runner's span vocabulary): a traced call
+records one ``stream-run`` with ``stream-prepare``, a ``stream-stage-prefetch`` per
+stage copy, a ``stream-wait`` where a copy waits for the compute that frees its
+slot (the backpressure), a ``stream-prefetch-wait`` where a stage's compute waits
+for its copy (the exposed transfer), a ``stream-stage-compute`` per stage and
+``stream-finalize``, and sets ``pa_stream_overlap_efficiency{device=}`` (stage
+compute over the run). On a GPU the host never blocks, so these are device
+intervals: CUDA events recorded on the copy and compute streams while tracing is
+on, placed on the trace clock when the trace is exported (``Tracer.defer``); the
+copy stream's spans go on a track of their own. On the CPU they are host
+intervals. Tracing adds no synchronisation.
+
 The orchestrator routes here when the weights do not fit the device budget, or for
-``weight_sharding="stream"``. Not ported yet: the JAX runner's tracing spans,
-``pa_stream_*`` gauges, numerics sentinel and ``stream-prefetch-oom`` fault site
-(ROADMAP Queue 1 item 9; the port logs the same events), and its sequence-parallel
-guard (item 7).
+``weight_sharding="stream"``. Not ported yet: the JAX runner's ``pa_hbm_stream_*``
+gauges, numerics sentinel and ``stream-prefetch-oom`` fault site (ROADMAP Queue 1
+items 9b and 9d), and its sequence-parallel guard (item 7).
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import threading
 from typing import Any, Callable
 
 import torch
@@ -63,6 +75,7 @@ from ..models.loader import (
     pin_params_host,
     segment_nbytes,
 )
+from ..utils import tracing
 from .orchestrator import _to
 from .pipeline import _stage_view, _view_with
 
@@ -111,6 +124,68 @@ class _Stage:
     nbytes: int  # stored bytes of its tensors: the tracker's unit
     span: tuple[int, int]  # its bytes in the host copy
     module: torch.nn.Module | None = None  # the view bound to its slot, made with the ring
+
+
+class _CallTrace:
+    """The spans of one traced streamed call. A mark is a CUDA event recorded on a
+    stream (a GPU) or the host clock (the CPU); ``finish`` records the spans at once
+    (CPU) or hands them to the tracer to place at export (GPU)."""
+
+    def __init__(self, runner: "StreamingRunner", device: torch.device):
+        self.runner = runner
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.tid = threading.get_ident()
+        self.prompt_id = tracing.current_prompt_id()
+        self.trace_id = tracing.current_trace_id()
+        copy_stream = runner._master.copy_stream
+        # The copy stream's spans overlap the compute stream's in time: a track of
+        # their own keeps each track's spans nested.
+        self.copy_tid = copy_stream.cuda_stream if self.cuda else self.tid
+        if self.cuda:
+            tracing.tracer.name_track(self.copy_tid, f"copy stream ({device})")
+        self.spans: list[tuple] = []
+
+    def mark(self, stream=None):
+        if not self.cuda:
+            return tracing.now_us()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(stream)
+        return event
+
+    def add(self, name: str, start, end, on_copy: bool = False, **attrs) -> None:
+        self.spans.append((name, start, end, on_copy, attrs))
+
+    def finish(self) -> None:
+        if self.cuda:
+            tracing.defer(self._resolve)
+        else:
+            self._resolve(lambda mark, device=None: mark)
+
+    def _resolve(self, at) -> None:
+        placed = [(name, at(a, self.device), at(b, self.device), on_copy, attrs)
+                  for name, a, b, on_copy, attrs in self.spans]
+        t0 = min(a for _, a, _, _, _ in placed)
+        t1 = max(b for _, _, b, _, _ in placed)
+        ctx = dict(prompt_id=self.prompt_id,
+                   **({"trace_id": self.trace_id} if self.trace_id else {}))
+        runner = self.runner
+        tracing.record("stream-run", t0, t1 - t0, cat="stream", tid=self.tid,
+                       stages=runner.n_stages, device=str(self.device),
+                       overlap=runner.overlap, **ctx)
+        compute_us = 0.0
+        for name, a, b, on_copy, attrs in placed:
+            tracing.record(name, a, b - a, cat="stream",
+                           tid=self.copy_tid if on_copy else self.tid, **attrs, **ctx)
+            if name == "stream-stage-compute":
+                compute_us += b - a
+        if t1 > t0:
+            from ..utils.metrics import registry
+
+            registry.gauge("pa_stream_overlap_efficiency", min(1.0, compute_us / (t1 - t0)),
+                           labels={"device": str(self.device)},
+                           help="stage-compute fraction of streamed-run time (1.0 = "
+                                "transfers fully hidden)")
 
 
 class StreamingRunner:
@@ -221,52 +296,89 @@ class StreamingRunner:
         for stage in self.stages:
             stage.module = None
 
-    def _fetch(self, k: int) -> None:
+    def _fetch(self, k: int, trace: _CallTrace | None = None) -> None:
         """Issue stage ``k``'s host→device copy into slot k mod 2."""
         stage, slot = self.stages[k], self._ring[k % 2]
         a, b = stage.span
         src = self._master.host.buffer[a:b]
         cs = self._master.copy_stream
+        if trace is not None:
+            w0 = trace.mark(cs)
         if cs is None:
-            slot[:b - a].copy_(src)
+            start = w0 if trace is not None else None
+            with tracing.annotate("stream-stage-prefetch"):
+                slot[:b - a].copy_(src)
         else:
             cs.wait_event(self._freed[k % 2])  # stage k-2, the slot's last reader
-            with torch.cuda.stream(cs):
+            if trace is not None:
+                start = trace.mark(cs)
+                if k >= 2:
+                    trace.add("stream-wait", w0, start, on_copy=True, stage=k - 2,
+                              blocked_on="compute")
+            with torch.cuda.stream(cs), tracing.annotate("stream-stage-prefetch"):
                 slot[:b - a].copy_(src, non_blocking=True)
             self._copied[k % 2].record(cs)
             if not self.overlap:
                 cs.synchronize()
+        if trace is not None:
+            trace.add("stream-stage-prefetch", start, trace.mark(cs), on_copy=True, stage=k,
+                      nbytes=stage.nbytes, blocking=not self.overlap)
         self.tracker.place(k, stage.nbytes)
 
     # -- the double-buffered schedule ---------------------------------------------
 
     def __call__(self, x, timesteps, context=None, **kwargs):
+        with tracing.annotate("stream-run"):
+            return self._run(x, timesteps, context, kwargs)
+
+    def _run(self, x, timesteps, context, kwargs):
         dev, n = self.device, len(self.stages)
         self._ensure_ring()
         compute = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        trace = _CallTrace(self, dev) if tracing.on() else None
         try:
             with torch.no_grad():
+                if trace is not None:
+                    start = trace.mark(compute)
                 carry = self._spec.prepare(self._master.prepare, _to(x, dev),
                                            _to(timesteps, dev), _to(context, dev),
                                            **_to(kwargs, dev))
-                self._fetch(0)
+                if trace is not None:
+                    done = trace.mark(compute)
+                    trace.add("stream-prepare", start, done)
+                self._fetch(0, trace)
                 for k, stage in enumerate(self.stages):
                     if k:
                         # Stage k-1's compute is ordered before the copy that reuses
                         # its slot (the event wait in ``_fetch``).
                         self.tracker.retire(k - 1)
                     if k + 1 < n:
-                        self._fetch(k + 1)
+                        self._fetch(k + 1, trace)
                     if compute is not None:
                         compute.wait_event(self._copied[k % 2])
-                    for fn in stage.fns:
-                        carry = fn(stage.module, carry)
+                    if trace is not None:
+                        # The exposed transfer: the compute stream waiting for this
+                        # stage's copy, booked apart from the compute.
+                        start = trace.mark(compute)
+                        trace.add("stream-prefetch-wait", done, start, stage=k,
+                                  blocked_on="prefetch")
+                    with tracing.annotate("stream-stage-compute"):
+                        for fn in stage.fns:
+                            carry = fn(stage.module, carry)
+                    if trace is not None:
+                        done = trace.mark(compute)
+                        trace.add("stream-stage-compute", start, done, stage=k,
+                                  nbytes=stage.nbytes)
                     if compute is not None:
                         self._freed[k % 2].record(compute)
                         if not self.overlap:
                             compute.synchronize()
                 out = self._spec.finalize(self._master.finalize, carry, tuple(x.shape))
+                if trace is not None:
+                    trace.add("stream-finalize", done, trace.mark(compute))
             self.tracker.retire(n - 1)
+            if trace is not None:
+                trace.finish()
             return out
         except BaseException:
             for tag in self.tracker.live_tags:

@@ -35,15 +35,23 @@ Where the JAX package scans one XLA program, this module records one CUDA graph.
   pads the batch to a multiple of their count once, at loop entry (``_prep``),
   captures one graph per replica over its share and gathers the outputs on the
   lead device. Nothing crosses devices inside the loop: every step is per sample.
-- **No fallback.** On CUDA a loop captures and replays, or raises a
-  ``RuntimeError`` naming the sampler and the line whose operation broke the
-  capture (a host read of a device value, a pageable host copy, a generator made
-  inside the loop). The JAX package instead falls back to the eager loop on a
-  compile failure (its ``_compile_eager_rung``); here the eager loop is taken
-  only where the runner decides before the loop, from the caller's inputs: a user
-  callback, combined conditioning, a weight-streaming model (whose ``traceable()``
-  is None), a heterogeneous chain. An OOM during capture or
-  replay raises too: like the JAX program, the loop gives up step-OOM demotion.
+- **Capture failure: the compile-eager rung.** A loop whose capture breaks (a
+  host read of a device value, a pageable host copy, a generator made inside the
+  loop) raises ``CaptureError`` naming the sampler and the line whose operation
+  broke it (``_culprit``). The runner records the ``compile-eager`` rung
+  (``utils/degrade.py``) and runs the eager loop for that call, as the JAX
+  runner's ``_compile_eager_rung`` does for a compile failure. The failed loop
+  leaves the cache; the allocator stops placing the capture stream's allocations in
+  the broken graph's private pool and releases that pool (``_abandon``: a capture
+  that broke before it ended leaves both undone, and every later capture on the
+  stream would fill the dead pool); the device is synchronised before the eager run
+  so it starts on a clean stream.
+  An out-of-memory error during capture or replay is not a capture failure and
+  raises (like the JAX program, the loop gives up step-OOM demotion); neither is a
+  kernel that fails to build, load or launch (``KernelError``), which raises as it
+  is. The eager loop is also taken where the runner decides before the loop, from
+  the caller's inputs: a user callback, combined conditioning, a weight-streaming
+  model (whose ``traceable()`` is None), a heterogeneous chain.
 - **On the CPU** (tensors on the host, as in the tests) the same loop body runs
   without capture, as JAX runs its scan on the CPU backend.
 
@@ -54,8 +62,10 @@ their graphs' memory pools.
 The other half of the module is the serving layer's per-lane step
 (``lane_step_program``): ONE batched model eval that advances a fixed-width batch
 of lanes, each at its own sigma in its own schedule with its own sampler, the unit
-``serving/bucket.py`` dispatches. It runs eager; capturing it per bucket as a CUDA
-graph is a later optimisation (ROADMAP Queue 1 item 9).
+``serving/bucket.py`` dispatches. It runs eager, so it has no capture to fail:
+the JAX scheduler's ``compile-eager`` branch for its lane program has no
+counterpart here. Capturing it per bucket as a CUDA graph is a later
+optimisation (ROADMAP, held for the perf queues).
 """
 
 from __future__ import annotations
@@ -72,7 +82,6 @@ from typing import Any, Callable
 
 import torch
 
-from ..parallel.orchestrator import is_out_of_memory
 from ..parallel.split import concat_results, pad_leaf, partition_kwargs, slice_padded
 from ..parallel.split import static_kwargs_key, tree_map
 from . import k_samplers
@@ -80,7 +89,14 @@ from .cfg import rescale_guidance
 from .ddim import ddim_sample
 from .flow import flow_euler_sample
 
+
+class CaptureError(RuntimeError):
+    """A loop's CUDA-graph capture broke; the message names the sampler, the device
+    and the line whose operation broke it. ``run_sampler`` falls back to the eager
+    loop for the call (the ``compile-eager`` rung)."""
+
 __all__ = [
+    "CaptureError",
     "TraceSpec",
     "trace_spec_of",
     "clear_compiled_loops",
@@ -236,6 +252,25 @@ def _culprit(e: BaseException) -> str:
     return f"{os.path.basename(f.filename)}:{f.lineno} `{f.line}` ({type(e).__name__}: {e})"
 
 
+def _abandon(pool, device: torch.device) -> None:
+    """Undo what a capture that broke before it ended leaves in the caching
+    allocator: the capture stream's allocations still routed into the graph's private
+    ``pool`` (every later capture on that stream, and no ``empty_cache`` while it
+    lasts), and the pool held, since a graph's destructor releases only the pool of a
+    capture that ended (and ``CUDAGraph.pool()`` answers only then, so the caller
+    names the pool it made). A torch build without these allocator calls keeps the
+    pool: the fallback still runs."""
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    release = getattr(torch._C, "_cuda_releasePool", None)
+    if end is None or release is None:
+        return
+    try:
+        end(device.index, pool)
+    except RuntimeError:
+        return  # the capture ended: the graph's destructor releases its pool
+    release(device.index, pool)
+
+
 class _Loop:
     """One cached loop for one replica. On a CUDA device: its graph, the static
     input buffers it reads and the output it writes; ``captured`` is K1's
@@ -292,6 +327,7 @@ class _Loop:
 
     def _capture_alone(self, inputs: dict) -> None:
         from ..ops.kernels import flash_attention as fa
+        from ..utils.degrade import never_degrades
 
         start = time.perf_counter()
         # The graph's own buffers: never the caller's tensors.
@@ -301,21 +337,22 @@ class _Loop:
         torch.cuda.synchronize(self.device)
         before = dict(fa.launches_by_variant)
         graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
         try:
             # The outer stream context gives the caller its stream back even when
             # closing a broken capture raises before the graph's own context does.
             # "thread_local": what other threads do meanwhile (a prompt worker's
             # eager sampler, a decode, an allocation) cannot break this capture.
             with torch.cuda.stream(torch.cuda.current_stream(self.device)), \
-                    torch.cuda.graph(graph, stream=_side_stream(self.device),
+                    torch.cuda.graph(graph, pool=pool, stream=_side_stream(self.device),
                                      capture_error_mode="thread_local"), torch.no_grad():
                 out = self.body(self.replica, self.static)
         except Exception as e:
-            if is_out_of_memory(e):
-                raise
-            raise RuntimeError(
-                f"compile_loop: capturing the {self.label} loop as a CUDA graph on "
-                f"{self.device} failed at {_culprit(e)}") from e
+            _abandon(pool, self.device)
+            if never_degrades(e):
+                raise  # an OOM or a kernel that failed: not the fallback's to hide
+            raise CaptureError(f"compile_loop: capturing the {self.label} loop as a CUDA "
+                               f"graph on {self.device} failed at {_culprit(e)}") from e
         self.captured = {v: n - before[v] for v, n in fa.launches_by_variant.items()
                          if n != before[v]}
         self.graph, self.out = graph, out
@@ -373,7 +410,18 @@ def _run(kind: str, label: str, spec: TraceSpec, meta: tuple, body, batch: int,
             while len(_loops) >= _LOOP_CACHE_MAX:
                 _loops.popitem(last=False)
             loop = _loops[key + (r,)] = _Loop(label, body, replica, shard["x"].device)
-        outs.append(loop.run(shard))
+        try:
+            outs.append(loop.run(shard))
+        except CaptureError:
+            # No replica's loop for this call stays cached (the eager fallback runs
+            # every replica, and a later call would capture the broken one again),
+            # nor a half-captured graph's memory pool; the eager fallback starts on
+            # clean streams.
+            for i, s in enumerate(shards):
+                _loops.pop(key + (i,), None)
+                if s["x"].device.type == "cuda":
+                    torch.cuda.synchronize(s["x"].device)
+            raise
     lead = outs[0].device
     return slice_padded(concat_results([o.to(lead) for o in outs]), batch, padded)
 

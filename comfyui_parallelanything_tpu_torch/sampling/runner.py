@@ -10,8 +10,12 @@ every branch that takes them, as in the JAX runner. ``compile_loop=True`` runs
 the whole loop as one captured CUDA graph (``compiled.py``) on every branch; the
 eager loop stays where the JAX runner decides before the loop, from the caller's
 inputs, and each such case is logged: a user callback, combined conditioning,
-a weight-streaming model and a heterogeneous chain. A capture that fails raises instead of falling back
-(the JAX runner's compile-failure rung does fall back). Per-request LoRA
+a weight-streaming model and a heterogeneous chain. A capture that fails
+(``compiled.CaptureError``) takes the ``compile-eager`` rung
+(``utils/degrade.py``), as the JAX runner's compile failure does: the rung is
+recorded and the call runs the eager loop, with the stochastic samplers'
+generator rewound to where the captured loop found it. An out-of-memory error or
+a kernel that fails to build or launch raises instead. Per-request LoRA
 (``lora=``, a factor map from ``models/lora.py``) runs the eagerly merged model
 (``lora_model``) on every branch, as the JAX runner's inline legs do.
 
@@ -35,10 +39,18 @@ no previews and cannot be interrupted mid-loop (the graph host still checks the
 interrupt before and after the sampler node). A model's ``sampler_prefs`` dict
 (set by schedule patch nodes such as RescaleCFG) supplies ``cfg_rescale`` when
 the caller leaves it at 0.
+
+Tracing (``utils/tracing.py``): every call is one ``sampler-run`` span, and the
+eager loops record a ``step`` span per progress boundary: the host's dispatch
+window of one step, since the eager loops do not synchronise per step and
+tracing adds no synchronisation (the serving bucket's ``step`` spans end at its
+synchronise and include device time). A captured loop records no per-step spans,
+like the JAX whole-loop program.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import torch
@@ -49,6 +61,7 @@ from .compiled import (
     compiled_k_sample,
     trace_spec_of,
 )
+from ..utils import tracing
 from ..utils.progress import report_progress
 from .ddim import ddim_sample
 from .flow import flow_euler_sample, flow_timesteps
@@ -67,6 +80,23 @@ K_SAMPLER_NAMES = tuple(K_SAMPLERS)
 SAMPLER_NAMES = ("ddim", *K_SAMPLER_NAMES, "flow_euler")
 
 logger = logging.getLogger(__name__)
+
+
+def _captured_or_none(call, sampler: str):
+    """Run the captured loop (``call``). A capture failure takes the compile-eager
+    rung: the rung is recorded and None returned, and the caller runs the eager
+    loop. Anything else raises (an out-of-memory error has its own ladder; a kernel
+    failure is never hidden)."""
+    from ..utils.degrade import is_compile_failure, record_rung
+
+    try:
+        return call()
+    except Exception as e:  # noqa: BLE001 - classified by the rung
+        if not is_compile_failure(e):
+            raise
+        record_rung("compile-eager", f"{sampler}: {type(e).__name__}: {e}; eager loop "
+                    "fallback", sampler=sampler)
+        return None
 
 
 def _compiled_spec(model, callback):
@@ -121,6 +151,23 @@ def _serve(callback=None, **request):
     return None
 
 
+def _traced_sampler_run(fn):
+    """Wrap the whole dispatch in a ``sampler-run`` span: the per-prompt timeline
+    node every step and lane-wait span nests under. Off, one flag check."""
+
+    @functools.wraps(fn)
+    def wrapped(model, noise, context=None, **kwargs):
+        if not tracing.on():
+            return fn(model, noise, context, **kwargs)
+        with tracing.span("sampler-run", cat="sampling", sampler=kwargs.get("sampler"),
+                          steps=kwargs.get("steps"),
+                          batch=int(noise.shape[0]) if hasattr(noise, "shape") else None):
+            return fn(model, noise, context, **kwargs)
+
+    return wrapped
+
+
+@_traced_sampler_run
 def run_sampler(
     model,
     noise: torch.Tensor,
@@ -180,7 +227,7 @@ def run_sampler(
     k-samplers. ``compile_loop=True`` captures the whole loop as a CUDA graph on
     first use and replays it after (``compiled.py``; on CPU tensors the same loop
     body runs uncaptured); it gives up step-OOM demotion, and a failed capture
-    raises. ``lora`` maps parameter paths to ``(a, b)`` factor pairs
+    runs the eager loop (the ``compile-eager`` rung). ``lora`` maps parameter paths to ``(a, b)`` factor pairs
     (``models/lora.py``: ``W + b @ a``); the sampler drives the merged model, and a
     ``ParallelModel`` then runs unsharded on its lead device."""
     if sampler not in SAMPLER_NAMES:
@@ -245,9 +292,17 @@ def run_sampler(
 
     def with_progress(cb, n_steps):
         """Per-step progress, latent preview and cooperative interrupt on the eager
-        loops (``utils/progress.report_progress``), then ``cb``."""
+        loops (``utils/progress.report_progress``), then ``cb``; with tracing on,
+        each boundary-to-boundary interval is a ``step`` span (a host dispatch
+        window)."""
+        t_last = [tracing.now_us()] if tracing.on() else None
 
         def cb2(i, x):
+            if t_last is not None and tracing.on():
+                now = tracing.now_us()
+                tracing.record("step", t_last[0], now - t_last[0], cat="sampling",
+                               step=i + 1, of=n_steps)
+                t_last[0] = now
             report_progress(i + 1, n_steps, latent=x)
             return cb(i, x) if cb is not None else None
 
@@ -267,10 +322,12 @@ def run_sampler(
                 ts = ts[-(steps + 1):]
                 x = ts[0] * noise + (1.0 - ts[0]) * init_latent
         if spec is not None:
-                return compiled_flow_sample(
+            out = _captured_or_none(lambda: compiled_flow_sample(
                 spec, x, ts, context, cfg_scale=eff_cfg, uncond_context=uncond_context,
                 uncond_kwargs=uncond_kwargs, guidance=guidance, cfg_rescale=cfg_rescale,
-                **compiled_mask_kw, model_kwargs=model_kwargs)
+                **compiled_mask_kw, model_kwargs=model_kwargs), "flow_euler")
+            if out is not None:
+                return out
         return flow_euler_sample(
             model, x, context, steps=steps, shift=shift, guidance=guidance,
             cfg_scale=eff_cfg, uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
@@ -294,10 +351,13 @@ def run_sampler(
         else:
             ts = ddim_timesteps(steps, acp.shape[0])
         if spec is not None:
-                return compiled_ddim_sample(
-                spec, x, ts, acp, context, cfg_scale=eff_cfg, uncond_context=uncond_context,
-                uncond_kwargs=uncond_kwargs, prediction=prediction, cfg_rescale=cfg_rescale,
-                **compiled_mask_kw, model_kwargs=model_kwargs)
+            out = _captured_or_none(lambda: compiled_ddim_sample(
+                spec, x, ts, acp, context, cfg_scale=eff_cfg,
+                uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
+                prediction=prediction, cfg_rescale=cfg_rescale, **compiled_mask_kw,
+                model_kwargs=model_kwargs), "ddim")
+            if out is not None:
+                return out
 
         def ddim_keep(i):
             a = acp[ts[i + 1]] if i + 1 < len(ts) else torch.tensor(1.0)
@@ -369,11 +429,18 @@ def run_sampler(
         if served is not None:
             return served
     if spec is not None:
-        return compiled_k_sample(
+        # The captured loop draws every step's noise before it captures: the eager
+        # fallback rewinds the generator to draw the same noise again.
+        rng_state = rng.get_state() if rng is not None else None
+        out = _captured_or_none(lambda: compiled_k_sample(
             spec, sampler, x, sigmas, context, cfg_scale=eff_cfg,
             uncond_context=uncond_context, uncond_kwargs=uncond_kwargs, acp=acp,
             prediction=prediction, cfg_rescale=cfg_rescale, rng=rng, **compiled_mask_kw,
-            model_kwargs=model_kwargs)
+            model_kwargs=model_kwargs), sampler)
+        if out is not None:
+            return out
+        if rng_state is not None:
+            rng.set_state(rng_state)
     denoiser = EpsDenoiser(
         model, context, cfg_scale=eff_cfg, uncond_context=uncond_context,
         uncond_kwargs=uncond_kwargs, alphas_cumprod=acp, prediction=prediction,

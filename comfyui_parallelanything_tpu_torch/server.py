@@ -36,8 +36,20 @@ Endpoints:
 - ``GET  /system_stats``  devices (``devices.discovery``)
 - ``GET  /metrics``       Prometheus text (``utils/metrics.registry``): the
                           serving buckets' occupancy, lane wait, step seconds and
-                          dispatches, the decode tail, the queue gauges and the
-                          per-card ``pa_hbm_*`` memory gauges
+                          dispatches, the decode tail, the queue gauges, the
+                          per-card ``pa_hbm_*`` memory gauges, the span histogram
+                          (``pa_trace_span_seconds``) and the SLO plane
+                          (``pa_slo_*``, ``utils/slo.py``: request and stage
+                          histograms, burn-rate and budget gauges per objective of
+                          ``PA_SLO_OBJECTIVES``; ``PA_SLO=0`` turns it off)
+- ``GET  /trace``         Chrome/Perfetto trace-event JSON of the span tracer
+                          (``utils/tracing.py``; open it at ui.perfetto.dev):
+                          ``?prompt_id=`` filters to one prompt's timeline
+                          (``prompt`` → ``workflow-node`` → ``sampler-run`` →
+                          ``lane-wait``/``lane``/``step``, ``decode``), with
+                          ``enabled``, ``host_id``, ``role`` and ``epoch_wall_s``;
+                          tracing is on with ``trace=True``, ``--trace`` or
+                          ``PA_TRACE=1`` (off: an empty export that says so)
 - ``GET  /health``        one JSON document (``utils/telemetry.health_snapshot``):
                           devices, per-card memory, peak watermark, the queue and
                           admission state (``host_id``, ``accepting``,
@@ -50,8 +62,13 @@ Endpoints:
                           null``; opt-in binary preview frames (``>II`` event 1,
                           format 2, then PNG bytes)
 
-Not ported (ROADMAP Queue 1 item 9); each answers 501 or raises, never a silent
-no-op: ``GET /trace`` and the span tracer, the SLO plane, fault sites, the metric
+Each prompt is a ``prompt`` span with an ``admission-wait`` span before it (HTTP
+ingress to worker pickup, also the SLO ``admission`` stage); its residency
+(admission + execution) feeds ``pa_slo_request_seconds``, and its spans are kept
+past the live rings (``tracing.retain_prompt``).
+
+Not ported (ROADMAP Queue 1 items 9b–9d); each answers 501 or raises, never a
+silent no-op: the fleet's ``traceparent`` context, fault sites, the metric
 history (``/metrics/history``, ``/history/phase``) and its sampler, the fleet's
 roles other than the default and its heartbeat registration (``--fleet-router``),
 the stage hand-off (``extra_data.pa_stage``, ``/stage/{key}``), the embed cache's
@@ -78,13 +95,13 @@ from urllib.parse import parse_qs, urlparse
 
 from .host import DEFAULT_DEVICE, WorkflowCache, run_workflow
 from .parallel.orchestrator import _not_ported
+from .utils import slo, tracing
 from .utils.progress import Interrupted, progress_scope
 
 _WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"  # RFC 6455 §1.3
 
 # Routes of the JAX server that the port answers with 501.
-_NOT_PORTED_GET = {"trace": "GET /trace (the span tracer)",
-                   "embed": "GET /embed/{key} (the embed cache's remote tier)",
+_NOT_PORTED_GET = {"embed": "GET /embed/{key} (the embed cache's remote tier)",
                    "stage": "GET /stage/{key} (the fleet's stage hand-off)"}
 _NOT_PORTED_POST = {"/history/phase": "POST /history/phase (the metric history)"}
 
@@ -222,20 +239,23 @@ class PromptQueue:
     decodes batch. Each prompt runs under its own ``progress_scope``: its progress
     hook and a Cancel event that doubles as its serving lane's cancel. ``device``
     is where the graphs place weights and latents (``run_workflow(device=...)``);
-    ``cache`` shares a ``WorkflowCache`` with the caller (default: a new one)."""
+    ``cache`` shares a ``WorkflowCache`` with the caller (default: a new one).
+    ``trace`` (default ``$PA_TRACE``) turns the process-wide span tracer on."""
 
     def __init__(self, class_mappings=None, output_dir: str | None = None,
                  workers: int | None = None, max_pending: int | None = None,
                  serving: bool | None = None, host_id: str | None = None,
                  role: str | None = None, device: str = DEFAULT_DEVICE,
-                 cache: WorkflowCache | None = None):
+                 cache: WorkflowCache | None = None, trace: bool | None = None):
         if os.environ.get("PA_NUMERICS", "") not in ("", "0", "false"):
-            raise _not_ported("the numerics sentinel (PA_NUMERICS=1; ROADMAP Queue 1 item 9)")
+            raise _not_ported("the numerics sentinel (PA_NUMERICS=1; ROADMAP Queue 1 item 9b)")
         role = role or os.environ.get("PA_ROLE") or "all"
         if role != "all":
-            raise _not_ported(f"fleet role {role!r} (the role pools; ROADMAP Queue 1 item 9)")
-        if os.environ.get("PA_TRACE", "") not in ("", "0", "false"):
-            raise _not_ported("span tracing (PA_TRACE=1; ROADMAP Queue 1 item 9)")
+            raise _not_ported(f"fleet role {role!r} (the role pools; ROADMAP Queue 1 item 9d)")
+        if trace is None:
+            trace = os.environ.get("PA_TRACE", "") not in ("", "0", "false")
+        if trace:
+            tracing.enable()
         self.class_mappings = class_mappings
         self.output_dir = output_dir or os.environ.get("PA_OUTPUT_DIR", "output")
         self.device = device
@@ -322,7 +342,8 @@ class PromptQueue:
             self.counter += 1
             number = self.counter
             self.pending_ids.append(pid)
-            self.pending.put((pid, prompt, bool(preview), int(priority), deadline_s))
+            self.pending.put((pid, prompt, bool(preview), int(priority), deadline_s,
+                              time.monotonic()))
         self._emit_status()
         return pid, number
 
@@ -426,7 +447,7 @@ class PromptQueue:
             if item is None:
                 self.pending.put(None)
                 return
-            pid, prompt, preview, priority, deadline_s = item
+            pid, prompt, preview, priority, deadline_s, enq_ts = item
             cancel_evt = threading.Event()
             with self._lock:
                 if pid not in self.pending_ids:
@@ -434,6 +455,13 @@ class PromptQueue:
                 self.running[pid] = cancel_evt
             self._emit({"type": "execution_start", "data": {"prompt_id": pid}})
             t0 = time.monotonic()
+            # The SLO admission stage: ingress to worker pickup.
+            admission_s = max(0.0, t0 - enq_ts)
+            slo.observe_stage("admission", admission_s)
+            if tracing.on():
+                now_us = tracing.now_us()
+                tracing.record("admission-wait", now_us - admission_s * 1e6, admission_s * 1e6,
+                               cat="server", prompt_id=pid)
             current: dict = {"node": None}
 
             def on_node(nid, _pid=pid, _cur=current):
@@ -461,9 +489,12 @@ class PromptQueue:
                 self._emit_binary(struct.pack(">II", 1, 2) + png)
 
             try:
+                # The prompt span is the root of the prompt's timeline.
                 with progress_scope(hook=hook, preview_hook=preview_hook if preview else None,
                                     interrupt_event=cancel_evt, prompt_id=pid), \
-                        serving_hints(priority=priority, deadline_s=deadline_s):
+                        serving_hints(priority=priority, deadline_s=deadline_s), \
+                        tracing.span("prompt", cat="server", prompt_id=pid,
+                                     host_id=self.host_id, role=self.role):
                     results = run_workflow(prompt, class_mappings=self.class_mappings,
                                            outputs=self.cache, on_node=on_node,
                                            on_cached=on_cached, device=self.device)
@@ -483,6 +514,10 @@ class PromptQueue:
                                     "message": f"{type(e).__name__}: {e}"},
                          "outputs": {}}
             entry["status"]["host_id"] = self.host_id
+            # The request's server-side residency: admission wait + execution.
+            slo.observe_request(admission_s + (time.monotonic() - t0))
+            if tracing.on():
+                tracing.retain_prompt(pid)
             with self._lock:
                 self.history[pid] = entry
                 if pid in self.pending_ids:
@@ -563,6 +598,8 @@ class _Handler(BaseHTTPRequestHandler):
                 registry.gauge("pa_server_running", len(q.running),
                                help="prompts executing right now")
             publish_memory_gauges()
+            # The windowed objective verdicts, published at scrape time.
+            slo.registry.publish_gauges()
             return self._send(200, registry.render().encode(),
                               content_type="text/plain; version=0.0.4; charset=utf-8")
         if url.path == "/health":
@@ -581,6 +618,13 @@ class _Handler(BaseHTTPRequestHandler):
                         "inflight_prompts": len(q.pending_ids), "role": q.role,
                         "device": q.device}
             return self._send(200, health_snapshot(queue=queue_doc, host=host))
+        if url.path == "/trace":
+            # Off, the export is empty and says so, so a client tells "off" from
+            # "no spans".
+            prompt_id = parse_qs(url.query).get("prompt_id", [None])[0]
+            trace = tracing.export(prompt_id=prompt_id)
+            trace.update(enabled=tracing.on(), host_id=q.host_id, role=q.role)
+            return self._send(200, trace)
         if parts and parts[0] == "history":
             with q._lock:
                 snap = dict(q.history)
@@ -783,15 +827,16 @@ def make_server(host: str = "127.0.0.1", port: int = 8188, class_mappings=None,
                 max_pending: int | None = None, serving: bool | None = None,
                 host_id: str | None = None, role: str | None = None,
                 device: str = DEFAULT_DEVICE, cache: WorkflowCache | None = None,
-                ) -> tuple[ThreadingHTTPServer, PromptQueue]:
+                trace: bool | None = None) -> tuple[ThreadingHTTPServer, PromptQueue]:
     """Build (not start) the HTTP server and its prompt queue. Port 0 picks a free
     port (``server.server_address`` has it). ``workers > 1`` (or
     ``$PA_SERVER_WORKERS``) runs prompts concurrently and installs the
     continuous-batching scheduler; ``max_pending`` (or ``$PA_MAX_PENDING``) bounds
-    the queue; ``device`` is where graphs run (default ``cuda:0``)."""
+    the queue; ``device`` is where graphs run (default ``cuda:0``); ``trace`` (or
+    ``$PA_TRACE=1``) turns the span tracer on, so ``GET /trace`` serves timelines."""
     q = PromptQueue(class_mappings=class_mappings, output_dir=output_dir, workers=workers,
                     max_pending=max_pending, serving=serving, host_id=host_id, role=role,
-                    device=device, cache=cache)
+                    device=device, cache=cache, trace=trace)
     handler = type("Handler", (_Handler,), {"q": q})
     return _HTTPServer((host, port), handler), q
 
@@ -815,18 +860,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--host-id", default=None,
                     help="identity on /health (default $PA_HOST_ID or hostname-pid)")
     ap.add_argument("--role", default=None, help="fleet role; only 'all' is ported")
-    ap.add_argument("--trace", action="store_true",
-                    help="span tracing (not ported: refused)")
+    ap.add_argument("--trace", action="store_true", default=None,
+                    help="enable span tracing (GET /trace serves Chrome/Perfetto trace "
+                         "JSON; default $PA_TRACE)")
     ap.add_argument("--fleet-router", default=None,
                     help="register with a fleet router (not ported: refused)")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise _not_ported("span tracing (--trace; ROADMAP Queue 1 item 9)")
     if args.fleet_router or os.environ.get("PA_FLEET_ROUTER"):
-        raise _not_ported("fleet registration (--fleet-router; ROADMAP Queue 1 item 9)")
+        raise _not_ported("fleet registration (--fleet-router; ROADMAP Queue 1 item 9d)")
     srv, q = make_server(args.host, args.port, output_dir=args.output_dir,
                          workers=args.workers, max_pending=args.max_pending,
-                         host_id=args.host_id, role=args.role, device=args.device)
+                         host_id=args.host_id, role=args.role, device=args.device,
+                         trace=args.trace)
     print(f"ParallelAnything workflow server (PyTorch) on "
           f"http://{args.host}:{srv.server_address[1]} ({args.device}, {q.workers} worker(s))")
     try:

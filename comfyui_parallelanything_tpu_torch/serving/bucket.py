@@ -36,10 +36,20 @@ models that cannot (weight-streaming models and heterogeneous chains), which wal
 the SAME plans against their own ``EpsDenoiser``: step-boundary scheduling, the
 full sampler family, cancel and metrics, without co-batching.
 
+Tracing and the SLO plane (``utils/tracing.py``, ``utils/slo.py``): seating a
+request observes the ``lane_wait`` stage and records its ``lane-wait`` span (submit
+to seat); retiring it records the ``lane`` span (seat to retire); each dispatch
+records one ``serving-dispatch`` span on the dispatcher's timeline (occupancy,
+masked lanes, width) and a ``step`` span per live lane. The request spans go on
+the submitter's timeline (its tid, captured at submit: it is blocked in
+``result()`` for exactly those intervals), and the dispatch spans end after the
+dispatch's own synchronise, so they include device time; tracing adds no
+synchronisation.
+
 Left out (a request that needs one is not seated: ``maybe_submit`` returns None
 and the request runs inline): the numerics quarantine (``PA_NUMERICS=1`` raises
-in the server), multi-cond CFG extras, ControlNet lanes and per-lane LoRA; and the
-tracing spans and SLO stage observations (ROADMAP Queue 1 item 9).
+in the server, ROADMAP Queue 1 item 9b), multi-cond CFG extras, ControlNet lanes
+and per-lane LoRA (item 9c).
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import numpy as np
 import torch
 
 from ..sampling.lane_specs import LANE_SPECS, StepPlan, plan_schedule
+from ..utils import slo, tracing
 from ..utils.metrics import registry
 from ..utils.progress import Interrupted
 from .policy import AdmissionQueue, DeadlineExceeded
@@ -122,6 +133,12 @@ class ServeRequest:
     progress_hook: Optional[Callable[[int, int], None]] = None
     interrupt_event: Optional[threading.Event] = None
     prompt_id: Optional[str] = None
+    # Trace correlation captured at submit: the submitting thread's tid (the
+    # request's spans land on its timeline), the submit time on the trace clock
+    # (the lane-wait span's start) and the distributed trace id.
+    trace_tid: Optional[int] = None
+    trace_submit_us: Optional[float] = None
+    trace_id: Optional[str] = None
     rid: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex)
     submit_ts: float = dataclasses.field(default_factory=time.monotonic)
 
@@ -168,6 +185,7 @@ class _Lane:
     h1_eager: Any = None
     h2_eager: Any = None
     denoiser: Any = None
+    seat_us: float = 0.0  # when it was seated, on the trace clock (tracing on)
 
     def plan(self) -> StepPlan:
         return self.plans[self.pc]
@@ -439,6 +457,17 @@ class StepBucket:
             joined += 1
             registry.histogram("pa_serving_lane_wait_seconds", now - req.submit_ts,
                                labels=self._labels, help="submit-to-lane admission wait")
+            # The SLO lane_wait stage: the same clock, without the bucket label.
+            slo.observe_stage("lane_wait", now - req.submit_ts)
+            if tracing.on():
+                self.lanes[i].seat_us = tracing.now_us()
+                if req.trace_submit_us is not None:
+                    tracing.record(
+                        "lane-wait", req.trace_submit_us,
+                        self.lanes[i].seat_us - req.trace_submit_us, cat="serving",
+                        tid=req.trace_tid, prompt_id=req.prompt_id, bucket=self.label,
+                        lane=i, rid=req.rid, queue_depth=len(self.queue),
+                        **({"trace_id": req.trace_id} if req.trace_id else {}))
         if joined:
             self._gauges()
         return joined
@@ -446,6 +475,15 @@ class StepBucket:
     def _retire(self, i: int, result=None, error=None) -> None:
         lane = self.lanes[i]
         self.lanes[i] = None
+        if tracing.on() and lane.seat_us:
+            # Seat to retire on the submitter's timeline; the dispatches' step spans
+            # nest inside it.
+            tracing.record(
+                "lane", lane.seat_us, tracing.now_us() - lane.seat_us, cat="serving",
+                tid=lane.req.trace_tid, prompt_id=lane.req.prompt_id, bucket=self.label,
+                lane=i, rid=lane.req.rid, steps_run=lane.idx,
+                outcome="error" if error is not None else "completed",
+                **({"trace_id": lane.req.trace_id} if lane.req.trace_id else {}))
         lane.req.resolve(result=result, error=error)
         registry.counter("pa_serving_cancelled_total" if error is not None
                          else "pa_serving_completed_total", labels=self._labels)
@@ -568,6 +606,17 @@ class StepBucket:
         active = self.active_lanes()
         if not active:
             return False
+        # A profiler range while a hardware_trace window is open (else nothing): the
+        # same interval as the serving-dispatch span.
+        with tracing.annotate("serving-dispatch"):
+            plans = self._step(active)
+        self._advance(active, plans)
+        return True
+
+    def _step(self, active: list[int]) -> dict:
+        """The lockstep eval, its synchronise, its metrics and spans; returns the
+        lanes' plans."""
+        t0_us = tracing.now_us() if tracing.on() else 0.0
         t0 = time.perf_counter()
         plans = {i: self.lanes[i].plan() for i in active}
         with torch.no_grad():
@@ -589,6 +638,27 @@ class StepBucket:
         record_dispatch_occupancy(len(active))
         registry.histogram("pa_serving_step_seconds", dt, labels=self._labels,
                            help="wall time of one lockstep dispatch")
+        if tracing.on() and t0_us:
+            # One dispatcher-side span (occupancy and masked lanes), and one step
+            # span per live lane on its own prompt's timeline. The dispatch above
+            # ended at its synchronise, so the interval holds the device time, and
+            # tracing added no synchronisation.
+            dur_us = tracing.now_us() - t0_us
+            tracing.record("serving-dispatch", t0_us, dur_us, cat="serving",
+                           bucket=self.label, occupancy=len(active),
+                           masked_lanes=self.width - len(active), width=self.width)
+            for i in active:
+                lane = self.lanes[i]
+                tracing.record(
+                    "step", t0_us, dur_us, cat="serving", tid=lane.req.trace_tid,
+                    prompt_id=lane.req.prompt_id, bucket=self.label, lane=i,
+                    step=lane.idx + 1, of=lane.req.n_steps, occupancy=len(active),
+                    **({"trace_id": lane.req.trace_id} if lane.req.trace_id else {}))
+        return plans
+
+    def _advance(self, active: list[int], plans: dict) -> None:
+        """After a dispatch: advance each lane's plan counter, fire its progress hook
+        at a σ-interval boundary, retire it when its evals are done."""
         for i in active:
             lane, plan = self.lanes[i], plans[i]
             lane.pc += 1
@@ -606,4 +676,3 @@ class StepBucket:
                 result = self._x[i].clone() if self.spec is not None else lane.x_eager
                 self._retire(i, result=result)
         self._gauges()
-        return True

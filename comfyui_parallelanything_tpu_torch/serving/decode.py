@@ -23,8 +23,13 @@ prompts finish on the same lockstep step with the same latent shape.
 
 A batched decode runs other kernels at another batch size than the inline one,
 so it equals the inline decode to the card's bf16 rounding, not bit for bit
-(``tests/test_torch_serving_lanes.py`` holds it on the CPU in f32). Left out: the decode
-spans and the SLO ``decode_wait`` stage (ROADMAP Queue 1 item 9).
+(``tests/test_torch_serving_lanes.py`` holds it on the CPU in f32).
+
+Tracing and the SLO plane: each ticket's queue wait is the ``decode_wait`` stage
+(``utils/slo.py``); each dispatch records a ``decode-dispatch`` span on the
+dispatcher's timeline and a ``decode`` span on each waiter's (its tid and prompt,
+captured at submit), both ending after the dispatch's synchronise, so they hold
+device time.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Any
 
 import torch
 
+from ..utils import slo, tracing
 from ..utils.metrics import registry
 
 _installed: "DecodeQueue | None" = None
@@ -86,6 +92,10 @@ class DecodeTicket:
 
     vae: Any
     z: Any
+    # Trace correlation captured at submit (utils/tracing.py).
+    prompt_id: str | None = None
+    trace_tid: int | None = None
+    trace_id: str | None = None
     submit_ts: float = dataclasses.field(default_factory=time.monotonic)
     rid: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex)
 
@@ -180,7 +190,11 @@ class DecodeQueue:
         if not isinstance(vae, VAE) or getattr(z, "ndim", 0) != 4:
             return None
         key = (_vae_token(vae), tuple(z.shape), str(z.dtype), str(z.device))
-        ticket = DecodeTicket(vae=vae, z=z)
+        ticket = DecodeTicket(
+            vae=vae, z=z,
+            prompt_id=tracing.current_prompt_id() if tracing.on() else None,
+            trace_tid=threading.get_ident() if tracing.on() else None,
+            trace_id=tracing.current_trace_id() if tracing.on() else None)
         with self._lock:
             if self._stop:
                 # Re-checked under the lock: a shutdown that completed since the
@@ -241,10 +255,13 @@ class DecodeQueue:
     def _dispatch(self, key: tuple, tickets: list) -> None:
         now = time.monotonic()
         for t in tickets:
-            registry.histogram("pa_decode_wait_seconds", now - t.submit_ts,
+            wait = now - t.submit_ts
+            registry.histogram("pa_decode_wait_seconds", wait,
                                help="submit-to-dispatch decode queue wait")
+            slo.observe_stage("decode_wait", wait)
         vae = tickets[0].vae
         k = len(tickets)
+        t0_us = tracing.now_us() if tracing.on() else 0.0
         t0 = time.perf_counter()
         try:
             # Pad to the fixed width with inert rows (the decoder is independent
@@ -268,6 +285,14 @@ class DecodeQueue:
         registry.histogram("pa_decode_step_seconds", dt,
                            help="wall time of one shared decode dispatch")
         record_decode_occupancy(k)
+        if tracing.on() and t0_us:
+            dur_us = tracing.now_us() - t0_us
+            tracing.record("decode-dispatch", t0_us, dur_us, cat="serving", occupancy=k,
+                           masked=self.width - k, width=self.width)
+            for t in tickets:
+                tracing.record("decode", t0_us, dur_us, cat="serving", tid=t.trace_tid,
+                               prompt_id=t.prompt_id, rid=t.rid, occupancy=k,
+                               **({"trace_id": t.trace_id} if t.trace_id else {}))
         for i, t in enumerate(tickets):
             t.resolve(result=out[i * b:(i + 1) * b])
 

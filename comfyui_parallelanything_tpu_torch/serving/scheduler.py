@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..sampling.lane_specs import LANE_SPECS
+from ..utils import tracing
 from ..utils.metrics import registry
 from ..utils.progress import (
     Interrupted,
@@ -284,7 +285,14 @@ class ContinuousBatchingScheduler:
             mask_init=mask_init, mask_noise=mask_noise,
             progress_hook=current_progress_hook(),
             interrupt_event=scope.interrupt_event if scope is not None else None,
-            prompt_id=scope.prompt_id if scope is not None else None,
+            prompt_id=(tracing.current_prompt_id() if tracing.on()
+                       else scope.prompt_id if scope is not None else None),
+            # Trace correlation captured on the submitting thread: its tid (the
+            # dispatcher records this request's lane-wait/step/lane spans onto that
+            # timeline), its submit time on the trace clock and its trace id.
+            trace_tid=threading.get_ident() if tracing.on() else None,
+            trace_submit_us=tracing.now_us() if tracing.on() else None,
+            trace_id=tracing.current_trace_id() if tracing.on() else None,
             **_current_hints(),
         )
         with self._lock:

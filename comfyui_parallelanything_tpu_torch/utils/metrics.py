@@ -8,16 +8,28 @@ to. Families: ``pa_serving_*`` (buckets: occupancy, queue depth, lane wait, step
 seconds, dispatches, lane-steps, the batched fraction, completions, cancels,
 rejections, the inline fallback), ``pa_decode_*`` (the batched decode tail),
 ``pa_server_*`` (prompt queue), ``pa_hbm_*`` (device memory) and
-``pa_degradation_total{rung=}``.
+``pa_degradation_total{rung=}``, ``pa_trace_*`` (``utils/tracing.py``: span
+durations, evicted spans), ``pa_slo_*`` (``utils/slo.py``: burn rate, budget,
+objective verdicts, request and stage histograms) and
+``pa_stream_overlap_efficiency`` (``parallel/streaming.py``).
 
-Left out: the JAX module's ``StepTimer``/``chained_time`` step clocks and its
-``jax.profiler`` trace context; ``chip_smoke.py`` times with CUDA events and
-profiles with ``torch.profiler``.
+The other half is the JAX module's step clocks and profiler window: ``StepTimer``
+and ``StepStats`` (per-step wall time that waits for the device before the clock
+stops: ``torch.cuda.synchronize`` where JAX blocks on the output),
+``force_ready``, ``chained_time`` and ``trace``, a ``torch.profiler`` window that
+writes a Chrome trace where JAX writes an XProf one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import itertools
+import os
+import tempfile
 import threading
+import time
+from typing import Any
 
 
 class MetricsRegistry:
@@ -159,6 +171,145 @@ class MetricsRegistry:
 registry = MetricsRegistry()
 
 
-# The process-wide registry every instrumentation site writes to and
-# GET /metrics renders. Tests may reset() it.
-registry = MetricsRegistry()
+
+@dataclasses.dataclass
+class StepStats:
+    steps: int = 0
+    total_s: float = 0.0
+    last_s: float = 0.0
+    images: int = 0
+
+    @property
+    def sec_per_it(self) -> float:
+        return self.total_s / self.steps if self.steps else 0.0
+
+    @property
+    def images_per_sec(self) -> float:
+        return self.images / self.total_s if self.total_s > 0 else 0.0
+
+
+def _wait_for(value) -> None:
+    """Wait until the device work producing ``value`` (a tensor, or a tree of them)
+    is done: one ``torch.cuda.synchronize`` per CUDA device it lies on."""
+    import torch
+
+    devices = set()
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            if v.device.type == "cuda":
+                devices.add(v.device)
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+
+    walk(value)
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+class StepTimer:
+    """Times sampler steps honestly: waits for the step's output on the device
+    before the clock stops. Warm-up steps (default 1: the first step pays for
+    kernel builds and library set-up) are kept apart from the throughput stats."""
+
+    def __init__(self, warmup_steps: int = 1):
+        self.warmup_steps = warmup_steps
+        self.warmup = StepStats()
+        self.stats = StepStats()
+
+    @contextlib.contextmanager
+    def step(self, batch_size: int = 1):
+        t0 = time.perf_counter()
+        out_box: list[Any] = []
+        yield out_box
+        if out_box:
+            _wait_for(out_box[0])
+        dt = time.perf_counter() - t0
+        target = self.warmup if self.warmup.steps < self.warmup_steps else self.stats
+        target.steps += 1
+        target.total_s += dt
+        target.last_s = dt
+        target.images += batch_size
+
+    def time_step(self, fn, *args, batch_size: int = 1, **kwargs):
+        """Run ``fn`` as one timed step and return its result."""
+        with self.step(batch_size=batch_size) as box:
+            out = fn(*args, **kwargs)
+            box.append(out)
+        return out
+
+    def log_summary(self, label: str = "sampler") -> None:
+        from .logging import get_logger
+
+        s = self.stats
+        get_logger().info("%s: %d steps, %.4f s/it, %.2f images/s (warmup %d steps, %.2fs)",
+                          label, s.steps, s.sec_per_it, s.images_per_sec,
+                          self.warmup.steps, self.warmup.total_s)
+
+
+def force_ready(v) -> float:
+    """Force ``v``'s whole dependency chain to finish by reading a reduced scalar
+    back to the host: possessing the value proves the computation ran."""
+    return float(v.float().sum().item())
+
+
+def chained_time(step, x0, iters: int, warmup: int = 2):
+    """Mean seconds per ``step`` call over a serial dependency chain.
+
+    ``step`` maps a tensor to a like-shaped tensor. Each iteration feeds its output
+    back as the next input, so no call can be skipped or overlapped, and the timed
+    region closes with a ``force_ready`` readback. ``warmup`` calls (at least 2) run
+    first. Returns ``(sec_per_iter, last_output)``."""
+    out = step(x0)
+    for _ in range(max(2, warmup) - 1):
+        out = step(out)
+    force_ready(out)
+    run = out
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run = step(run)
+    force_ready(run)
+    return (time.perf_counter() - t0) / iters, run
+
+
+@dataclasses.dataclass
+class ProfileWindow:
+    """What ``trace`` yields: the directory, the ``torch.profiler.profile`` object
+    and, once the window closes, the Chrome trace file it wrote."""
+
+    log_dir: str
+    profile: Any = None
+    path: str | None = None
+
+
+_trace_files = itertools.count()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Profile a region with ``torch.profiler`` (CPU activity, and CUDA where a card
+    is present) and write its Chrome trace (Perfetto opens it) into ``log_dir``
+    (default ``parallelanything-trace`` under the temp directory). Yields a
+    ``ProfileWindow``; the JAX package's ``trace`` yields the directory of an XProf
+    trace instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "parallelanything-trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    window = ProfileWindow(log_dir)
+    with profile(activities=activities) as prof:
+        window.profile = prof
+        yield window
+    os.makedirs(log_dir, exist_ok=True)
+    window.path = os.path.join(log_dir, f"trace-{os.getpid()}-{next(_trace_files)}.json")
+    prof.export_chrome_trace(window.path)
+    from .logging import get_logger
+
+    get_logger().info("profiler trace written to %s", window.path)

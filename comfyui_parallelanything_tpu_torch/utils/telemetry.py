@@ -16,7 +16,8 @@ The OOM classifier the JAX module keeps here (``looks_like_oom``) is the port's
 ``not_ported`` field instead of filled with invented values: the compile
 accounting (the port compiles its kernels once, in the ``nvcc`` build), the
 roofline and planner sections, the numerics sentinel and the anomaly/timeseries
-plane; also the perf ledger and the postmortem bundles (ROADMAP Queue 1 item 9).
+plane (ROADMAP Queue 1 items 8, 9b and 9d); also the perf ledger and the postmortem
+bundles (item 9d).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 small FLUX, UNet, ControlNet and SD3 models through ``parallelize`` on the card
 against the same models on the CPU, a small FLUX streamed from pinned host memory
 against the same model resident, the whole-loop compiled sampler's captured
-graphs against the eager loop (beside a busy serving dispatcher too), a
+graphs against the eager loop (beside a busy serving dispatcher too, and a capture
+that breaks and falls back), a
 ``cuda:0`` + ``cpu`` chain, the example graphs
 (native and stock names) and the CLIP vision tower on the card against the CPU.
 Every test here needs a CUDA device and skips without one.
@@ -623,6 +624,42 @@ def test_small_flux_captured_loop_matches_eager(cuda_device, no_loops):
                             sampler="flow_euler", steps=3, guidance=3.5, y=y)
 
 
+def test_a_broken_capture_falls_back_and_returns_its_memory(cuda_device, no_loops):
+    # A model that allocates 256 MiB and then reads a device value on the host while
+    # the graph captures: each compile_loop call takes the compile-eager rung and
+    # gives the eager latent, the card's reserved bytes come back (the broken graph's
+    # private pool ended and released), and a capture after it still works.
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    def host_read(x, t, context=None, **kw):
+        big = torch.ones(64 * 2**20, device=cuda_device)
+        if torch.cuda.is_current_stream_capturing():
+            float(x[0, 0, 0, 0])
+        return x * 0.9 + 0.0 * big[0]
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    noise = torch.randn((1, 8, 8, 4), generator=g, device=cuda_device)
+    ctx = torch.randn((1, 4, 8), generator=g, device=cuda_device)
+    eager = run_sampler(host_read, noise, ctx, sampler="euler", steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    rungs = registry.get("pa_degradation_total", {"rung": "compile-eager"}) or 0.0
+    for _ in range(3):
+        got = run_sampler(host_read, noise, ctx, sampler="euler", steps=2, compile_loop=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert torch.equal(got, eager)
+        assert torch.cuda.memory_reserved() <= reserved + 2**20
+    assert registry.get("pa_degradation_total", {"rung": "compile-eager"}) == rungs + 3
+    assert compiled.loop_records() == []
+    ok = run_sampler(lambda x, t, context=None, **kw: x * 0.9, noise, ctx, sampler="euler",
+                     steps=2, compile_loop=True)
+    assert [r["replays"] for r in compiled.loop_records()] == [1]
+    assert torch.equal(ok, run_sampler(lambda x, t, context=None, **kw: x * 0.9, noise, ctx,
+                                       sampler="euler", steps=2))
+
+
 def test_capture_beside_a_busy_serving_dispatcher_matches_eager(cuda_device, no_loops):
     # A compile_loop=True prompt is never handed to an installed scheduler; it
     # captures on its own thread while the dispatcher thread runs lanes. The capture
@@ -751,18 +788,26 @@ def test_small_fp8_flux_checkpoint_converts_on_the_card(cuda_device):
 
 
 def test_capture_failure_raises_and_names_the_sampler(cuda_device, no_loops):
-    # A host read of a device value inside the loop cannot be captured: the call
-    # raises, naming the sampler and the line, and runs no eager loop in its place.
+    # A host read of a device value inside the loop cannot be captured: the captured
+    # entry point raises CaptureError, naming the sampler and the line; run_sampler
+    # takes the compile-eager rung for it and gives the eager loop's latent.
+    from comfyui_parallelanything_tpu_torch.sampling.k_samplers import make_sigmas
+
     def reads_the_device(x, t, context=None, **kwargs):
         if float(t[0]) < 0.0:
             return x
         return 0.9 * x
 
     noise = torch.randn((1, 8, 8, 4), device=cuda_device)
-    with pytest.raises(RuntimeError, match=r"euler loop .*test_torch_cuda\.py"):
-        run_sampler(reads_the_device, noise, None, sampler="euler", steps=2, compile_loop=True)
-    assert torch.isfinite(run_sampler(reads_the_device, noise, None, sampler="euler",
-                                      steps=2)).all()
+    sigmas = make_sigmas("karras", 2)
+    with pytest.raises(compiled.CaptureError, match=r"euler loop .*test_torch_cuda\.py"):
+        compiled.compiled_k_sample(
+            compiled.trace_spec_of(reads_the_device), "euler", noise * sigmas[0], sigmas,
+            None, cfg_scale=1.0, uncond_context=None, uncond_kwargs=None, acp=None,
+            prediction="eps", cfg_rescale=0.0)
+    assert compiled.loop_records() == []
+    got = run_sampler(reads_the_device, noise, None, sampler="euler", steps=2, compile_loop=True)
+    assert torch.equal(got, run_sampler(reads_the_device, noise, None, sampler="euler", steps=2))
 
 
 # The node graph on the card: the shipped txt2img graph on a tiny SD1.5 world

@@ -1,0 +1,46 @@
+"""The PyTorch port's package exports against the JAX package's: every name in each
+JAX subpackage's ``__all__`` is in the port counterpart's ``__all__`` or on the
+port's documented ``NOT_EXPORTED`` list, that list names only what the port really
+lacks, every exported name resolves, and the JAX subpackages without a counterpart
+are named as such."""
+
+import importlib
+import inspect
+import pkgutil
+
+import pytest
+
+pytest.importorskip("torch")
+
+import comfyui_parallelanything_tpu as jpkg  # noqa: E402
+import comfyui_parallelanything_tpu_torch as ppkg  # noqa: E402
+
+SUBPACKAGES = ["", "sampling", "devices", "ops", "parallel", "utils", "models", "serving"]
+
+
+def _pair(sub):
+    suffix = f".{sub}" if sub else ""
+    return (importlib.import_module(f"comfyui_parallelanything_tpu{suffix}"),
+            importlib.import_module(f"comfyui_parallelanything_tpu_torch{suffix}"))
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_every_jax_name_is_exported_or_listed(sub):
+    jmod, pmod = _pair(sub)
+    listed = ppkg.NOT_EXPORTED.get(sub, {})
+    missing = [n for n in jmod.__all__ if n not in pmod.__all__ and n not in listed]
+    assert not missing, missing
+    unresolved = [n for n in pmod.__all__ if not hasattr(pmod, n)]
+    assert not unresolved, unresolved
+    # The list names only what the port lacks under the JAX name (at most a module
+    # of that name), each with a reason.
+    assert all(n in jmod.__all__ and reason and (not hasattr(pmod, n) or inspect.ismodule(
+        getattr(pmod, n))) for n, reason in listed.items()), listed
+
+
+def test_version_and_subpackages_without_a_port():
+    assert ppkg.__version__ == jpkg.__version__
+    jsubs = {m.name for m in pkgutil.iter_modules(jpkg.__path__) if m.ispkg}
+    psubs = {m.name for m in pkgutil.iter_modules(ppkg.__path__) if m.ispkg}
+    assert jsubs - psubs == set(ppkg.NOT_PORTED_SUBPACKAGES)
+    assert set(ppkg.NOT_EXPORTED) <= set(SUBPACKAGES)

@@ -2,9 +2,13 @@
 JAX, flax, any module of the JAX package (``comfyui_parallelanything_tpu``) or the
 ``safetensors`` package (the GPU machine has none: the port reads and writes the
 format itself), and no module imports ``triton`` or builds a kernel when it is
-imported."""
+imported. The JAX package, the reference, stays as it was when the port began: in a
+git checkout, no commit since the port's first and no change in the work tree
+touches it."""
 
 import ast
+import shutil
+import subprocess
 from pathlib import Path
 
 import pytest
@@ -60,3 +64,21 @@ def test_no_module_level_triton_or_build():
                 assert not any(n.split(".")[0] == "triton" for n in names), p
             if isinstance(node, ast.Expr) and isinstance(node.value, ast.Call):
                 assert "build" not in ast.unparse(node.value), p
+
+
+def _git(*args) -> str:
+    return subprocess.run(["git", *args], cwd=ROOT, capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+
+
+def test_the_jax_package_is_unedited_since_the_port_began():
+    if shutil.which("git") is None or not (ROOT / ".git").exists():
+        pytest.skip("not a git checkout")
+    first = _git("log", "--diff-filter=A", "--format=%H", "--",
+                 "comfyui_parallelanything_tpu_torch/__init__.py").splitlines()
+    if not first:
+        pytest.skip("the port's first commit is not in this checkout's history")
+    since = _git("log", "--format=%h %s", f"{first[-1]}..HEAD", "--",
+                 "comfyui_parallelanything_tpu")
+    assert since == "", since
+    assert _git("status", "--porcelain", "--", "comfyui_parallelanything_tpu") == ""

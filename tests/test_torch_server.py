@@ -218,8 +218,10 @@ def test_errors_land_in_history_and_bad_requests_are_rejected(serve, world):
         "priority": "high"}})[0] == 400
     assert http("POST", f"{base}/queue", {"delete": "abc"})[0] == 400
     assert http("GET", f"{base}/nowhere")[0] == 404
-    # What is not ported answers 501, never a silent success.
-    for method, path in (("GET", "/trace"), ("GET", "/metrics/history"),
+    # What is not ported answers 501, never a silent success; /trace is ported.
+    status, body = http("GET", f"{base}/trace")
+    assert status == 200 and "traceEvents" in body
+    for method, path in (("GET", "/metrics/history"),
                          ("GET", "/embed/k"), ("GET", "/stage/k"),
                          ("POST", "/history/phase")):
         status, body = http(method, f"{base}{path}", {} if method == "POST" else None)
@@ -410,5 +412,5 @@ def test_refused_options_raise_not_ported(monkeypatch, world):
     monkeypatch.delenv("PA_NUMERICS")
     with pytest.raises(NotImplementedError, match="role"):
         pserver.PromptQueue(device="cpu", role="decode", cache=world["cache"])
-    with pytest.raises(NotImplementedError, match="tracing"):
-        pserver.main(["--trace", "--port", "0"])
+    with pytest.raises(NotImplementedError, match="fleet"):
+        pserver.main(["--fleet-router", "http://127.0.0.1:9", "--port", "0"])
