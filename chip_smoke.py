@@ -947,10 +947,13 @@ def phase_main_path():
 def phase_main_path_captured(pm) -> dict:
     """The main path's 4 FLUX-dev steps (inputs drawn anew, the main path's shapes)
     with the whole loop captured as a CUDA graph, against the eager loop in turns
-    (``captured_turns``): exactly 57 ``sm90`` a forward, 4 forwards a replay. It runs
-    after the pipeline phase, whose peak memory it would otherwise raise by the
-    capture stream's cuBLAS workspace. Returns K1's launches by variant that the
-    replays made."""
+    (``captured_turns``): exactly 57 ``sm90`` a forward, 4 forwards a replay; then the
+    numerics sentinel on the same loop and a ``compile-fail`` plan
+    (``sentinel_captured``). It runs after the pipeline phase, whose peak memory it
+    would otherwise raise by the capture stream's cuBLAS workspace. Returns K1's
+    launches by variant by path (the replays' for the captured ones)."""
+    import tempfile
+
     import torch
 
     from comfyui_parallelanything_tpu_torch.sampling import compiled
@@ -964,13 +967,16 @@ def phase_main_path_captured(pm) -> dict:
     x = torch.randn((1, 128, 128, 16), generator=gen, device=dev)
     ctx = torch.randn((1, 512, cfg.context_in_dim), generator=gen, device=dev)
     y = torch.randn((1, cfg.vec_in_dim), generator=gen, device=dev)
-    captured = captured_turns(
-        "main_path_captured", lambda c: run_sampler(
-            pm, x, ctx, sampler="flow_euler", steps=STEPS, guidance=3.5, y=y, compile_loop=c),
-        STEPS, {"sm90": (cfg.depth + cfg.depth_single_blocks) * STEPS})
+    run = lambda c: run_sampler(  # noqa: E731
+        pm, x, ctx, sampler="flow_euler", steps=STEPS, guidance=3.5, y=y, compile_loop=c)
+    per_replay = {"sm90": (cfg.depth + cfg.depth_single_blocks) * STEPS}
+    captured = captured_turns("main_path_captured", run, STEPS, per_replay)
     compiled.clear_compiled_loops()
     torch.cuda.empty_cache()
-    return captured["k1_replayed_launches"]
+    with tempfile.TemporaryDirectory() as d:
+        sentinel = sentinel_captured("main_path_sentinel", run, per_replay,
+                                     {"sm90": cfg.depth + cfg.depth_single_blocks}, d)
+    return {"main_path_captured": captured["k1_replayed_launches"], **sentinel}
 
 
 def phase_profile(pm, x, ctx, y) -> None:
@@ -1426,7 +1432,11 @@ def phase_sd_samplers() -> dict:
     every sampler name but ``flow_euler``, an img2img and an inpaint call, CFG
     ``SD_CFG``: every latent finite and K1's launches exactly ``SD15_PER_FORWARD``
     per UNet forward; then one UNet forward through K1 against the same forward on
-    plain attention. Returns K1's launches by variant over the sampler calls."""
+    plain attention; the captured loops, the numerics sentinel on dpmpp_2m's captured
+    loop with a ``compile-fail`` plan (``sentinel_captured``) and the capture fallback.
+    Returns K1's launches by variant over the sampler calls."""
+    import tempfile
+
     import torch
 
     from comfyui_parallelanything_tpu_torch import parallelize
@@ -1555,7 +1565,12 @@ def phase_sd_samplers() -> dict:
         require_k1=False)
     compiled.clear_compiled_loops()
     torch.cuda.empty_cache()
-    fallback = capture_fallback(pm, noise, ctx, common)
+    with tempfile.TemporaryDirectory() as d:
+        sentinel = sentinel_captured(
+            "sd15_sentinel", lambda c: run_sampler(pm, noise, ctx, sampler="dpmpp_2m",
+                                                   steps=10, compile_loop=c, **common),
+            {v: 10 * n for v, n in SD15_PER_FORWARD.items()}, SD15_PER_FORWARD, d)
+    fallback = {**capture_fallback(pm, noise, ctx, common), **sentinel}
     replayed = {v: each.get(v, 0) + captured["k1_replayed_launches"].get(v, 0)
                 for v in set(each) | set(captured["k1_replayed_launches"])}
     return total, replayed, fallback, unet
@@ -2712,7 +2727,10 @@ def phase_stream(pm, ref) -> dict:
     device memory (held to the budget at batch 1 and int8), the streamed weights'
     device peak and the tracker's peak against two stages (``_stream_row``), exactly
     57 ``sm90`` a forward, the latent bitwise or within ``STREAM_REL_TOL`` of its
-    resident run. Returns K1's launches by path."""
+    resident run. Then the numerics sentinel on a streamed step and a
+    ``stream-prefetch-oom`` plan (``stream_sentinel``). Returns K1's launches by
+    path."""
+    import tempfile
 
     import torch
 
@@ -2805,6 +2823,8 @@ def phase_stream(pm, ref) -> dict:
                      four_resident_b1_s=4 * ref["s_per_it"],
                      resident_peak=res4_peak, resident_peak_less_weights=res4_peak - weight_bytes)
     emit(b4)
+    with tempfile.TemporaryDirectory() as d:
+        sentinel = stream_sentinel(sp, lambda: sample(sp, xs1, 1), ref["latent_1"], per_fwd, d)
     sp.cleanup()
     del sp, runner
     gc.collect()
@@ -2840,7 +2860,7 @@ def phase_stream(pm, ref) -> dict:
             "stream_traced": traced["k1_launches_by_variant"],
             "stream_overlap_off": serial["k1_launches_by_variant"],
             "stream_bf16_b4": b4["k1_launches_by_variant"],
-            "stream_int8": int8["k1_launches_by_variant"]}
+            "stream_int8": int8["k1_launches_by_variant"], **sentinel}
 
 
 def public_flux_state_dict(cfg, gen, device):
@@ -3753,11 +3773,13 @@ def _serve_prompts(base: str, graphs: list, together: bool) -> dict:
             "image_sizes": sizes, "pids": pids}
 
 
-def _serve_lanes(calls, width: int = 4, ordered: bool = False) -> tuple:
+def _serve_lanes(calls, width: int = 4, ordered: bool = False, raise_errors: bool = True
+                 ) -> tuple:
     """Run ``calls`` (zero-argument ``run_sampler`` callables) as concurrent
     submitters on a width-``width`` scheduler pumped by hand, all queued before the
     first dispatch (``ordered``: each queued before the next starts, so call i sits
-    in slot i). Returns (results in order, dispatches)."""
+    in slot i). Returns (results in order, dispatches); with ``raise_errors`` off a
+    call's exception is its result."""
     import threading
 
     from comfyui_parallelanything_tpu_torch.serving import ContinuousBatchingScheduler
@@ -3790,7 +3812,7 @@ def _serve_lanes(calls, width: int = 4, ordered: bool = False) -> tuple:
         sched.shutdown()
     out = [results.get(i, RuntimeError("a lane never returned")) for i in range(len(calls))]
     for r in out:
-        if isinstance(r, BaseException):
+        if isinstance(r, BaseException) and raise_errors:
             raise r
     return out, dispatches
 
@@ -4098,7 +4120,10 @@ def _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, director
         d = {"window_ms": w["dur"] / 1e3, "span_ms": None if span_us is None else span_us / 1e3,
              "kernels": len(kern), "busy_ms": busy_us / 1e3,
              "busy_share": busy_us / w["dur"] if w["dur"] else None,
-             "kernels_inside": all(b <= end + 50.0 for _, b in kern)}
+             "kernels_inside": all(b <= end + 50.0 for _, b in kern),
+             # The last kernel's end less the window's end (µs): device timestamps
+             # mapped onto the host clock by the profiler, the window on the host's.
+             "kernel_end_past_window_us": max((b - end for _, b in kern), default=None)}
         if (span_us is None or not kern or not d["kernels_inside"]
                 or not _agree(span_us, w["dur"], SPAN_VS_PROFILER_REL, SPAN_VS_PROFILER_MS)):
             mismatched.append(i)
@@ -4176,6 +4201,657 @@ def _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, director
             or not prof["lanes_bitwise_on_vs_off"]):
         raise RuntimeError(f"serving_traced_profile check failed: {prof}")
     return {"traced": row, "profile": prof, "launches": launches}
+
+
+# -- the numerics sentinel, fault plans and the serving lane overlays ---------------------
+
+NUMERICS_STEPS = 12  # the sentinel's width-4 euler lanes: one dispatch a step
+NUMERICS_LATENT = (1, 64, 64, 4)  # SD1.5 at 512², one image a lane
+NUMERICS_LANE = 2  # the lane a lane-nan plan poisons
+SENTINEL_OPS_ITERS = 200
+OVERLAY_STEPS = {"plain": 8, "controlnet": 6, "lora": 7, "multi_cond": 5}
+OVERLAY_LORA_RANK = 16
+OVERLAY_REL_TOL = {"float32": 1e-3, "bfloat16": SD_REL_TOL}  # a lane against its inline run
+# K1 at the overlay bucket's shapes: 4 lanes × 3 role blocks (cond, uncond, one extra
+# cond) = 12 rows a forward of the base UNet and of the ControlNet's trunk.
+OVERLAY_K1_SHAPES = {
+    "sd15_w4x3_self_4096_d40": ((12, 4096, 8, 40), (12, 4096, 8, 40), 20, 2),
+    "sd15_w4x3_self_1024_d80": ((12, 1024, 8, 80), (12, 1024, 8, 80), 50, 5),
+    "sd15_w4x3_self_256_d160": ((12, 256, 8, 160), (12, 256, 8, 160), 50, 5),
+    "sd15_w4x3_cross_4096x77_d40": ((12, 4096, 8, 40), (12, 77, 8, 40), 50, 5),
+    "sd15_w4x3_cross_1024x77_d80": ((12, 1024, 8, 80), (12, 77, 8, 80), 50, 5),
+    "sd15_w4x3_cross_256x77_d160": ((12, 256, 8, 160), (12, 77, 8, 160), 50, 5),
+    "sd15_f32_w4x3_self_4096_d40": ((12, 4096, 8, 40), (12, 4096, 8, 40), 10, 1, "float32"),
+    "sd15_f32_w4x3_self_1024_d80": ((12, 1024, 8, 80), (12, 1024, 8, 80), 20, 2, "float32"),
+    "sd15_f32_w4x3_self_256_d160": ((12, 256, 8, 160), (12, 256, 8, 160), 50, 5, "float32"),
+    "sd15_f32_w4x3_cross_4096x77_d40": ((12, 4096, 8, 40), (12, 77, 8, 40), 50, 5, "float32"),
+    "sd15_f32_w4x3_cross_1024x77_d80": ((12, 1024, 8, 80), (12, 77, 8, 80), 50, 5, "float32"),
+    "sd15_f32_w4x3_cross_256x77_d160": ((12, 256, 8, 160), (12, 77, 8, 160), 50, 5, "float32"),
+}
+SD15_CONTROLNET_F32_PER_FORWARD = {"tf32x3": 42}  # the base's 30 and the trunk's 12
+
+
+class fault_plan:
+    """An armed ``PA_FAULT_PLAN`` of ``faults`` for a block, under a ``PA_LEDGER_DIR``
+    redirect into ``directory`` (a plan fires only under one); the environment and
+    the registry restored after."""
+
+    def __init__(self, directory, *faults):
+        import os
+
+        self.env = {"PA_FAULT_PLAN": json.dumps(list(faults)),
+                    "PA_LEDGER_DIR": os.path.join(directory, "fault_ledger")}
+
+    def __enter__(self):
+        import os
+
+        from comfyui_parallelanything_tpu_torch.utils import faults
+
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        faults.reload()
+        return faults
+
+    def __exit__(self, *exc):
+        import os
+
+        from comfyui_parallelanything_tpu_torch.utils import faults
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reload()
+
+
+def sync_calls(path: str) -> int:
+    """The synchronise calls (``SYNC_CALLS``, every thread) in a profiler trace."""
+    return sum(1 for e in _chrome_events(path) if e.get("name") in SYNC_CALLS)
+
+
+def window_summary(path: str) -> dict:
+    """A profiler window's device kernels and copies (count, summed ms) and its CUDA
+    runtime calls by name (count, summed host ms)."""
+    out: dict = {"kernels": [0, 0.0], "copies": [0, 0.0], "runtime": {}}
+    for e in _chrome_events(path):
+        cat, dur = e.get("cat"), e.get("dur", 0) / 1e3
+        slot = ({"kernel": out["kernels"], "gpu_memcpy": out["copies"]}.get(cat)
+                or (out["runtime"].setdefault(e.get("name"), [0, 0.0])
+                    if cat == "cuda_runtime" else None))
+        if slot is not None:
+            slot[0] += 1
+            slot[1] += dur
+    return out
+
+
+def _counter(name: str, **labels) -> float:
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    return registry.get(name, labels or None) or 0.0
+
+
+def _counter_total(name: str) -> float:
+    """A counter summed over its label sets."""
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    return sum(float(line.rsplit(" ", 1)[1]) for line in registry.render().splitlines()
+               if line.startswith(name + "{") or line.startswith(name + " "))
+
+
+def _sum(*ds: dict) -> dict:
+    return {k: sum(d.get(k, 0) for d in ds) for k in set().union(*ds)}
+
+
+def _scaled(per: dict, n: int) -> dict:
+    return {v: c * n for v, c in per.items() if c * n}
+
+
+def sentinel_captured(phase: str, run, per_replay: dict, per_forward: dict,
+                      directory) -> dict:
+    """The numerics sentinel on a captured loop (after the phase's ``captured_turns``):
+    with it on, a capturing call (its warm-up runs one real forward, ``per_forward``
+    K1 launches) and a replay (the flag keys a capture of its own, which must record
+    the same ``per_replay`` K1 launches) and the eager loop; the
+    captured digests, read after the replays through the sentinel's deferred read,
+    must equal the eager loop's and ``digest()`` of the latents, the captured latent
+    bitwise the eager one, with no non-finite event. Then a ``compile-fail`` plan: one
+    ``compile-eager`` rung, the eager latent bitwise. Returns K1's launches by path."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling import compiled
+    from comfyui_parallelanything_tpu_torch.utils import numerics
+
+    start = time.perf_counter()
+    compiled.clear_compiled_loops()
+    numerics.sentinel.reset()
+    numerics.enable()
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        captured = [run(True), run(True)]
+        eager = run(False)
+        torch.cuda.synchronize()
+        launched = _launched(fa)
+        numerics.sentinel.flush()
+        ring = numerics.sentinel.recent_fingerprints()
+        events = numerics.sentinel.event_count
+    finally:
+        numerics.disable()
+    records = compiled.loop_records()
+    compiled.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    rungs0 = compile_eager_rungs()
+    with fault_plan(directory, {"site": "compile-fail", "nth": 1}) as faults:
+        fa.reset_launches()
+        failed = run(True)
+        torch.cuda.synchronize()
+        fired = faults.fired()
+    failed_launches = _launched(fa)
+    rungs = compile_eager_rungs() - rungs0
+    compiled.clear_compiled_loops()
+    torch.cuda.empty_cache()
+    want = int(numerics.digest(eager))
+    loops = [r["digests"] for r in ring if r["where"].startswith("loop:")]
+    eagers = [r["digests"] for r in ring if r["where"].startswith("eager:")]
+    row = {"phase": phase, "loops": records, "loop_digests": loops, "eager_digests": eagers,
+           "digest": f"{want:08x}", "fingerprint": numerics.latent_fingerprint(eager),
+           "captured_bitwise_eager": all(bool(torch.equal(c, eager)) for c in captured),
+           "nonfinite_events": events, "k1_launches_by_variant": launched,
+           "compile_fail_fired": fired, "compile_eager_rungs": rungs,
+           "compile_fail_bitwise_eager": bool(torch.equal(failed, eager)),
+           "compile_fail_k1_launches": failed_launches,
+           "seconds": time.perf_counter() - start}
+    emit(row)
+    ok = (len(records) == 1 and records[0]["captured"] == per_replay
+          and records[0]["replays"] == 2 and loops == [[want]] * 2 and eagers == [[want]]
+          and row["captured_bitwise_eager"] and events == 0
+          and launched == _sum(_scaled(per_replay, 2), per_forward)
+          and fired == {"compile-fail": 1}
+          and rungs == 1 and row["compile_fail_bitwise_eager"]
+          and failed_launches == per_replay)
+    if not ok:
+        raise RuntimeError(f"{phase} check failed: {row}")
+    # The capture's launches count once in Python; its two replays ran them twice.
+    return {phase: _sum(_scaled(per_replay, 3), per_forward),
+            f"{phase}_compile_fail": dict(per_replay)}
+
+
+def stream_sentinel(sp, step, want, per_fwd: int, directory) -> dict:
+    """The streamed step with the numerics sentinel off and then on, each inside a
+    ``torch.profiler`` window: the same synchronise calls (the runner counts each
+    stage's non-finite elements on the compute stream and reads them after the
+    caller's synchronise), per-stage counts of 0, the latent bitwise the resident
+    one. Then a ``stream-prefetch-oom`` plan at stage 1: one ``stream-recarve`` rung,
+    a finer carve, the latent still bitwise. Returns K1's launches by path."""
+    import os
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.utils import metrics, numerics
+
+    start = time.perf_counter()
+    runner = sp._stream_runner
+    outs, syncs, launches = {}, {}, {}
+    numerics.sentinel.reset()
+    try:
+        for mode in ("off", "on"):
+            if mode == "on":
+                numerics.enable()
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            with metrics.trace(os.path.join(directory, f"stream_sentinel_{mode}")) as window:
+                outs[mode] = step()
+                torch.cuda.synchronize()
+            launches[mode] = _launched(fa)
+            syncs[mode] = sync_calls(window.path)
+        numerics.sentinel.flush()
+        counts = runner.last_stage_counts
+        events = numerics.sentinel.event_count
+    finally:
+        numerics.disable()
+    n0 = runner.n_stages
+    rungs0 = _counter("pa_degradation_total", rung="stream-recarve")
+    with fault_plan(directory, {"site": "stream-prefetch-oom", "match": "1", "nth": 1}) as faults:
+        fa.reset_launches()
+        recarved = step()
+        torch.cuda.synchronize()
+        fired = faults.fired()
+    recarve_launches = _launched(fa)
+    row = {"phase": "stream_sentinel", "stages": n0, "stage_nonfinite_counts": counts,
+           "nonfinite_events": events, "syncs_off": syncs["off"], "syncs_on": syncs["on"],
+           "bitwise_on_vs_resident": bool(torch.equal(outs["on"], want)),
+           "bitwise_off_vs_resident": bool(torch.equal(outs["off"], want)),
+           "k1_launches_by_variant": launches,
+           "prefetch_oom_fired": fired,
+           "stream_recarve_rungs": _counter("pa_degradation_total", rung="stream-recarve")
+           - rungs0,
+           "stages_after_recarve": sp._stream_runner.n_stages,
+           "recarve_bitwise_vs_resident": bool(torch.equal(recarved, want)),
+           "recarve_k1_launches": recarve_launches, "seconds": time.perf_counter() - start}
+    emit(row)
+    one = _scaled({"sm90": per_fwd}, 1)
+    if not (counts == [0] * (n0 + 1) and events == 0 and syncs["on"] == syncs["off"]
+            and row["bitwise_on_vs_resident"] and launches == {"off": one, "on": one}
+            and fired == {"stream-prefetch-oom": 1} and row["stream_recarve_rungs"] == 1
+            and row["stages_after_recarve"] > n0 and row["recarve_bitwise_vs_resident"]
+            and recarve_launches == one):
+        raise RuntimeError(f"stream_sentinel check failed: {row}")
+    return {"stream_sentinel": _scaled(one, 2), "stream_recarve": one}
+
+
+def phase_serving_numerics(directory) -> dict:
+    """The numerics sentinel on the serving lanes: full-width SD1.5 (random weights
+    from a seed) at 512², four euler lanes of ``NUMERICS_STEPS`` steps at CFG 7.5 in a
+    width-4 bucket (lane i in slot i), so ``NUMERICS_STEPS`` width-4 dispatches a run.
+    In bf16: runs with the sentinel off and on in turns (off, on, on, off, twice), each
+    dispatch timed; the sentinel's own per-dispatch work alone (``SENTINEL_OPS_ITERS``
+    times: host and synchronised milliseconds); one run each way inside a
+    ``torch.profiler`` window, whose synchronise calls must be equal (its kernels,
+    copies and CUDA runtime calls are reported); the lanes bitwise equal on and off. Then, in
+    bf16 and in float32 (TF32 off): with the sentinel on, each lane's last per-eval
+    digest must equal ``digest()`` of its latent; then a ``lane-nan`` plan at lane
+    ``NUMERICS_LANE`` (under a ``PA_LEDGER_DIR`` redirect): that submitter gets
+    ``NonFiniteLatent`` whose bisection names ``lane-input``, the three survivors are
+    bitwise their runs without the injection, and ``pa_numerics_quarantined_total``,
+    ``pa_numerics_nonfinite_total{where="serving-lane"}`` and
+    ``pa_fault_injected_total{site="lane-nan"}`` each rise by exactly one; K1 exactly
+    ``SD15_PER_FORWARD`` (float32: ``SD15_F32_PER_FORWARD``) per dispatch. Returns
+    K1's launches by path."""
+    import os
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import models, parallelize
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+    from comfyui_parallelanything_tpu_torch.serving.bucket import StepBucket
+    from comfyui_parallelanything_tpu_torch.utils import metrics, numerics
+
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    paths: dict = {}
+    for dtype, per_forward in (("bfloat16", SD15_PER_FORWARD),
+                               ("float32", SD15_F32_PER_FORWARD)):
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        if dtype == "float32":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            gen = torch.Generator(device=dev).manual_seed(17)
+            cfg = models.sd15_config(dtype=getattr(torch, dtype))
+            pm = parallelize(models.build_unet(cfg, device=dev, generator=gen),
+                             [("cuda:0", 100)])
+            conds = [torch.randn((1, 77, cfg.context_dim), generator=gen, device=dev)
+                     for _ in range(3)]
+            noises = [torch.randn(NUMERICS_LATENT, generator=gen, device=dev)
+                      for _ in range(4)]
+
+            def lanes(steps=NUMERICS_STEPS, raise_errors=True):
+                return _serve_lanes(
+                    [lambda x=x, c=conds[i % 2]: run_sampler(
+                        pm, x, c, sampler="euler", steps=steps, cfg_scale=7.5,
+                        uncond_context=conds[2]) for i, x in enumerate(noises)],
+                    ordered=True, raise_errors=raise_errors)
+
+            lanes(2)  # the batch shapes' first library calls
+            row: dict = {"phase": "serving_numerics", "dtype": dtype, "steps": NUMERICS_STEPS}
+            numerics.disable()
+            numerics.sentinel.reset()
+            if dtype == "bfloat16":
+                seconds: dict = {"off": [], "on": []}
+                timed = StepBucket.dispatch
+                current = ["off"]
+
+                def timing_dispatch(bucket):
+                    t0 = time.perf_counter()
+                    ran = timed(bucket)
+                    if ran:
+                        seconds[current[0]].append(time.perf_counter() - t0)
+                    return ran
+
+                StepBucket.dispatch = timing_dispatch
+                try:
+                    outs = {}
+                    for mode in ("off", "on", "on", "off", "off", "on", "on", "off"):
+                        current[0] = mode
+                        (numerics.enable if mode == "on" else numerics.disable)()
+                        outs.setdefault(mode, lanes()[0])
+                finally:
+                    StepBucket.dispatch = timed
+                    numerics.disable()
+                syncs, windows = {}, {}
+                for mode in ("off", "on"):
+                    (numerics.enable if mode == "on" else numerics.disable)()
+                    torch.cuda.synchronize()
+                    with metrics.trace(os.path.join(directory, f"numerics_{mode}")) as w:
+                        lanes()
+                        torch.cuda.synchronize()
+                    syncs[mode] = sync_calls(w.path)
+                    windows[mode] = window_summary(w.path)
+                numerics.disable()
+                # The sentinel's own work in a dispatch, alone: per-lane stats and
+                # digests of a width-4 state and their copies to page-locked memory.
+                state = torch.stack(noises)
+                bufs = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SENTINEL_OPS_ITERS):
+                    bufs = numerics.to_host_async([numerics.lane_stats(state, extra=state),
+                                                   numerics.lane_digest(state)], out=bufs)
+                host_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                row.update({
+                    "sentinel_ops_host_ms": host_s / SENTINEL_OPS_ITERS * 1e3,
+                    "sentinel_ops_ms": (time.perf_counter() - t0) / SENTINEL_OPS_ITERS * 1e3,
+                    "dispatch_s_median_off": statistics.median(seconds["off"]),
+                    "dispatch_s_median_on": statistics.median(seconds["on"]),
+                    "dispatch_s_off": seconds["off"], "dispatch_s_on": seconds["on"],
+                    "syncs_off": syncs["off"], "syncs_on": syncs["on"],
+                    "window_off": windows["off"], "window_on": windows["on"],
+                    "lanes_bitwise_on_vs_off": all(
+                        bool(torch.equal(a, b)) for a, b in zip(outs["on"], outs["off"]))})
+            numerics.sentinel.reset()
+            numerics.enable()
+            fa.reset_launches()
+            clean, dispatches = lanes()
+            launches = _launched(fa)
+            finals = sorted(r["digests"][-1] for r in numerics.sentinel.recent_fingerprints()
+                            if "rid" in r)
+            lane_digests = sorted(int(numerics.digest(x)) for x in clean)
+            numerics.sentinel.reset()
+            before = (_counter("pa_numerics_nonfinite_total", where="serving-lane"),
+                      _counter("pa_fault_injected_total", site="lane-nan"),
+                      _counter_total("pa_numerics_quarantined_total"))
+            with fault_plan(directory, {"site": "lane-nan", "match": str(NUMERICS_LANE)}):
+                fa.reset_launches()
+                got, injected_dispatches = lanes(raise_errors=False)
+                injected_launches = _launched(fa)
+            numerics.disable()
+            q = numerics.sentinel.last_quarantine or {}
+            bucket = q.get("bucket")
+            survivors = {i: bool(torch.equal(got[i], clean[i]))
+                         for i in range(4) if i != NUMERICS_LANE}
+            err = got[NUMERICS_LANE]
+            row.update({
+                "dispatches": dispatches, "k1_launches_by_variant": launches,
+                "k1_launches_expected": _scaled(per_forward, dispatches),
+                "lane_final_digests": [f"{d:08x}" for d in finals],
+                "digests_equal_digest_alone": finals == lane_digests,
+                "quarantined_error": type(err).__name__, "quarantine_message": str(err),
+                "quarantine": {k: q.get(k) for k in ("lane", "step", "sigma", "stats",
+                                                     "first_nonfinite", "bundle")},
+                "survivors_bitwise": survivors,
+                "nonfinite_total_delta": _counter(
+                    "pa_numerics_nonfinite_total", where="serving-lane") - before[0],
+                "fault_injected_total_delta": _counter(
+                    "pa_fault_injected_total", site="lane-nan") - before[1],
+                "quarantined_total_delta": _counter_total(
+                    "pa_numerics_quarantined_total") - before[2],
+                "quarantined_bucket": bucket,
+                "quarantined_lanes": numerics.sentinel.quarantined_count,
+                "injected_dispatches": injected_dispatches,
+                "injected_k1_launches": injected_launches,
+                "seconds": time.perf_counter() - start})
+            emit(row)
+            ok = (launches == row["k1_launches_expected"] and row["digests_equal_digest_alone"]
+                  and isinstance(err, numerics.NonFiniteLatent)
+                  and (q.get("first_nonfinite") or {}).get("block") == "lane-input"
+                  and q.get("lane") == NUMERICS_LANE and all(survivors.values())
+                  and row["nonfinite_total_delta"] == 1
+                  and row["fault_injected_total_delta"] == 1
+                  and row["quarantined_total_delta"] == 1 and row["quarantined_lanes"] == 1
+                  and injected_dispatches == dispatches
+                  and injected_launches == row["k1_launches_expected"])
+            if dtype == "bfloat16":
+                ok = ok and row["syncs_on"] == row["syncs_off"] and row["lanes_bitwise_on_vs_off"]
+            if not ok:
+                raise RuntimeError(f"serving_numerics ({dtype}) check failed: {row}")
+            paths[f"serving_numerics_{dtype}"] = launches
+            paths[f"serving_numerics_{dtype}_injected"] = injected_launches
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+            numerics.disable()
+            numerics.sentinel.reset()
+        del pm, clean, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def sd15_lora_file(path: str, ckpt: dict, rank: int, seed: int) -> int:
+    """A rank-``rank`` kohya LoRA (``lora_unet_…``, ``lora_down`` / ``lora_up`` /
+    ``alpha``, float32) over every transformer block's attention q, k, v and output
+    projections of an SD1.5 checkpoint (``model.diffusion_model.*``, ldm layout), each
+    delta about 5 % of its weight's scale. Writes it; returns its pairs."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.models.loader import save_safetensors
+
+    gen = torch.Generator().manual_seed(seed)
+    lora = {}
+    for key, w in ckpt.items():
+        if not (key.startswith("model.diffusion_model.") and ".transformer_blocks." in key
+                and key.endswith(("to_q.weight", "to_k.weight", "to_v.weight",
+                                  "to_out.0.weight"))):
+            continue
+        out_dim, in_dim = w.shape
+        name = "lora_unet_" + key[len("model.diffusion_model."):-len(".weight")].replace(
+            ".", "_")
+        rms = float(w.float().pow(2).mean().sqrt())
+        lora[f"{name}.lora_down.weight"] = torch.randn((rank, in_dim), generator=gen)
+        lora[f"{name}.lora_up.weight"] = torch.randn(
+            (out_dim, rank), generator=gen).mul_(0.05 * rms * rank ** -0.5)
+        lora[f"{name}.alpha"] = torch.tensor(float(rank))
+    save_safetensors(path, lora)
+    return len(lora) // 3
+
+
+def phase_serving_overlays(paths: dict, directory) -> dict:
+    """The serving lane overlays at full width: one width-4 SD1.5 bucket at 512²
+    (CFG 7.5, euler) mixing four kinds of lane: plain, ControlNet (the full SD1.5
+    ControlNet of ``sd15_controlnet``, zero convolutions random, a 512² hint,
+    strength 0.8), per-lane LoRA (rank-``OVERLAY_LORA_RANK`` factors of a kohya file
+    over every attention projection, on the graph phase's SD1.5 checkpoint: the stock
+    ``LoraLoader``'s bf16 bake has no lane delegate, as ``factorize_bake``'s exact
+    test says, and ``LoraLoader._lane_delegate`` recovers the factors from the same
+    bake made at float32) and
+    multi-cond (one extra cond on the left half at strength 0.7); ragged steps
+    (``OVERLAY_STEPS``). First K1 at the bucket's shapes (``OVERLAY_K1_SHAPES``).
+    In bf16, then float32 (TF32 off; the same weights upcast, the same factors): each
+    lane against its inline run (``OVERLAY_REL_TOL``), no ``ineligible`` fallback, one
+    bucket, every dispatch at width 4 running the control trunk (K1 exactly
+    ``SD15_CONTROLNET_PER_FORWARD``, float32 ``SD15_CONTROLNET_F32_PER_FORWARD``,
+    per dispatch), its seconds against a plain width-4 bucket's and each
+    capability's inline s/it. Returns K1's launches by path."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.models.controlnet import (
+        apply_control,
+        build_controlnet,
+    )
+    from comfyui_parallelanything_tpu_torch.models import sd15_config
+    from comfyui_parallelanything_tpu_torch.models.lora import lora_signature
+    from comfyui_parallelanything_tpu_torch.models.loader import (
+        load_safetensors,
+        load_sd_unet_checkpoint,
+    )
+    from comfyui_parallelanything_tpu_torch.nodes_compat import (
+        CheckpointLoaderSimple,
+        LoraLoader,
+    )
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+    from comfyui_parallelanything_tpu_torch.serving.bucket import StepBucket
+    from comfyui_parallelanything_tpu_torch.utils.metrics import registry
+
+    start = time.perf_counter()
+    shapes = graph_k1_shapes(fa, OVERLAY_K1_SHAPES)
+    emit({"phase": "serving_overlays", "k1_shapes": shapes})
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    t0 = time.perf_counter()
+    lora_path = os.path.join(directory, "overlay_lora.safetensors")
+    pairs = sd15_lora_file(lora_path, load_safetensors(paths["ckpt"]), OVERLAY_LORA_RANK, 31)
+    base, _, _ = CheckpointLoaderSimple().load(paths["ckpt"], device="cuda:0")
+    baked, _ = LoraLoader().load_lora(base, None, lora_path, 1.0, 0.0, device="cuda:0")
+    if baked.lora_delegate is not None:
+        raise RuntimeError("serving_overlays: a bf16 bake recovered a lane delegate "
+                           "(factorize_bake's test is exact: its rounding is full rank)")
+    del baked
+    # The same bake at float32 (the bf16 file's UNet upcast exactly, the loader's own
+    # bake_lora) factorizes exactly; the LoRA lanes of both dtypes carry its factors.
+    cfg32 = dataclasses.replace(sd15_config(), dtype=torch.float32)
+    sd32 = {k: v.float() for k, v in load_safetensors(paths["ckpt"]).items()
+            if k.startswith("model.diffusion_model.")}
+    base32 = load_sd_unet_checkpoint(sd32, cfg32, device=dev)
+    baked32 = load_sd_unet_checkpoint(sd32, cfg32, lora_path, 1.0, device=dev)
+    del sd32
+    delegate = LoraLoader._lane_delegate(base32, baked32)
+    del baked32
+    if delegate is None or delegate["base"] is not base32:
+        raise RuntimeError("serving_overlays: the float32 bake recovered no lane delegate")
+    factors = delegate["factors"]
+    ranks = sorted({int(a.shape[0]) for a, _ in factors.values()})
+    lora_s = time.perf_counter() - t0
+    cn = build_controlnet(base.config, device=dev, generator=gen)
+    randomize_zero_convs(cn.module, gen)
+    _, h, w, _ = NUMERICS_LATENT
+    hint = torch.rand((1, 8 * h, 8 * w, 3), generator=gen, device=dev)
+    ctx_dim = base.config.context_dim
+    conds = [torch.randn((1, 77, ctx_dim), generator=gen, device=dev) for _ in range(3)]
+    noises = [torch.randn(NUMERICS_LATENT, generator=gen, device=dev) for _ in range(4)]
+    extra = {"context": torch.randn((1, 77, ctx_dim), generator=gen, device=dev),
+             "strength": 0.7, "area": (h, w // 2, 0, 0)}
+    launches_by_path: dict = {}
+    for dtype, per_dispatch in (("bfloat16", SD15_CONTROLNET_PER_FORWARD),
+                                ("float32", SD15_CONTROLNET_F32_PER_FORWARD)):
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        if dtype == "float32":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            model = base32
+            net = _upcast(cn, build_controlnet)
+        else:
+            model, net = base, cn
+        try:
+            composed = apply_control(model, net, hint, strength=0.8)
+            if (composed.control_delegate or {}).get("base") is not model \
+                    or lora_signature(factors, model.module) is None:
+                raise RuntimeError("serving_overlays: a capability would not ride a lane")
+            common = dict(sampler="euler", cfg_scale=7.5, uncond_context=conds[2])
+            kinds = {
+                "plain": (model, dict(common)),
+                "controlnet": (composed, dict(common)),
+                "lora": (model, dict(common, lora=factors)),
+                "multi_cond": (model, dict(common, extra_conds=(extra,))),
+            }
+
+            def call(kind, i, steps=None):
+                m, kw = kinds[kind]
+                return lambda: run_sampler(m, noises[i], conds[i % 2],
+                                           steps=steps or OVERLAY_STEPS[kind], **kw)
+
+            # Inline: each capability's run and its s/it (a second, timed run).
+            inline, inline_s_per_it = {}, {}
+            for i, kind in enumerate(kinds):
+                call(kind, i, 2)()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inline[kind] = call(kind, i)()
+                torch.cuda.synchronize()
+                inline_s_per_it[kind] = (time.perf_counter() - t0) / OVERLAY_STEPS[kind]
+            # The plain bucket: four plain lanes of the same steps, its dispatch seconds.
+            seconds: dict = {"plain_bucket": [], "mixed_bucket": []}
+            widths: list = []
+            timed = StepBucket.dispatch
+            current = ["plain_bucket"]
+
+            def timing_dispatch(bucket):
+                n = len(bucket.active_lanes())
+                t0 = time.perf_counter()
+                ran = timed(bucket)
+                if ran:
+                    seconds[current[0]].append(time.perf_counter() - t0)
+                    if current[0] == "mixed_bucket":
+                        widths.append({"occupied": n, "width": bucket.width,
+                                       "seconds": seconds[current[0]][-1],
+                                       "overlays": {"multi_cond": bucket._mc_k,
+                                                    "controlnet": bucket._ctrl is not None,
+                                                    "lora_targets": len(bucket._lora_sig)}})
+                return ran
+
+            StepBucket.dispatch = timing_dispatch
+            try:
+                _serve_lanes([call("plain", i, 2) for i in range(4)], ordered=True)
+                _serve_lanes([call("plain", i, OVERLAY_STEPS["plain"]) for i in range(4)],
+                             ordered=True)
+                current[0] = "mixed_bucket"
+                fallbacks = _counter("pa_serving_inline_fallback_total", reason="ineligible",
+                                     sampler="euler")
+                torch.cuda.synchronize()
+                fa.reset_launches()
+                served, dispatches = _serve_lanes(
+                    [call(kind, i) for i, kind in enumerate(kinds)], ordered=True)
+                torch.cuda.synchronize()
+                launches = _launched(fa)
+                fell_back = _counter("pa_serving_inline_fallback_total", reason="ineligible",
+                                     sampler="euler") - fallbacks
+            finally:
+                StepBucket.dispatch = timed
+            lanes = {kind: {"steps": OVERLAY_STEPS[kind], "rel_l2_vs_inline": rel_l2(s, inline[kind]),
+                            "finite": bool(torch.isfinite(s).all().item()),
+                            "inline_s_per_it": inline_s_per_it[kind]}
+                     for kind, s in zip(kinds, served)}
+            row = {"phase": "serving_overlays", "dtype": dtype, "lora_pairs": pairs,
+                   "lora_factor_ranks": ranks, "lora_targets": len(factors),
+                   "lora_bake_and_factorize_s": lora_s, "lanes": lanes,
+                   "dispatches": dispatches, "dispatch_widths": widths,
+                   "mixed_dispatch_s_median": statistics.median(seconds["mixed_bucket"]),
+                   "plain_dispatch_s_median": statistics.median(seconds["plain_bucket"]),
+                   "ineligible_fallbacks": fell_back, "k1_launches_by_variant": launches,
+                   "k1_launches_expected": _scaled(per_dispatch, dispatches),
+                   "tol_vs_inline": OVERLAY_REL_TOL[dtype],
+                   "seconds": time.perf_counter() - start}
+            emit(row)
+            if not (launches == row["k1_launches_expected"] and fell_back == 0
+                    and dispatches == max(OVERLAY_STEPS.values())
+                    and all(w["width"] == 4 and w["overlays"]["controlnet"]
+                            and w["overlays"]["multi_cond"] == 1 and w["overlays"]["lora_targets"]
+                            for w in widths)
+                    and all(r["finite"] and r["rel_l2_vs_inline"] <= OVERLAY_REL_TOL[dtype]
+                            for r in lanes.values())
+                    and ranks == [OVERLAY_LORA_RANK]):
+                raise RuntimeError(f"serving_overlays ({dtype}) check failed: {row}")
+            launches_by_path[f"serving_overlays_{dtype}"] = launches
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        del composed, kinds, served, inline
+        if dtype == "float32":
+            del model, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base, base32, cn, factors, delegate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches_by_path
+
+
+def _upcast(model, build):
+    """A float32 twin of a bf16 ``DiffusionModel``: ``build(config, device=,
+    state_dict=)`` with its config at float32 and its weights upcast."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(model.config, dtype=torch.float32)
+    state = {k: v.float() if v.is_floating_point() else v
+             for k, v in model.module.state_dict().items()}
+    dev = next(model.module.parameters()).device
+    return build(cfg, device=dev, state_dict=state)
 
 
 def phase_serving(paths: dict, directory) -> dict:
@@ -4850,6 +5526,10 @@ def main() -> int:
         graph_launches, graph_paths = phase_graph(graph_dir)
         stock_launches = phase_graph_stock(graph_paths, graph_dir)
         serving_launches = phase_serving(graph_paths, graph_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        numerics_launches = phase_serving_numerics(graph_dir)
+        overlay_launches = phase_serving_overlays(graph_paths, graph_dir)
     gc.collect()
     torch.cuda.empty_cache()
     wan_launches, (wan_vae, umt5, umt5_tok) = phase_wan()
@@ -4857,14 +5537,14 @@ def main() -> int:
     del wan_vae, umt5
     # A captured path's launches are those its graphs replayed: K1's launches recorded
     # at capture times the replays.
-    paths = {"main_path": main_launches, "main_path_captured": main_captured, **pipe_launches,
+    paths = {"main_path": main_launches, **main_captured, **pipe_launches,
              "sd_pipeline": sd_launches, "sd_pipeline_captured": sd_captured,
              "sd_samplers": sampler_launches, "sd_samplers_captured": sampler_captured,
              **fallback_launches, "hybrid": hybrid_launches, "sd15_f32": f32_launches,
              **controlnet_launches,
              **sd3_launches, **placement_launches, **stream_launches, **checkpoint_launches,
              **graph_launches, **stock_launches, **serving_launches, **serving_flux_launches,
-             **wan_launches, **wan_i2v_launches}
+             **numerics_launches, **overlay_launches, **wan_launches, **wan_i2v_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

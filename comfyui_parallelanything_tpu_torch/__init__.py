@@ -65,8 +65,6 @@ NOT_EXPORTED: dict[str, dict[str, str]] = {
                      "import as a module; the function is ops.attention.attention",
     },
     "utils": {
-        "numerics": "the numerics sentinel, ROADMAP Queue 1 item 9b",
-        "faults": "fault sites, ROADMAP Queue 1 item 9d",
         "retry": "ROADMAP Queue 1 item 9d",
         "enable_compilation_cache": "not ported: the kernels compile once, in the "
                                     "nvcc build cached by source (ops/kernels/build.py)",

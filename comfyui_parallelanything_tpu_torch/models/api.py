@@ -56,6 +56,18 @@ class DiffusionModel:
     # Loader provenance ({"path", "family", ...}) the LoraLoader shims re-bake
     # from; a field, so every patch's dataclasses.replace carries it.
     source: dict | None = None
+    # Serving delegation for a ControlNet composition (models/controlnet.
+    # apply_control): {"base", "ctrl_apply", "ctrl_params", "hint", "strength",
+    # "start", "end"}. The continuous-batching scheduler buckets such a model on its
+    # BASE and carries the control net as per-lane state, so ControlNet traffic
+    # co-batches with plain lanes. None: served as an opaque model.
+    control_delegate: dict | None = None
+    # Serving delegation for a baked-LoRA model (the LoraLoader shims): {"base",
+    # "factors"}, the unpatched model (the loader's cached output, so its identity
+    # matches plain prompts) and the factor map the bake recovers to. The sampler
+    # nodes submit (base, factors), so per-request LoRA rides as per-lane state;
+    # inline runs keep this model's baked weights. None: bake only.
+    lora_delegate: dict | None = None
 
     def __call__(self, x, timesteps, context=None, **kwargs):
         """Inference forward ``module(x, timesteps, context, **kwargs)``."""

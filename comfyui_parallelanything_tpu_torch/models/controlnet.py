@@ -205,6 +205,13 @@ class ControlledModel(nn.Module):
         return self.base(x, timesteps, context, control=ctrl, **kwargs)
 
 
+def control_residuals(ctrl: nn.Module, x, timesteps, context=None, *, hint, y=None) -> dict:
+    """A ControlNet's raw residuals for a batch whose hint is already at the latent
+    batch and 8× its grid: the ``control_apply`` of a ``control_delegate``, which the
+    serving lane program calls with the net as its ``ctrl_params``."""
+    return ctrl(x, hint, timesteps, context, y=y)
+
+
 def apply_control(base: DiffusionModel, control_net: DiffusionModel, hint,
                   strength: float = 1.0, start_percent: float = 0.0,
                   end_percent: float = 1.0) -> DiffusionModel:
@@ -217,12 +224,25 @@ def apply_control(base: DiffusionModel, control_net: DiffusionModel, hint,
     ``start_percent``/``end_percent`` gate the residuals by sampling progress
     (ComfyUI's ControlNetApplyAdvanced), linear in the timestep: progress = 1 −
     t/999 for the eps/v UNet families this serves. A hint whose size is not 8× the
-    latent grid is resized bilinearly to it."""
+    latent grid is resized bilinearly to it.
+
+    The composition publishes a ``control_delegate`` (the JAX ``apply_control``'s):
+    the serving scheduler buckets it on ``base`` and runs the control trunk in the
+    lane program. A chained composition (``base`` is one itself) publishes none and
+    is served whole."""
     device = next(base.module.parameters()).device
     hint = torch.as_tensor(hint, dtype=torch.float32).to(device)
     module = ControlledModel(base.module, control_net.module, hint, strength, start_percent,
                              end_percent)
-    return DiffusionModel(module=module, name=f"{base.name}+control", config=base.config)
+    chained = (getattr(base, "control_delegate", None) is not None
+               or isinstance(base.module, ControlledModel))
+    return DiffusionModel(
+        module=module, name=f"{base.name}+control", config=base.config,
+        control_delegate=None if chained else {
+            "base": base, "ctrl_apply": control_residuals,
+            "ctrl_params": control_net.module, "hint": module.hint,
+            "strength": float(strength), "start": float(start_percent),
+            "end": float(end_percent)})
 
 
 # ControlNets share the UNet config surface.

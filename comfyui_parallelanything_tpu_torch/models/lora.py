@@ -12,9 +12,10 @@ port's.) Targets above two dims (convolutions) are addressed through their
 ``(shape[0], prod(rest))`` flattening.
 
 ``params`` is a module (its state dict), a flat ``{path: tensor}`` dict or a
-nested dict joined by dots. The serving tier's per-lane deltas (``W + b @ a``
-inside a co-batched step) wait with serving; ``run_sampler(lora=...)`` runs the
-eagerly merged model (``lora_model``), as the JAX runner's inline legs do.
+nested dict joined by dots. ``run_sampler(lora=...)`` hands the factors to a serving
+lane when a scheduler takes the run (``sampling/compiled.lane_step_program`` adds
+each lane's ``x·aᵀ·bᵀ``); its inline legs run the eagerly merged model
+(``lora_model``), as the JAX runner's do.
 """
 
 from __future__ import annotations
@@ -195,7 +196,9 @@ def factorize_bake(base_params, baked_params, max_rank: int = 64, rtol: float = 
     (flattened to ``(shape[0], prod(rest))``) by SVD, kept when the truncation
     reproduces it. ``{path: (a, b)}``, or None when the bake is not representable:
     different trees, a changed tensor below two dims (a bias), or a delta above
-    ``max_rank`` (a partial map would disagree with the bake)."""
+    ``max_rank`` (a partial map would disagree with the bake). The test is exact, as
+    the JAX function's: a bake stored in bf16 or f16 carries its rounding at full rank,
+    so it has no factors and its prompts run inline."""
     flat0, flat1 = flatten_params(base_params), flatten_params(baked_params)
     if set(flat0) != set(flat1):
         return None

@@ -31,8 +31,10 @@ File resolution (the stand-ins for ComfyUI's folder_paths):
   tables of CLIP towers read out of checkpoints (which carry no tokenizer data).
 - ``PA_T5_TOKENIZER_JSON``: the T5/UMT5 tokenizer.
 
-``LoraLoader`` bakes, re-bakes and stacks as the JAX shim does; the serving tier's
-``lora_delegate`` it also attaches there comes with ROADMAP Queue 1 item 9c.
+``LoraLoader`` bakes, re-bakes and stacks as the JAX shim does, and attaches the
+serving tier's ``lora_delegate`` (``_lane_delegate``): the unpatched base and the
+factors the bake recovers to, so a served LoRA prompt rides a lane of the base's
+bucket.
 """
 
 from __future__ import annotations
@@ -607,7 +609,29 @@ class LoraLoader:
                                                 device=dev)
         clip_stack = list(source.get("te_loras", ())) + [(lora, strength_clip)]
         patched.source = {**source, "loras": model_stack, "te_loras": clip_stack}
+        patched.lora_delegate = self._lane_delegate(model, patched)
         return patched, self._maybe_rebake_clip(clip, source, clip_stack, dev)
+
+    @staticmethod
+    def _lane_delegate(model, patched):
+        """The serving twin of this bake: ``{"base", "factors"}`` when the whole bake
+        recovers as low-rank factors against the unpatched base
+        (``models/lora.factorize_bake``, by SVD of each changed tensor, which works on
+        the converted layout's renamed leaves). The scheduler then buckets LoRA
+        prompts on the base model and carries the factors per lane, while inline runs
+        keep the bake. None (bake only) whenever any delta is not representable: a
+        partial map would serve another model than the bake. A chained link resolves
+        against the base-most model, so a LoRA stack is still one delegate."""
+        from .models.lora import factorize_bake
+
+        base = (getattr(model, "lora_delegate", None) or {}).get("base", model)
+        base_module = getattr(base, "module", None)
+        patched_module = getattr(patched, "module", None)
+        if not isinstance(base_module, torch.nn.Module) \
+                or not isinstance(patched_module, torch.nn.Module):
+            return None
+        factors = factorize_bake(base_module, patched_module)
+        return {"base": base, "factors": factors} if factors else None
 
     @staticmethod
     def _maybe_rebake_clip(clip, source: dict, clip_stack: list, device):

@@ -48,10 +48,22 @@ on, placed on the trace clock when the trace is exported (``Tracer.defer``); the
 copy stream's spans go on a track of their own. On the CPU they are host
 intervals. Tracing adds no synchronisation.
 
+Numerics sentinel (``utils/numerics.py``), as the JAX runner's ``_check_stage``:
+with it on, each stage's carry and the call's output are counted for non-finite
+elements on the compute stream into one small device buffer, copied to the host
+without blocking, and read once that copy's event has completed (at the next call,
+or any read of the sentinel's records): the runner still never blocks the host, and
+a call makes the same synchronise calls with the sentinel on and off. A non-finite
+stage records a ``stream-stage`` event naming its stage and blocks (the output a
+``stream-output`` event); ``last_stage_counts`` keeps the last call's counts.
+
+Fault site ``stream-prefetch-oom`` (``utils/faults.py``): an armed plan makes a
+stage's copy raise an out-of-memory error, so the orchestrator's ``stream-recarve``
+rung runs.
+
 The orchestrator routes here when the weights do not fit the device budget, or for
 ``weight_sharding="stream"``. Not ported yet: the JAX runner's ``pa_hbm_stream_*``
-gauges, numerics sentinel and ``stream-prefetch-oom`` fault site (ROADMAP Queue 1
-items 9b and 9d), and its sequence-parallel guard (item 7).
+gauges (ROADMAP Queue 1 item 9d) and its sequence-parallel guard (item 7).
 """
 
 from __future__ import annotations
@@ -75,7 +87,7 @@ from ..models.loader import (
     pin_params_host,
     segment_nbytes,
 )
-from ..utils import tracing
+from ..utils import faults, numerics, tracing
 from .orchestrator import _to
 from .pipeline import _stage_view, _view_with
 
@@ -218,6 +230,9 @@ class StreamingRunner:
                 labels=tuple(seg.label for seg in spec.segments[s:e]),
                 nbytes=params_nbytes(module, keys), span=span))
         self._ring: list[torch.Tensor] | None = None
+        # The numerics sentinel's per-stage non-finite counts of the last call whose
+        # counts were read (stages, then the output), or None.
+        self.last_stage_counts: list[int] | None = None
         cuda = self.device.type == "cuda"
         self._copied = [torch.cuda.Event() for _ in range(2)] if cuda else None
         self._freed = [torch.cuda.Event() for _ in range(2)] if cuda else None
@@ -298,6 +313,9 @@ class StreamingRunner:
 
     def _fetch(self, k: int, trace: _CallTrace | None = None) -> None:
         """Issue stage ``k``'s host→device copy into slot k mod 2."""
+        act = faults.check("stream-prefetch-oom", key=str(k))
+        if act is not None:
+            raise faults.oom_error(act)
         stage, slot = self.stages[k], self._ring[k % 2]
         a, b = stage.span
         src = self._master.host.buffer[a:b]
@@ -331,11 +349,28 @@ class StreamingRunner:
         with tracing.annotate("stream-run"):
             return self._run(x, timesteps, context, kwargs)
 
+    def _record_counts(self, counts) -> None:
+        """The sentinel's read of one call's counts (stages, then the output)."""
+        counts = [int(c) for c in counts]
+        self.last_stage_counts = counts
+        last = len(self.stages) - 1
+        for k, nf in enumerate(counts):
+            if not nf:
+                continue
+            stage = self.stages[min(k, last)]
+            numerics.sentinel.record_event(
+                "stream-stage" if k < last else "stream-output", stage=min(k, last),
+                device=str(self.device), nonfinite=nf, blocks=",".join(stage.labels))
+            if k >= last:
+                break  # the output covers the last stage, as the JAX tail check
+
     def _run(self, x, timesteps, context, kwargs):
         dev, n = self.device, len(self.stages)
+        numerics.sentinel.flush()
         self._ensure_ring()
         compute = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         trace = _CallTrace(self, dev) if tracing.on() else None
+        counts = torch.zeros(n + 1, dtype=torch.int64, device=dev) if numerics.on() else None
         try:
             with torch.no_grad():
                 if trace is not None:
@@ -365,6 +400,10 @@ class StreamingRunner:
                     with tracing.annotate("stream-stage-compute"):
                         for fn in stage.fns:
                             carry = fn(stage.module, carry)
+                        if counts is not None:
+                            nf = numerics.count_nonfinite(carry)
+                            if nf is not None:
+                                counts[k] = nf
                     if trace is not None:
                         done = trace.mark(compute)
                         trace.add("stream-stage-compute", start, done, stage=k,
@@ -374,8 +413,13 @@ class StreamingRunner:
                         if not self.overlap:
                             compute.synchronize()
                 out = self._spec.finalize(self._master.finalize, carry, tuple(x.shape))
+                if counts is not None:
+                    counts[n] = numerics.count_nonfinite(out)
                 if trace is not None:
                     trace.add("stream-finalize", done, trace.mark(compute))
+            if counts is not None:
+                # Read after the copy's event completes: no synchronise of its own.
+                numerics.sentinel.defer([counts], self._record_counts)
             self.tracker.retire(n - 1)
             if trace is not None:
                 trace.finish()

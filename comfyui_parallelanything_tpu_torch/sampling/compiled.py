@@ -55,6 +55,19 @@ Where the JAX package scans one XLA program, this module records one CUDA graph.
 - **On the CPU** (tensors on the host, as in the tests) the same loop body runs
   without capture, as JAX runs its scan on the CPU backend.
 
+- **Numerics sentinel** (``utils/numerics.py``): with the sentinel on, the loop body
+  also returns the final latent's stats vector and bf16 digest, computed on the
+  device inside the captured graph; the flag is part of the cache key, so a toggled
+  sentinel captures anew instead of replaying a graph without them. They are read
+  after the replay, through the sentinel's deferred read (a non-blocking copy and
+  an event), never inside a capture and never with a synchronise of their own. A
+  non-finite final latent records a ``compiled-loop`` event; the digest goes to the
+  sentinel's fingerprint ring (``loop:k:<sampler>``, ``loop:ddim``, ``loop:flow``,
+  as the JAX package names them; the eager loops: ``eager:...``).
+- **Fault site** ``compile-fail`` (``utils/faults.py``): an armed plan makes a loop's
+  first capture (on the CPU, its first run) raise ``CaptureError``, so the
+  ``compile-eager`` rung is rehearsed.
+
 The cache holds at most ``_LOOP_CACHE_MAX`` loops and keeps their replicas alive;
 ``clear_compiled_loops`` (reached from ``ParallelModel.cleanup()``) drops them and
 their graphs' memory pools.
@@ -84,6 +97,7 @@ import torch
 
 from ..parallel.split import concat_results, pad_leaf, partition_kwargs, slice_padded
 from ..parallel.split import static_kwargs_key, tree_map
+from ..utils import faults, numerics
 from . import k_samplers
 from .cfg import rescale_guidance
 from .ddim import ddim_sample
@@ -291,6 +305,8 @@ class _Loop:
 
     def run(self, inputs: dict):
         if self.device.type != "cuda":
+            if self.replays == 0:
+                self._injected_failure()
             with torch.no_grad():
                 out = self.body(self.replica, inputs)
             self.replays += 1
@@ -302,7 +318,20 @@ class _Loop:
                 _copy_into(self.static, inputs)
             self.graph.replay()
             self.replays += 1
+            if isinstance(self.out, tuple):
+                # The sentinel's stats and digest: read after the replay, before the
+                # next one on the same stream overwrites them.
+                return (self.out[0].clone(),) + self.out[1:]
             return self.out.clone()
+
+    def _injected_failure(self) -> None:
+        """The ``compile-fail`` fault site: an armed plan fails this loop's first
+        capture as a broken capture would."""
+        act = faults.check("compile-fail", key=self.label)
+        if act is not None:
+            raise CaptureError(f"compile_loop: capturing the {self.label} loop on "
+                               f"{self.device} failed: injected fault (site=compile-fail, "
+                               f"hit={act.hit})")
 
     def _warm_up(self) -> None:
         """The loop body on a side stream with one real forward, reused for every
@@ -330,6 +359,7 @@ class _Loop:
         from ..utils.degrade import never_degrades
 
         start = time.perf_counter()
+        self._injected_failure()
         # The graph's own buffers: never the caller's tensors.
         self.static = tree_map(lambda l: l.clone() if isinstance(l, torch.Tensor) else l,
                                inputs)
@@ -392,16 +422,57 @@ def _bytes(t) -> tuple | None:
 def _numerics_state() -> tuple:
     from ..ops.attention import get_attention_backend
 
+    # The sentinel flag too: a loop captured with it emits stats and a digest.
     return (get_attention_backend(), torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
+            torch.backends.cudnn.allow_tf32, numerics.on())
+
+
+def _emitting(body):
+    """The loop body returning ``(latent, stats, digest)``: the sentinel's outputs
+    computed on the device, inside the captured graph."""
+    def wrapped(model, t):
+        out = body(model, t)
+        return out, numerics.array_stats(out), numerics.digest(out)
+
+    return wrapped
+
+
+def emit_loop_numerics(stats, dig, program: str) -> None:
+    """Feed the sentinel a loop's final-latent stats and digest (device tensors),
+    read after the caller's own synchronise: a non-finite latent records a
+    ``compiled-loop`` event, the digest goes to the fingerprint ring."""
+    def record(st, dg):
+        vec = st.float().reshape(-1)
+        if float(vec[0]) > 0:
+            numerics.sentinel.record_event("compiled-loop", program=program,
+                                           **numerics.stats_to_dict(vec))
+        numerics.sentinel.record_fingerprints(where=program, digests=[int(dg)])
+
+    numerics.sentinel.defer([stats, dig], record)
+
+
+def emit_eager_numerics(out, program: str):
+    """The eager loops' counterpart of the captured loop's outputs: the same stats
+    and digest of the final latent, computed after the loop (sentinel on only).
+    Returns ``out``."""
+    if numerics.on():
+        emit_loop_numerics(numerics.array_stats(out), numerics.digest(out), program)
+    return out
 
 
 def _run(kind: str, label: str, spec: TraceSpec, meta: tuple, body, batch: int,
-         inputs: dict, static: dict):
+         inputs: dict, static: dict, program: str):
     """Place the inputs, run (capture on first use, else replay) each replica's
-    loop, gather on the lead device and drop the padding."""
+    loop, gather on the lead device and drop the padding. With the sentinel on, a
+    single replica's graph emits the stats and digest of its latent; several
+    replicas' gathered (padded) latent gets them after the gather."""
+    numerics.sentinel.flush()
+    emit = numerics.on()
     key = (kind, meta, spec.replicas, spec.devices, _signature(inputs),
            static_kwargs_key(static), _numerics_state())
+    in_graph = emit and len(spec.replicas) == 1
+    if in_graph:
+        body = _emitting(body)
     shards, padded = _prep(spec, batch, inputs)
     outs = []
     for r, (replica, shard) in enumerate(zip(spec.replicas, shards)):
@@ -422,8 +493,15 @@ def _run(kind: str, label: str, spec: TraceSpec, meta: tuple, body, batch: int,
                 if s["x"].device.type == "cuda":
                     torch.cuda.synchronize(s["x"].device)
             raise
+    if in_graph:
+        (out, stats, dig), = outs
+        emit_loop_numerics(stats, dig, program)
+        return slice_padded(out, batch, padded)
     lead = outs[0].device
-    return slice_padded(concat_results([o.to(lead) for o in outs]), batch, padded)
+    out = concat_results([o.to(lead) for o in outs])
+    if emit:
+        emit_loop_numerics(numerics.array_stats(out), numerics.digest(out), program)
+    return slice_padded(out, batch, padded)
 
 
 def loop_records() -> list[dict]:
@@ -485,7 +563,8 @@ def compiled_k_sample(
 
     meta = (sampler, float(cfg_scale), float(cfg_rescale), prediction, _bytes(sigmas),
             _bytes(acp))
-    return _run("k", sampler, spec, meta, body, x.shape[0], inputs, static)
+    return _run("k", sampler, spec, meta, body, x.shape[0], inputs, static,
+                f"loop:k:{sampler}")
 
 
 def compiled_ddim_sample(
@@ -510,7 +589,7 @@ def compiled_ddim_sample(
             ts=ts, prediction=prediction, cfg_rescale=cfg_rescale, **t["kwargs"], **static)
 
     meta = (float(cfg_scale), float(cfg_rescale), prediction, _bytes(ts), _bytes(acp))
-    return _run("ddim", "ddim", spec, meta, body, x.shape[0], inputs, static)
+    return _run("ddim", "ddim", spec, meta, body, x.shape[0], inputs, static, "loop:ddim")
 
 
 def compiled_flow_sample(
@@ -534,7 +613,8 @@ def compiled_flow_sample(
 
     meta = (float(cfg_scale), float(cfg_rescale), None if guidance is None else float(guidance),
             _bytes(ts))
-    return _run("flow", "flow_euler", spec, meta, body, x.shape[0], inputs, static)
+    return _run("flow", "flow_euler", spec, meta, body, x.shape[0], inputs, static,
+                "loop:flow")
 
 
 # ---------------------------------------------------------------------------
@@ -569,16 +649,91 @@ def _lane_scalars(sigmas, active, prediction: str, log_sigmas=None):
     return stack(ss), stack(ts), (stack(scales) if scales else None)
 
 
+class _LaneLoRA:
+    """Per-lane LoRA on the targets of one dispatch (the Punica / S-LoRA batched
+    adapter): a forward hook on each target ``nn.Linear`` / ``nn.Conv2d`` adds
+    ``x·aᵀ·bᵀ`` (a convolution: the convolution by ``a`` then a 1×1 by ``b``) to the
+    rows of each lane that carries factors, in float32, cast to the output's dtype.
+    The eval's rows are role-major, ``[R roles, W lanes, b, ...]``; a lane without
+    factors is left alone (its stacked factors are zero: the delta would be exact
+    zeros). The hooks act only on the thread that registered them, so an inline run
+    of the same model on another thread never sees them."""
+
+    def __init__(self, module, lora_sig, lora_ab, lanes, width: int, roles: int):
+        self.module, self.sig, self.ab = module, lora_sig, lora_ab
+        self.lanes, self.width, self.roles = list(lanes), width, roles
+        self.owner = threading.get_ident()
+        self.handles = []
+
+    def __enter__(self):
+        for (path, _m, _k), pair in zip(self.sig, self.ab):
+            target = self.module.get_submodule(path.rsplit(".", 1)[0])
+            self.handles.append(target.register_forward_hook(self._hook(pair)))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        self.handles = []
+
+    def _hook(self, pair):
+        a_s, b_s = pair
+
+        def hook(mod, inputs, out):
+            if threading.get_ident() != self.owner:
+                return None
+            x = inputs[0]
+            R, W = self.roles, self.width
+            if x.shape[0] % (R * W):
+                raise RuntimeError(f"per-lane LoRA: {x.shape[0]} rows are not {R} roles × "
+                                   f"{W} lanes")
+            xv = x.reshape((R, W, -1) + tuple(x.shape[1:]))
+            ov = out.view((R, W, -1) + tuple(out.shape[1:]))
+            for i in self.lanes:
+                a, b = a_s[i], b_s[i]
+                rows = xv[:, i].reshape((-1,) + tuple(x.shape[1:])).float()
+                if isinstance(mod, torch.nn.Conv2d):
+                    kh, kw = mod.kernel_size
+                    d = torch.nn.functional.conv2d(
+                        rows, a.reshape(a.shape[0], -1, kh, kw), stride=mod.stride,
+                        padding=mod.padding, dilation=mod.dilation)
+                    d = torch.nn.functional.conv2d(d, b.reshape(b.shape[0], b.shape[1], 1, 1))
+                else:
+                    d = (rows @ a.t()) @ b.t()
+                ov[:, i] += d.reshape(ov[:, i].shape).to(out.dtype)
+            return out
+
+        return hook
+
+
+def lora_targets_ok(module, lora_sig) -> bool:
+    """True when every target of ``lora_sig`` is the weight of an ``nn.Linear`` or
+    an ungrouped ``nn.Conv2d`` of ``module``: the layers the per-lane hook serves."""
+    for path, _m, _k in lora_sig:
+        owner, _, leaf = path.rpartition(".")
+        try:
+            mod = module.get_submodule(owner)
+        except AttributeError:
+            return False
+        if leaf != "weight" or not (isinstance(mod, torch.nn.Linear) or (
+                isinstance(mod, torch.nn.Conv2d) and mod.groups == 1)):
+            return False
+    return True
+
+
 def lane_step_program(model, *, prediction: str, use_cfg: bool, cfg_rescale: float,
                       static_kwargs: dict, broadcast_cond: bool = False,
-                      broadcast_kwargs: bool = False):
+                      broadcast_kwargs: bool = False, emit_stats: bool = False,
+                      n_extra: int | None = None, mc_has_y: bool = False,
+                      control_apply=None, lora_sig: tuple = (), lora_module=None):
     """The per-step program of one serving bucket (W lanes of per-request batch b):
 
     ``fn(x[W,b,...], xe, h1, h2, sigma_eval[W] (host floats), active[W] (host
     bools), cfg_scale[W] (host floats), coef[W,4,6], noise[W,b,...] | None,
     context[W,b,L,D] | [b,L,D] | None, uncond_context, kwargs, u_kwargs,
     log_sigmas | None, mask[W,b,...] | None, mask_init, mask_noise,
-    mask_mix[W,3] | None) -> (x', xe', h1', h2')``
+    mask_mix[W,3] | None, [capability overlays...]) -> (x', xe', h1', h2'
+    [, stats[W,4], digests[W]])``
 
     One batched model eval at per-lane ``(xe, sigma_eval)``: the σ→timestep
     log-interpolation and the 1/√(σ²+1) input scale (``_lane_scalars``, host
@@ -604,13 +759,47 @@ def lane_step_program(model, *, prediction: str, use_cfg: bool, cfg_rescale: flo
     alone, as the callback never sees them. ``mask`` None skips the blend (no
     masked lane in the bucket).
 
+    ``emit_stats`` (the numerics sentinel, ``utils/numerics.py``) appends two
+    outputs computed on the device in the same dispatch: per-lane ``[W, 4]`` stats
+    (the non-finite count over x' and xe', then max|x'|, mean, rms) and per-lane
+    bf16 digests ``[W]`` (int64).
+
+    The capability overlays of the JAX lane program; each keeps its zero rows inert,
+    so a lane that does not carry one passes through it unchanged:
+
+    - **multi-cond CFG** (``n_extra`` = K, the bucket's largest extra count): K more
+      role blocks of rows in the one eval, ``mc_ctx[W, K, b, L, D]`` (and, with
+      ``mc_has_y``, pooled ``mc_y[W, K, b, Y]``); per-lane weight maps ``mc_w0`` /
+      ``mc_w`` (area, mask and strength composed on the host at seat, zero for a lane
+      without extras) and host progress windows ``mc_win[W, K, 2]`` reproduce
+      ``EpsDenoiser._combine_conds`` operation for operation;
+    - **ControlNet** (``control_apply(ctrl_params, x, t, ctx, hint=, y=)``): the
+      control trunk runs over all rows of the eval with the per-lane hint stack
+      ``ctrl_hint[W, b, H, W, C]``; its residuals are scaled per row by the lane's
+      ``ctrl_strength`` times its ``ctrl_win`` progress window (``apply_control``'s
+      gate) and feed the base model's ``control`` kwarg; a lane without a net has
+      gain 0, so its residuals are exact zeros;
+    - **per-lane LoRA** (``lora_sig`` = ordered ``(path, m, k)`` targets of
+      ``lora_module``, the module the model runs): ``lora_ab`` holds per target the
+      stacked factors ``(a[W, r, k], b[W, m, r])``, zero for a lane without a LoRA,
+      and ``lora_lanes`` the lanes that carry one; ``_LaneLoRA`` adds each lane's
+      ``x·aᵀ·bᵀ`` to its rows (the JAX program merges ``W + b·a`` per lane under
+      ``vmap``: the same function).
+
     Rounding follows the inline ``EpsDenoiser``: the guidance product and σ·eps
     are taken in float32 and rounded to the model's output dtype before they meet
     the float32 latent, as PyTorch rounds a reduced-precision tensor times a
     Python scalar."""
+    use_mc = n_extra is not None
+    K = int(n_extra or 0)
+    use_control = control_apply is not None
+    lora_sig = tuple(tuple(t) for t in lora_sig)
+
     def fn(x, xe, h1, h2, sigma_eval, active, cfg_scale, coef, noise, context,
            uncond_context, kwargs, u_kwargs, log_sigmas, mask, mask_init, mask_noise,
-           mask_mix):
+           mask_mix, mc_w0=None, mc_ctx=None, mc_w=None, mc_win=None, mc_y=None,
+           ctrl_params=None, ctrl_hint=None, ctrl_strength=None, ctrl_win=None,
+           lora_ab=(), lora_lanes=()):
         W, b = x.shape[0], x.shape[1]
         n = W * b
         dev = x.device
@@ -631,14 +820,28 @@ def lane_step_program(model, *, prediction: str, use_cfg: bool, cfg_rescale: flo
             kwargs = {k: expand(v) for k, v in (kwargs or {}).items()}
             u_kwargs = {k: expand(v) for k, v in (u_kwargs or {}).items()}
         s, t, scale = _lane_scalars(sigma_eval, active, prediction, log_sigmas)
-        scalars = torch.stack([s, t] + ([scale] if scale is not None else []) +
-                              [torch.as_tensor(cfg_scale, dtype=torch.float32)])
+        per_lane = [s, t] + ([scale] if scale is not None else []) + [
+            torch.as_tensor(cfg_scale, dtype=torch.float32)]
+        if use_control:
+            per_lane += [torch.as_tensor(ctrl_strength, dtype=torch.float32),
+                         torch.as_tensor(ctrl_win, dtype=torch.float32)[:, 0],
+                         torch.as_tensor(ctrl_win, dtype=torch.float32)[:, 1]]
+        if use_mc:
+            win = torch.as_tensor(mc_win, dtype=torch.float32)
+            per_lane += [win[:, k, j] for k in range(K) for j in (0, 1)]
         # Every host value moves before the model call: a copy after it would hold
         # the host until the forward's kernels finish.
-        scalars = scalars.to(dev).repeat_interleave(b, dim=1)
+        scalars = torch.stack(per_lane).to(dev).repeat_interleave(b, dim=1)
         s_flat, t_flat = scalars[0], scalars[1]
         scale_flat = scalars[2] if scale is not None else None
-        cfg_flat = scalars[-1]
+        at = 3 if scale is not None else 2
+        cfg_flat = scalars[at]
+        at += 1
+        if use_control:
+            c_strength, c_start, c_end = scalars[at], scalars[at + 1], scalars[at + 2]
+            at += 3
+        if use_mc:
+            mc_bounds = scalars[at:at + 2 * K]
         coef = coef.to(dev)
         live = torch.as_tensor(list(active), dtype=torch.bool).to(dev)
         mix_rows = None if mask is None else mask_mix.to(dev)
@@ -646,22 +849,71 @@ def lane_step_program(model, *, prediction: str, use_cfg: bool, cfg_rescale: flo
         x_in = flat if scale_flat is None else flat * col(scale_flat, flat.ndim)
         ctx = None if context is None else flatten(context)
         kw = {k: flatten(v) for k, v in (kwargs or {}).items()}
+
+        # Role blocks [cond | uncond? | extra_0 .. extra_{K-1}], n rows each, of the
+        # one eval (inline calls the model once per extra; the scheduler pins every
+        # extra to the primary cond's (L, D), so here they batch).
+        roles_ctx, roles_kw = [ctx], [kw]
         if use_cfg:
             u_kw = {k: flatten(v) for k, v in (u_kwargs or {}).items()}
             extra_keys = set(u_kw) - set(kw)
             if extra_keys:
                 raise ValueError(f"uncond kwargs carry keys absent from cond kwargs: "
                                  f"{sorted(extra_keys)}")
-            out = model(torch.cat([x_in, x_in]), torch.cat([t_flat, t_flat]),
-                        None if ctx is None else torch.cat([ctx, flatten(uncond_context)]),
-                        **{k: torch.cat([v, u_kw.get(k, v)]) for k, v in kw.items()},
-                        **static_kwargs)
-            eps_c, eps_u = out.chunk(2, dim=0)
+            roles_ctx.append(flatten(uncond_context))
+            roles_kw.append({**kw, **u_kw})
+        for k_i in range(K):
+            roles_ctx.append(mc_ctx[:, k_i].reshape((n,) + tuple(mc_ctx.shape[3:])))
+            kw_e = dict(kw)
+            if mc_has_y:
+                kw_e["y"] = mc_y[:, k_i].reshape((n,) + tuple(mc_y.shape[3:]))
+            roles_kw.append(kw_e)
+        R = len(roles_kw)
+        x_all = torch.cat([x_in] * R) if R > 1 else x_in
+        t_all = torch.cat([t_flat] * R) if R > 1 else t_flat
+        ctx_all = None if ctx is None else (torch.cat(roles_ctx) if R > 1 else ctx)
+        kw_all = {k: torch.cat([r[k] for r in roles_kw]) if R > 1 else v
+                  for k, v in kw.items()}
+        if use_control:
+            hint = flatten(ctrl_hint)
+            # apply_control's gate per lane: strength × its progress window, linear
+            # in the timestep for the eps/v families (1 − t/999).
+            prog = 1.0 - t_flat / 999.0
+            gain = c_strength * ((prog >= c_start) & (prog <= c_end)).float()
+            hint_all = torch.cat([hint] * R) if R > 1 else hint
+            gain_all = torch.cat([gain] * R) if R > 1 else gain
+            ctrl = control_apply(ctrl_params, x_all, t_all, ctx_all, hint=hint_all,
+                                 y=kw_all.get("y"))
+            kw_all["control"] = {
+                name: [(r.float() * col(gain_all, r.ndim)).to(r.dtype) for r in v]
+                for name, v in ctrl.items()}
+        hooks = (_LaneLoRA(lora_module, lora_sig, lora_ab, lora_lanes, W, R)
+                 if lora_sig and len(lora_lanes) else contextlib.nullcontext())
+        with hooks:
+            out = model(x_all, t_all, ctx_all, **kw_all, **static_kwargs)
+        outs = out.chunk(R, dim=0) if R > 1 else (out,)
+        eps_c = outs[0]
+        if use_mc:
+            # EpsDenoiser._combine_conds, lane-batched: a lane whose maps are zero has
+            # den == 0 and keeps its own primary prediction.
+            m0 = flatten(mc_w0)
+            num = m0 * eps_c
+            den = m0 * torch.ones_like(eps_c[..., :1])
+            prog_m = 1.0 - (t_flat if prediction == "flow" else t_flat / 999.0)
+            for k_i in range(K):
+                eps_e = outs[1 + int(use_cfg) + k_i]
+                g = ((prog_m >= mc_bounds[2 * k_i]) & (prog_m <= mc_bounds[2 * k_i + 1])).float()
+                m_k = flatten(mc_w[:, k_i]) * col(g, eps_e.ndim)
+                num = num + m_k * eps_e
+                den = den + m_k * torch.ones_like(eps_e[..., :1])
+            eps_c = torch.where(den > 0, num / torch.clamp(den, min=1e-8), eps_c)
+        if use_cfg:
+            eps_u = outs[1]
             guided = (eps_c - eps_u).float() * col(cfg_flat, eps_c.ndim)
             eps = eps_u + guided.to(eps_c.dtype)
             eps = rescale_guidance(eps, eps_c, float(cfg_rescale))
         else:
-            eps = model(x_in, t_flat, ctx, **kw, **static_kwargs)
+            eps = eps_c
         dt = eps.dtype
         s_col = col(s_flat, eps.ndim)
         if prediction == "v":
@@ -692,6 +944,11 @@ def lane_step_program(model, *, prediction: str, use_cfg: bool, cfg_rescale: flo
             for j in (0, 1):
                 blend = _mask_blend(new[j], mask, keep).to(x.dtype)
                 new[j] = torch.where(gate, blend, new[j])
+        if emit_stats:
+            # Per-lane stats (xe' in the non-finite count: a NaN a two-eval sampler
+            # parks mid-step is caught at this dispatch) and lane-local digests.
+            return tuple(new) + (numerics.lane_stats(new[0], extra=new[1]),
+                                 numerics.lane_digest(new[0]))
         return tuple(new)
 
     return fn

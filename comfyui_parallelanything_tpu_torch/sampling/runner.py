@@ -16,8 +16,12 @@ a weight-streaming model and a heterogeneous chain. A capture that fails
 recorded and the call runs the eager loop, with the stochastic samplers'
 generator rewound to where the captured loop found it. An out-of-memory error or
 a kernel that fails to build or launch raises instead. Per-request LoRA
-(``lora=``, a factor map from ``models/lora.py``) runs the eagerly merged model
-(``lora_model``) on every branch, as the JAX runner's inline legs do.
+(``lora=``, a factor map from ``models/lora.py``) rides a serving lane as per-lane
+factors when a scheduler takes the run; every inline leg runs the eagerly merged
+model (``lora_model``; a ControlNet composition is recomposed around its merged
+base through its ``control_delegate``), as the JAX runner's inline legs do. With the
+numerics sentinel on, the eager loops feed it their final latent's stats and digest
+(``eager:k:<sampler>``, ``eager:ddim``, ``eager:flow``) as the captured loops do.
 
 Continuous batching (``serving/``): with a scheduler installed
 (``ContinuousBatchingScheduler.install()``, which ``server.py`` does for several
@@ -59,6 +63,7 @@ from .compiled import (
     compiled_ddim_sample,
     compiled_flow_sample,
     compiled_k_sample,
+    emit_eager_numerics,
     trace_spec_of,
 )
 from ..utils import tracing
@@ -117,6 +122,24 @@ def _compiled_spec(model, callback):
         logger.info("compile_loop: the model cannot run as one captured loop (a "
                     "heterogeneous chain or a per-step expert switch); eager path")
     return spec
+
+
+def _merge_lora(model, factors):
+    """The eager factor merge of the inline legs. A ControlNet composition's factors
+    address its BASE's parameters, so it is recomposed around the merged base
+    through its ``control_delegate``."""
+    from ..models.lora import lora_model
+
+    delegate = getattr(model, "control_delegate", None)
+    if delegate is None:
+        return lora_model(model, factors)
+    from ..models.api import DiffusionModel
+    from ..models.controlnet import apply_control
+
+    return apply_control(lora_model(delegate["base"], factors),
+                         DiffusionModel(module=delegate["ctrl_params"], name="ctrl"),
+                         delegate["hint"], delegate["strength"], delegate["start"],
+                         delegate["end"])
 
 
 def _serve(callback=None, **request):
@@ -237,10 +260,10 @@ def run_sampler(
     prefs = getattr(model, "sampler_prefs", None) or {}
     if cfg_rescale == 0.0:
         cfg_rescale = float(prefs.get("cfg_rescale", 0.0))
-    if lora:
-        from ..models.lora import lora_model
-
-        model = lora_model(model, dict(lora))
+    lora = dict(lora) if lora else None
+    if lora and (compile_loop or sampler in ("flow_euler", "ddim")):
+        # No serving lane for these runs: merge now.
+        model, lora = _merge_lora(model, lora), None
     use_cfg = cfg_scale != 1.0 and uncond_context is not None
     eff_cfg = cfg_scale if use_cfg else 1.0
     multi_cond = (bool(extra_conds) or cond_area is not None
@@ -328,13 +351,13 @@ def run_sampler(
                 **compiled_mask_kw, model_kwargs=model_kwargs), "flow_euler")
             if out is not None:
                 return out
-        return flow_euler_sample(
+        return emit_eager_numerics(flow_euler_sample(
             model, x, context, steps=steps, shift=shift, guidance=guidance,
             cfg_scale=eff_cfg, uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
             callback=with_progress(masked_callback(
                 lambda i: (1.0 - ts[i + 1]) * init_latent + ts[i + 1] * noise), len(ts) - 1),
             ts=ts, cfg_rescale=cfg_rescale, **model_kwargs,
-        )
+        ), "eager:flow")
 
     if sampler == "ddim":
         # One schedule drives the truncation, the noising and the sampler.
@@ -363,12 +386,12 @@ def run_sampler(
             a = acp[ts[i + 1]] if i + 1 < len(ts) else torch.tensor(1.0)
             return torch.sqrt(a) * init_latent + torch.sqrt(1.0 - a) * noise
 
-        return ddim_sample(
+        return emit_eager_numerics(ddim_sample(
             model, x, context, steps=steps, cfg_scale=eff_cfg,
             uncond_context=uncond_context, uncond_kwargs=uncond_kwargs,
             callback=with_progress(masked_callback(ddim_keep), len(ts)), ts=ts, alphas_cumprod=acp,
             prediction=prediction, cfg_rescale=cfg_rescale, **model_kwargs,
-        )
+        ), "eager:ddim")
 
     step_fn = K_SAMPLERS[sampler]
     is_flow = prediction == "flow"
@@ -425,9 +448,12 @@ def run_sampler(
             mask_init=init_latent if latent_mask is not None else None,
             mask_noise=noise if latent_mask is not None else None,
             extra_conds=extra_conds, cond_area=cond_area, cond_area_pct=cond_area_pct,
-            cond_mask=cond_mask, lora=lora)
+            cond_mask=cond_mask, cond_strength=cond_strength,
+            cond_mask_strength=cond_mask_strength, lora=lora)
         if served is not None:
             return served
+    if lora:
+        model = _merge_lora(model, lora)
     if spec is not None:
         # The captured loop draws every step's noise before it captures: the eager
         # fallback rewinds the generator to draw the same noise again.
@@ -456,5 +482,7 @@ def run_sampler(
         cb = masked_callback(lambda i: init_latent + noise * sigmas[i + 1])
     cb = with_progress(cb, len(sigmas) - 1)
     if sampler in RNG_SAMPLERS:
-        return step_fn(denoiser, x, sigmas, rng, callback=cb)
-    return step_fn(denoiser, x, sigmas, callback=cb)
+        out = step_fn(denoiser, x, sigmas, rng, callback=cb)
+    else:
+        out = step_fn(denoiser, x, sigmas, callback=cb)
+    return emit_eager_numerics(out, f"eager:k:{sampler}")

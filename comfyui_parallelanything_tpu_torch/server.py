@@ -67,13 +67,21 @@ ingress to worker pickup, also the SLO ``admission`` stage); its residency
 (admission + execution) feeds ``pa_slo_request_seconds``, and its spans are kept
 past the live rings (``tracing.retain_prompt``).
 
-Not ported (ROADMAP Queue 1 items 9b–9d); each answers 501 or raises, never a
-silent no-op: the fleet's ``traceparent`` context, fault sites, the metric
-history (``/metrics/history``, ``/history/phase``) and its sampler, the fleet's
-roles other than the default and its heartbeat registration (``--fleet-router``),
-the stage hand-off (``extra_data.pa_stage``, ``/stage/{key}``), the embed cache's
-remote tier (``/embed/{key}``), the numerics sentinel (``PA_NUMERICS=1``) and the
-roofline gauges.
+``PA_NUMERICS=1`` turns the numerics sentinel on (``utils/numerics.py``): serving
+lanes emit per-lane non-finite counts and fingerprints and a poisoned lane is
+quarantined; ``GET /health`` has its ``numerics`` section and each scrape publishes
+the ``pa_numerics_*`` gauges. Fault sites (``utils/faults.py``, armed by
+``PA_FAULT_PLAN`` under a ``PA_LEDGER_DIR``/``PA_EVIDENCE_DIR`` redirect):
+``slow-host`` stalls a prompt worker before the prompt runs (key: the prompt id),
+and ``backend-http`` drops, delays or fails a request at ingress (key: ``METHOD
+/path``; mode ``drop``/``delay``/5xx).
+
+Not ported (ROADMAP Queue 1 item 9d); each answers 501 or raises, never a silent
+no-op: the fleet's ``traceparent`` context, the metric history
+(``/metrics/history``, ``/history/phase``) and its sampler, the fleet's roles other
+than the default and its heartbeat registration (``--fleet-router``), the stage
+hand-off (``extra_data.pa_stage``, ``/stage/{key}``), the embed cache's remote tier
+(``/embed/{key}``) and the roofline gauges.
 
 Run:  ``python -m comfyui_parallelanything_tpu_torch.server [--port 8188]
 [--workers 4] [--device cuda:0]``
@@ -95,7 +103,7 @@ from urllib.parse import parse_qs, urlparse
 
 from .host import DEFAULT_DEVICE, WorkflowCache, run_workflow
 from .parallel.orchestrator import _not_ported
-from .utils import slo, tracing
+from .utils import faults, numerics, slo, tracing
 from .utils.progress import Interrupted, progress_scope
 
 _WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"  # RFC 6455 §1.3
@@ -248,7 +256,9 @@ class PromptQueue:
                  role: str | None = None, device: str = DEFAULT_DEVICE,
                  cache: WorkflowCache | None = None, trace: bool | None = None):
         if os.environ.get("PA_NUMERICS", "") not in ("", "0", "false"):
-            raise _not_ported("the numerics sentinel (PA_NUMERICS=1; ROADMAP Queue 1 item 9b)")
+            # The numerics sentinel: per-lane non-finite quarantine and latent
+            # fingerprints on the serving path; off by default (one flag check).
+            numerics.enable()
         role = role or os.environ.get("PA_ROLE") or "all"
         if role != "all":
             raise _not_ported(f"fleet role {role!r} (the role pools; ROADMAP Queue 1 item 9d)")
@@ -488,6 +498,11 @@ class PromptQueue:
                     return
                 self._emit_binary(struct.pack(">II", 1, 2) + png)
 
+            # Fault site slow-host: the straggler rehearsal stalls the worker, not
+            # the HTTP surface, so health polls stay green while latency grows.
+            slow = faults.check("slow-host", key=pid)
+            if slow is not None:
+                slow.sleep()
             try:
                 # The prompt span is the root of the prompt's timeline.
                 with progress_scope(hook=hook, preview_hook=preview_hook if preview else None,
@@ -577,7 +592,33 @@ class _Handler(BaseHTTPRequestHandler):
     def _not_ported(self, what: str):
         return self._send(501, {"error": str(_not_ported(what))})
 
+    def _http_fault(self) -> bool:
+        """Fault site ``backend-http``: per-request drop, delay or 5xx keyed on
+        ``METHOD /path``. True when the request was consumed (the caller must not
+        answer it). One flag read with no plan armed."""
+        act = faults.check("backend-http", key=f"{self.command} {self.path}")
+        if act is None:
+            return False
+        if act.mode == "delay":
+            act.sleep()
+            return False
+        if act.mode == "drop":
+            # Vanish mid-request: the peer sees a reset or EOF, as from a crashed host.
+            import socket as _socket
+
+            self.close_connection = True
+            try:
+                self.connection.shutdown(_socket.SHUT_RDWR)
+            except OSError:
+                pass
+            return True
+        act.sleep()  # 5xx (the default): alive but failing
+        self._send(500, {"error": f"injected fault (site=backend-http, hit={act.hit})"})
+        return True
+
     def do_GET(self):  # noqa: N802 - http.server API
+        if self._http_fault():
+            return
         url = urlparse(self.path)
         parts = [p for p in url.path.split("/") if p]
         q = self.q
@@ -600,6 +641,8 @@ class _Handler(BaseHTTPRequestHandler):
             publish_memory_gauges()
             # The windowed objective verdicts, published at scrape time.
             slo.registry.publish_gauges()
+            # pa_numerics_* at scrape time: a healthy server shows explicit zeros.
+            numerics.sentinel.publish_gauges()
             return self._send(200, registry.render().encode(),
                               content_type="text/plain; version=0.0.4; charset=utf-8")
         if url.path == "/health":
@@ -709,6 +752,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.q.remove_listener(sock)
 
     def do_POST(self):  # noqa: N802 - http.server API
+        if self._http_fault():
+            return
         url = urlparse(self.path)
         q = self.q
         if url.path == "/interrupt":

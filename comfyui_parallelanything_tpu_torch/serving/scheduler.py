@@ -29,11 +29,23 @@ the buckets:
   requests from step 0; at width 1 it resolves them ``DegradedToInline`` and
   ``run_sampler`` runs them on the inline path.
 
+Capability state rides the request as per-lane data, not the bucket key: a denoise
+mask, multi-cond extras, a delegated ControlNet or per-request LoRA factors never
+split buckets, so mixed traffic shares one dispatch stream (the JAX scheduler's
+rules). A ControlNet composition that publishes a ``control_delegate``
+(``models/controlnet.apply_control``) is bucketed on its base model with the control
+trunk as per-lane state, and its width-1 eager twin keeps the merged net.
+Multi-cond extras must pin to the primary cond's (L, D) and a batch of 1 or b;
+pooled extras need ``y``. LoRA factors must match the served module's parameters
+(``models/lora.lora_signature``), on ``nn.Linear`` / ``nn.Conv2d`` targets of a
+single-replica model.
+
 Ineligible work is never queued: ``maybe_submit`` returns None and the caller runs
 inline exactly as before. That covers an unknown sampler, odd kwarg shapes, a full
-queue, a latent-preview prompt, and what the port's lanes do not carry: multi-cond
-extras and area conditioning, per-request LoRA, and models that carry per-request
-conditioning inside them (ControlNet, inpaint and Wan i2v compositions).
+queue, a latent-preview prompt, an extra cond of another (L, D), a LoRA whose
+signature misses, a hint batch that is neither 1 nor b, and what the JAX scheduler
+also keeps inline: a model that carries per-request conditioning inside it with no
+delegate (a chained ControlNet composition, inpaint and Wan i2v compositions).
 """
 
 from __future__ import annotations
@@ -106,9 +118,10 @@ def _kwarg_sig(tree: dict, batch: int):
 
 
 def _carries_request_state(model) -> bool:
-    """True for a model whose module holds per-request conditioning (a ControlNet
-    hint, an inpaint mask and masked latent, a Wan i2v clip): it cannot take other
-    requests' rows in the same call."""
+    """True for a model whose module holds per-request conditioning with no serving
+    delegate (a chained ControlNet composition's hints, an inpaint mask and masked
+    latent, a Wan i2v clip): it cannot take other requests' rows in the same call,
+    and the JAX scheduler keeps it inline too."""
     from ..models.controlnet import ControlledModel
     from ..models.unet import InpaintConditioned
     from ..models.wan import I2VConditioned
@@ -185,13 +198,16 @@ class ContinuousBatchingScheduler:
         self, *, model, x, sigmas, context, sampler, cfg_scale, uncond_context,
         uncond_kwargs, alphas_cumprod, prediction, cfg_rescale, model_kwargs, rng=None,
         latent_mask=None, mask_init=None, mask_noise=None, extra_conds=(),
-        cond_area=None, cond_area_pct=None, cond_mask=None, lora=None,
+        cond_area=None, cond_area_pct=None, cond_mask=None, cond_strength=1.0,
+        cond_mask_strength=1.0, lora=None,
     ) -> ServeRequest | None:
         """Admit one sampler run, or return None when it cannot share a step program
         (the caller runs inline). Called from ``run_sampler`` with the prepared
         noised latent, schedule and conditioning; per-step sampler math comes from
         the sampler's ``LaneStepSpec``. ``rng`` is the generator the inline sampler
-        would draw its per-step noise from."""
+        would draw its per-step noise from. Capability state (a denoise mask, extra
+        conds, a delegated ControlNet, LoRA factors) rides the request, not the
+        bucket key; eligibility checks only what the lane program cannot take."""
         if self._stop or sampler not in self.samplers:
             return None
         spec_entry = LANE_SPECS.get(sampler)
@@ -199,16 +215,11 @@ class ContinuousBatchingScheduler:
             return None
         if spec_entry.needs_rng and rng is None:
             return None
-        if extra_conds or cond_area is not None or cond_area_pct is not None \
-                or cond_mask is not None or lora:
-            return None  # multi-cond and LoRA lane overlays: not ported
         from ..utils.progress import current_preview_hook
 
         if current_preview_hook() is not None:
-            # Latent previews come from the inline loops' report_progress; a lane
-            # has no preview channel.
-            return None
-        if _carries_request_state(model):
+            # Latent previews come from the inline loops' report_progress; a lane has
+            # no preview channel.
             return None
         from ..parallel.split import partition_kwargs, static_kwargs_key
         from ..sampling.compiled import trace_spec_of
@@ -231,6 +242,29 @@ class ContinuousBatchingScheduler:
                 return None
         if context is not None and (getattr(context, "ndim", 0) < 1 or context.shape[0] != b):
             return None
+        # ControlNet delegation: an apply_control composition is bucketed on its BASE
+        # model (so control lanes co-batch with plain lanes of the same UNet) and the
+        # control trunk rides the request; the width-1 eager twin keeps the merged
+        # net. A chained composition publishes no delegate and stays opaque.
+        eager_model = None
+        control = None
+        delegate = getattr(model, "control_delegate", None)
+        if delegate is not None and getattr(x, "ndim", 0) == 4:
+            base = delegate["base"]
+            if trace_spec_of(base) is not None:
+                hint = delegate["hint"]
+                hb = 1 if getattr(hint, "ndim", 3) == 3 else int(hint.shape[0])
+                if hb not in (1, b):
+                    # The inline composition raises on a per-sample hint batch;
+                    # inline surfaces that same error to the caller.
+                    return None
+                control = {"apply": delegate["ctrl_apply"], "params": delegate["ctrl_params"],
+                           "hint": hint, "strength": delegate["strength"],
+                           "start": delegate["start"], "end": delegate["end"]}
+                eager_model = model
+                model = base
+        if _carries_request_state(model):
+            return None
         if latent_mask is not None:
             # A denoise-mask lane needs both blend references.
             if mask_init is None or mask_noise is None:
@@ -242,7 +276,48 @@ class ContinuousBatchingScheduler:
                         return None
             except ValueError:
                 return None
+        # Multi-cond extras pin to the primary cond's (L, D): the lane program stacks
+        # every role's rows in one eval. Pooled extras need ``y`` in the traced
+        # kwargs (whose shape the bucket key already holds).
+        extra_conds = tuple(extra_conds or ())
+        if extra_conds:
+            if context is None or getattr(context, "ndim", 0) != 3:
+                return None
+            for e in extra_conds:
+                ec = e.get("context")
+                if ec is None or getattr(ec, "ndim", 0) != 3:
+                    return None
+                if tuple(ec.shape[1:]) != tuple(context.shape[1:]) \
+                        or int(ec.shape[0]) not in (1, b):
+                    return None
+                pooled = e.get("pooled")
+                if pooled is not None:
+                    y = traced.get("y")
+                    if (y is None or getattr(pooled, "ndim", 0) != 2
+                            or int(pooled.shape[-1]) != int(y.shape[-1])
+                            or int(pooled.shape[0]) not in (1, b)):
+                        return None
         spec = trace_spec_of(model)
+        # Per-lane LoRA: the factors must address the parameters of the module the
+        # lane program runs (one replica: the hooks act on it), on layers the hook
+        # serves. Width-1 eager lanes gain nothing over the inline merge.
+        lora_factors = None
+        if lora:
+            if spec is None or len(spec.replicas) != 1 \
+                    or not isinstance(spec.replicas[0], torch.nn.Module):
+                return None
+            from ..models.lora import lora_signature
+            from ..sampling.compiled import lora_targets_ok
+
+            module = spec.replicas[0]
+            sig = lora_signature(lora, module)
+            if sig is None or not lora_targets_ok(module, sig):
+                return None
+            if sig:
+                lora_factors = dict(lora)
+        if (control is not None or lora_factors) and spec is not None \
+                and len(spec.replicas) != 1:
+            return None  # the overlays run on one replica's module
         width = self.max_width
         bound = getattr(model, "serving_bucket_width", None)
         if callable(bound):
@@ -282,7 +357,10 @@ class ContinuousBatchingScheduler:
             uncond_kwargs=uncond_kwargs if use_cfg else None,
             cfg_scale=float(cfg_scale), cfg_rescale=float(cfg_rescale),
             prediction=prediction, acp=acp, latent_mask=latent_mask,
-            mask_init=mask_init, mask_noise=mask_noise,
+            mask_init=mask_init, mask_noise=mask_noise, extra_conds=extra_conds,
+            cond_area=cond_area, cond_area_pct=cond_area_pct, cond_mask=cond_mask,
+            cond_strength=float(cond_strength), cond_mask_strength=float(cond_mask_strength),
+            control=control, lora=lora_factors, eager_model=eager_model,
             progress_hook=current_progress_hook(),
             interrupt_event=scope.interrupt_event if scope is not None else None,
             prompt_id=(tracing.current_prompt_id() if tracing.on()

@@ -1,13 +1,14 @@
 from .logging import get_logger, log_degradation, log_placement, log_setup_summary
 from .metrics import StepStats, StepTimer, trace
 from .checks import assert_finite, checked
-from . import degrade, roofline, slo, telemetry, tracing
+from . import degrade, faults, numerics, roofline, slo, telemetry, tracing
 
-# The JAX package's faults, numerics and retry modules wait for ROADMAP Queue 1
-# items 9b and 9d; its compile cache and cleanup are not ported (``NOT_EXPORTED``
-# in the package's ``__init__``).
+# The JAX package's retry module waits for ROADMAP Queue 1 item 9d; its compile
+# cache and cleanup are not ported (``NOT_EXPORTED`` in the package's ``__init__``).
 __all__ = [
     "degrade",
+    "faults",
+    "numerics",
     "roofline",
     "slo",
     "get_logger",

@@ -8,16 +8,16 @@ the scheduler call).
   between requests.
 - :func:`health_snapshot` is ``GET /health``'s document: load average, devices,
   per-card memory and the peak watermark, the queue and admission state the
-  server passes in, and the reuse section (embed cache, decode tail, serving
-  buckets).
+  server passes in, the reuse section (embed cache, decode tail, serving
+  buckets) and the numerics sentinel's section (``utils/numerics.py``: its flag,
+  event and quarantine totals, the last of each, the fingerprint gate).
 
 The OOM classifier the JAX module keeps here (``looks_like_oom``) is the port's
 ``parallel/orchestrator.is_out_of_memory``. Left out, and listed in the document's
 ``not_ported`` field instead of filled with invented values: the compile
 accounting (the port compiles its kernels once, in the ``nvcc`` build), the
-roofline and planner sections, the numerics sentinel and the anomaly/timeseries
-plane (ROADMAP Queue 1 items 8, 9b and 9d); also the perf ledger and the postmortem
-bundles (item 9d).
+roofline and planner sections and the anomaly/timeseries plane (ROADMAP Queue 1
+items 8 and 9d); also the perf ledger and the postmortem bundles (item 9d).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import time
 
 HEALTH_SCHEMA = "pa-health/v3"
 
-NOT_PORTED_SECTIONS = ("compile", "roofline", "plan", "numerics", "anomaly")
+NOT_PORTED_SECTIONS = ("compile", "roofline", "plan", "anomaly")
 
 
 def _loadavg_1m() -> float | None:
@@ -128,6 +128,14 @@ def health_snapshot(queue: dict | None = None, host: dict | None = None) -> dict
         out["hbm"] = None
         out["hbm_utilization_max"] = None
     out["peak_hbm_bytes"] = watermark.peak_bytes or None
+    try:
+        # The numerics sentinel: its flag, non-finite event and quarantined-lane
+        # totals, the last of each, and the fingerprint gate's last verdict.
+        from . import numerics
+
+        out["numerics"] = numerics.sentinel.snapshot()
+    except Exception:  # noqa: BLE001
+        out["numerics"] = None
     try:
         from ..models.embed_cache import cache as embed_cache
         from ..serving.decode import get_decode_queue

@@ -3,7 +3,8 @@ small FLUX, UNet, ControlNet and SD3 models through ``parallelize`` on the card
 against the same models on the CPU, a small FLUX streamed from pinned host memory
 against the same model resident, the whole-loop compiled sampler's captured
 graphs against the eager loop (beside a busy serving dispatcher too, and a capture
-that breaks and falls back), a
+that breaks and falls back), the numerics sentinel on a captured loop and a serving
+lane kept bitwise beside a quarantined one, a
 ``cuda:0`` + ``cpu`` chain, the example graphs
 (native and stock names) and the CLIP vision tower on the card against the CPU.
 Every test here needs a CUDA device and skips without one.
@@ -711,6 +712,109 @@ def test_capture_beside_a_busy_serving_dispatcher_matches_eager(cuda_device, no_
     assert torch.equal(captured[0], captured[1])
     assert _rel(captured[0], eager) <= 1e-3
     assert lanes and all(_rel(lane, eager) <= 3e-2 for lane in lanes)
+
+
+def test_sentinel_on_a_captured_small_unet_loop(cuda_device, monkeypatch, no_loops):
+    # The numerics sentinel on a captured SMALL_UNET loop: turning it on changes the
+    # loop's cache key (a new capture, whose graph computes the stats and the digest),
+    # the replayed latent stays bitwise the sentinel-off one, and the digest read
+    # after the replay equals the eager loop's and digest() of the latent.
+    from comfyui_parallelanything_tpu_torch.utils import numerics
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = unet.UNetConfig(**SMALL_UNET, dtype=torch.bfloat16)
+    model = unet.build_unet(cfg, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    noise = torch.randn((1, 32, 32, 4), generator=g, device=cuda_device)
+    ctx, uctx = (torch.randn((1, 77, 64), generator=g, device=cuda_device) for _ in range(2))
+    pm = parallelize(model, [("cuda:0", 100)])
+    kw = dict(sampler="euler", steps=3, cfg_scale=5.0, uncond_context=uctx)
+    numerics.disable()
+    numerics.sentinel.reset()
+    try:
+        off = run_sampler(pm, noise, ctx, compile_loop=True, **kw)
+        assert len(compiled.loop_records()) == 1
+        numerics.enable()
+        on = [run_sampler(pm, noise, ctx, compile_loop=True, **kw) for _ in range(2)]
+        assert len(compiled.loop_records()) == 2  # the flag keys its own capture
+        eager = run_sampler(pm, noise, ctx, **kw)
+        torch.cuda.synchronize()
+        assert numerics.sentinel.flush() >= 0
+        ring = numerics.sentinel.recent_fingerprints()
+        assert torch.equal(on[0], off) and torch.equal(on[1], off)
+        loops = [r["digests"] for r in ring if r["where"] == "loop:k:euler"]
+        assert loops == [[int(numerics.digest(off))]] * 2
+        assert [r["digests"] for r in ring if r["where"] == "eager:k:euler"] == \
+            [[int(numerics.digest(eager))]]
+        assert numerics.sentinel.event_count == 0
+    finally:
+        numerics.disable()
+        numerics.sentinel.reset()
+
+
+def test_a_survivor_keeps_its_bits_beside_an_injected_lane(cuda_device, monkeypatch,
+                                                           tmp_path):
+    # Two float32 SMALL_UNET lanes in a width-2 bucket, then the same two with a
+    # lane-nan fault plan at lane 1: lane 1's submitter gets NonFiniteLatent naming
+    # the lane input, lane 0's latent is bitwise its uninjected one.
+    import json
+    import threading
+    import time
+
+    from comfyui_parallelanything_tpu_torch.serving import ContinuousBatchingScheduler
+    from comfyui_parallelanything_tpu_torch.utils import faults, numerics
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = unet.UNetConfig(**SMALL_UNET, dtype=torch.float32)
+    model = unet.build_unet(cfg, device=cuda_device,
+                            generator=torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    noises = [torch.randn((1, 32, 32, 4), generator=g, device=cuda_device) for _ in range(2)]
+    ctx, uctx = (torch.randn((1, 77, 64), generator=g, device=cuda_device) for _ in range(2))
+
+    def two_lanes():
+        sched = ContinuousBatchingScheduler(max_width=2, auto=False).install()
+        out = {}
+
+        def lane(i):
+            try:
+                out[i] = run_sampler(model, noises[i], ctx, sampler="euler", steps=3,
+                                     cfg_scale=5.0, uncond_context=uctx)
+            except Exception as e:  # noqa: BLE001 - asserted below
+                out[i] = e
+
+        try:
+            threads = []
+            for i in range(2):
+                threads.append(threading.Thread(target=lane, args=(i,), daemon=True))
+                threads[-1].start()
+                while sum(len(b.queue) for b in list(sched.buckets.values())) < i + 1:
+                    time.sleep(0.002)
+            sched.drain()
+            for t in threads:
+                t.join(60)
+        finally:
+            sched.shutdown()
+        return out
+
+    numerics.disable()
+    numerics.sentinel.reset()
+    try:
+        clean = two_lanes()
+        numerics.enable()
+        monkeypatch.setenv("PA_FAULT_PLAN", json.dumps([{"site": "lane-nan", "match": "1"}]))
+        monkeypatch.setenv("PA_LEDGER_DIR", str(tmp_path))
+        got = two_lanes()
+        assert isinstance(got[1], numerics.NonFiniteLatent)
+        assert numerics.sentinel.last_quarantine["first_nonfinite"]["block"] == "lane-input"
+        assert torch.equal(got[0], clean[0])
+    finally:
+        numerics.disable()
+        numerics.sentinel.reset()
+        monkeypatch.delenv("PA_FAULT_PLAN")
+        faults.reload()
 
 
 def test_cuda_and_cpu_chain_matches_the_card_alone(cuda_device, monkeypatch, no_loops):

@@ -371,7 +371,14 @@ def test_metrics_text_and_health_sections(serve, world):
     assert set(doc["reuse"]) == {"embed_cache", "decode", "serving"}
     assert doc["reuse"]["serving"] is None
     # Left out, named, not invented.
-    assert "compile" not in doc and "numerics" in doc["not_ported"]
+    assert "compile" not in doc and "compile" in doc["not_ported"]
+    # The numerics sentinel's section: off by default, its totals and gate named.
+    assert "numerics" not in doc["not_ported"]
+    assert doc["numerics"]["enabled"] is False
+    assert set(doc["numerics"]) == {"enabled", "nonfinite_events", "quarantined_lanes",
+                                    "last_event", "last_quarantine", "fingerprint_gate"}
+    assert "pa_numerics_sentinel_enabled 0" in text
+    assert "pa_numerics_quarantined_lanes" in text
 
 
 def lane_steps() -> float:
@@ -406,9 +413,17 @@ def test_two_workers_give_the_images_of_one(serve, world):
 
 
 def test_refused_options_raise_not_ported(monkeypatch, world):
+    from comfyui_parallelanything_tpu_torch.utils import numerics
+
+    # PA_NUMERICS=1 is ported: it turns the sentinel on.
     monkeypatch.setenv("PA_NUMERICS", "1")
-    with pytest.raises(NotImplementedError, match="numerics"):
-        pserver.PromptQueue(device="cpu", cache=world["cache"])
+    numerics.disable()
+    try:
+        q = pserver.PromptQueue(device="cpu", cache=world["cache"])
+        q.shutdown()
+        assert numerics.on()
+    finally:
+        numerics.disable()
     monkeypatch.delenv("PA_NUMERICS")
     with pytest.raises(NotImplementedError, match="role"):
         pserver.PromptQueue(device="cpu", role="decode", cache=world["cache"])

@@ -187,16 +187,24 @@ def test_ineligible_work_runs_inline_and_ticks_the_fallback_counter(unet, sched)
     x, c, u = (torch.from_numpy(r[k]) for k in ("noise", "ctx", "unc"))
     kw = dict(sampler="euler", steps=2, cfg_scale=CFG, uncond_context=u)
     before = _fallbacks("ineligible")
+    # What the JAX scheduler also keeps inline: a latent callback, an extra cond of
+    # another sequence length, a LoRA whose signature misses the served module, and a
+    # chained ControlNet composition.
     run_sampler(pm, x, c, callback=lambda i, z: None, **kw)
-    run_sampler(pm, x, c, extra_conds=[{"context": c, "strength": 0.5}], **kw)
-    name = next(n for n, p in pm.module.named_parameters() if p.ndim == 2)
+    other_l = torch.zeros((1, c.shape[1] + 3, c.shape[2]))
+    run_sampler(pm, x, c, extra_conds=[{"context": other_l, "strength": 0.5}], **kw)
+    # A factor pair on a bias: the inline merge takes it, the lanes' signature
+    # (2-D targets) does not.
+    name = next(n for n, p in pm.module.named_parameters() if n.endswith(".bias"))
     w = dict(pm.module.named_parameters())[name]
-    lora = {name: (torch.zeros(2, w.shape[1]), torch.zeros(w.shape[0], 2))}
+    lora = {name: (torch.zeros(2, 1), torch.zeros(w.shape[0], 2))}
     run_sampler(pm, x, c, lora=lora, **kw)
     net = build_controlnet(pu.UNetConfig(**UNET, dtype=torch.float32), device="cpu",
                            generator=torch.Generator().manual_seed(6))
-    composed = apply_control(pm, net, torch.zeros(1, 64, 64, 3), 0.5)
-    run_sampler(composed, x, c, **kw)
+    chained = apply_control(apply_control(pm, net, torch.zeros(1, 64, 64, 3), 0.5),
+                            net, torch.zeros(1, 64, 64, 3), 0.25)
+    assert chained.control_delegate is None
+    run_sampler(chained, x, c, **kw)
     assert _fallbacks("ineligible") == before + 4
     assert not sched.buckets  # nothing was queued
     sched.uninstall()
