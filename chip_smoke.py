@@ -217,7 +217,10 @@ the error.
    ``decode_wait`` ≤ ``decode`` and stages within its residency, what the stages
    leave uncovered; then (``serving_traced_profile``) 12 width-4 dispatches of 4
    euler lanes in a ``hardware_trace`` window: each span within max(5 %, 0.5 ms) of
-   its profiler range, the kernels launched in it ending inside it, the device busy
+   its profiler range, the kernels launched in it ending before the next dispatch's
+   first kernel starts (device clock; a planted late kernel must fail), a synchronise
+   issued in it after its last kernel launch (host clock; a window whose synchronise
+   calls are taken out must fail), the device busy
    share (union of its kernels over it, and over the median unprofiled dispatch, since
    CPU activity tracing stretches the window); the synchronise calls of the same
    dispatches with tracing off equal; the median dispatch seconds off and on in
@@ -3237,33 +3240,41 @@ GRAPH_K1_SHAPES = {
 }
 
 
-def graph_k1_shapes(fa, shapes=None) -> dict:
+def graph_k1_shapes(fa, shapes=None, seed: int = 11) -> dict:
     """K1 at ``shapes`` (default ``GRAPH_K1_SHAPES``; rows ``(q shape, k shape,
-    iterations, plain iterations[, dtype])``, bf16 unless named), each through the
-    variant the rule picks: the check against the plain version (``KERNEL_LIMITS``),
-    then the timing row (K1, plain, SDPA, the bound, and K1 over back-to-back calls)."""
+    iterations, plain iterations[, dtype[, heads]])``, bf16 unless named), each through
+    the variant the rule picks: the check against the plain version (``KERNEL_LIMITS``),
+    then the timing row (K1, plain, SDPA, the bound, and K1 over back-to-back calls).
+    A row with ``heads`` is a Ulysses head slice: the strided view of the first
+    ``heads`` heads of contiguous tensors, which must take ``sm90``."""
     import torch
 
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(11)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
-    for name, (qshape, kshape, iters, plain_iters, *dtype) in (
+    for name, (qshape, kshape, iters, plain_iters, *opt) in (
             shapes or GRAPH_K1_SHAPES).items():
-        q, k, v = make_case(qshape, kshape, dtype[0] if dtype else "bfloat16", "contiguous",
-                            gen, dev)
+        dtype = opt[0] if opt else "bfloat16"
+        heads = opt[1] if len(opt) > 1 else None
+        q, k, v = make_case(qshape, kshape, dtype, "contiguous", gen, dev)
+        if heads is not None:
+            q, k, v = (t[:, :, :heads] for t in (q, k, v))
         variant = fa.kernel_variant(q, k, v)
         # Above PLAIN_SLICE_BYTES the check runs per (batch, head) pair and the plain
-        # version is timed on one batch element.
-        sliced = plain_logit_bytes(qshape, kshape) > PLAIN_SLICE_BYTES
+        # version is timed on one batch element (and one head of a head slice).
+        sliced = plain_logit_bytes(q.shape, k.shape) > PLAIN_SLICE_BYTES
         res = kernel_error(fa.flash_attention(q, k, v), q, k, v)
-        if not res["ok"]:
-            raise RuntimeError(f"flash_attention disagrees with its plain version at {name}: "
-                               f"{res}")
+        if not res["ok"] or (heads is not None and variant != "sm90"):
+            raise RuntimeError(f"flash_attention disagrees with its plain version at {name} "
+                               f"({variant}): {res}")
         row = time_variant(fa, variant, q, k, v, iters, plain_iters,
-                           plain_batch=1 if sliced else None)
+                           plain_batch=1 if sliced else None,
+                           plain_heads=1 if sliced and heads is not None else None)
         row["loop_ms"] = loop_ms(lambda: fa._launch(q, k, v, q.shape[-1] ** -0.5, variant),
                                  iters)
         rows[name] = {**row, **res}
+        if heads is not None:
+            rows[name]["strides"] = list(q.stride())
         del q, k, v
         torch.cuda.empty_cache()
     return rows
@@ -3882,6 +3893,7 @@ def _row_probe(model, latent_shape, ctx_dim: int) -> dict:
 
 SERVING_TRACED_STEPS = 12  # the profiled lanes: 4 euler lanes, one width-4 dispatch a step
 SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize")
+BLOCKING_CALLS = SYNC_CALLS + ("cudaMemcpy",)  # a synchronise, or a copy that blocks the host
 SPAN_VS_PROFILER_REL = 0.05  # a dispatch span against its profiler window: max(5 %, 0.5 ms)
 SPAN_VS_PROFILER_MS = 0.5
 STREAM_SPAN_REL = 0.10  # a stream stage's device span against the profiler: max(10 %, 0.5 ms)
@@ -3910,6 +3922,40 @@ def _launched_in(events: list[dict], windows: list[dict]) -> list[list[dict]]:
         out.append([d for c in calls if c.get("tid") == w.get("tid") and a <= c["ts"] <= b
                     for d in device.get(c["args"]["correlation"], ())])
     return out
+
+
+def dispatch_order_faults(kernels: list[list[tuple[float, float]]]) -> list[int]:
+    """The dispatches i, in order, of which a kernel (its (start, end) on the device's
+    clock) ends after the first kernel of dispatch i+1 starts. Both times are the
+    device's, so the check holds whatever the profiler's mapping of device time onto
+    the host's clock does within a trace."""
+    bad = []
+    for i in range(len(kernels) - 1):
+        if kernels[i] and kernels[i + 1] and \
+                max(b for _, b in kernels[i]) > min(a for a, _ in kernels[i + 1]):
+            bad.append(i)
+    return bad
+
+
+def unwaited_windows(events: list[dict], windows: list[dict]) -> list[int]:
+    """The windows i (``user_annotation`` events) in which no synchronising runtime
+    call (``BLOCKING_CALLS``) on the window's thread starts inside the window at or
+    after its last kernel launch: a dispatch span that returned before its device
+    work had ended (a call made on the window's thread inside it also returns inside
+    it). Host times alone: no device time enters, so the profiler's mapping of the
+    device's clock cannot move the result."""
+    kernel_ids = {e["args"]["correlation"] for e in events
+                  if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    bad = []
+    for i, w in enumerate(windows):
+        a, b = w["ts"], w["ts"] + w["dur"]
+        mine = [c for c in calls if c.get("tid") == w.get("tid") and a <= c["ts"] <= b]
+        last = max((c["ts"] for c in mine
+                    if c.get("args", {}).get("correlation") in kernel_ids), default=a)
+        if not any(c["name"] in BLOCKING_CALLS and c["ts"] >= last for c in mine):
+            bad.append(i)
+    return bad
 
 
 def _annotations(events: list[dict], name: str) -> list[dict]:
@@ -4110,9 +4156,10 @@ def _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, director
     tracing.disable()
     windows = _annotations(on_events, "serving-dispatch")
     inside = _launched_in(on_events, windows)
-    per_dispatch, mismatched = [], []
+    per_dispatch, mismatched, kernels = [], [], []
     for i, (w, acts) in enumerate(zip(windows, inside)):
         kern = [(a["ts"], a["ts"] + a["dur"]) for a in acts if a.get("cat") == "kernel"]
+        kernels.append(kern)
         union = _union_ms(kern)
         busy_us = sum(b - a for a, b in union)
         end = w["ts"] + w["dur"]
@@ -4120,14 +4167,36 @@ def _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, director
         d = {"window_ms": w["dur"] / 1e3, "span_ms": None if span_us is None else span_us / 1e3,
              "kernels": len(kern), "busy_ms": busy_us / 1e3,
              "busy_share": busy_us / w["dur"] if w["dur"] else None,
-             "kernels_inside": all(b <= end + 50.0 for _, b in kern),
-             # The last kernel's end less the window's end (µs): device timestamps
-             # mapped onto the host clock by the profiler, the window on the host's.
+             # A reading only: the last kernel's end less the window's end (µs), device
+             # timestamps mapped onto the host clock by the profiler against the
+             # window on the host's (the mapping drifts by milliseconds in a trace).
              "kernel_end_past_window_us": max((b - end for _, b in kern), default=None)}
-        if (span_us is None or not kern or not d["kernels_inside"]
+        if (span_us is None or not kern
                 or not _agree(span_us, w["dur"], SPAN_VS_PROFILER_REL, SPAN_VS_PROFILER_MS)):
             mismatched.append(i)
         per_dispatch.append(d)
+    # Two checks, each in one clock. The device's: every kernel a dispatch launched
+    # ends before the next dispatch's first kernel starts (on one stream CUDA's order
+    # gives that, so this holds the correlation join, not the port). The host's: each
+    # window issues a synchronising call after its last kernel launch and before it
+    # ends, so the dispatch span waited for its device work. Each must fail a planted
+    # case: the first dispatch's kernel moved past the second's first kernel, and the
+    # first window's synchronising calls taken out of the trace.
+    order_faults = dispatch_order_faults(kernels)
+    unwaited = unwaited_windows(on_events, windows)
+    for i, d in enumerate(per_dispatch):
+        d["ends_before_next_dispatch"] = i not in order_faults
+        d["waited_for_device"] = i not in unwaited
+    mismatched = sorted(set(mismatched) | set(order_faults) | set(unwaited))
+    planted = [list(k) for k in kernels]
+    if len(planted) > 1 and planted[0] and planted[1]:
+        first = min(a for a, _ in planted[1])
+        planted[0].append((first + 1.0, first + 2.0))
+    planted_caught = 0 in dispatch_order_faults(planted)
+    w0 = windows[0] if windows else {"ts": 0.0, "dur": 0.0}
+    unsynced = [e for e in on_events if not (e.get("name") in BLOCKING_CALLS
+                                             and w0["ts"] <= e["ts"] <= w0["ts"] + w0["dur"])]
+    planted_unwaited_caught = 0 in unwaited_windows(unsynced, windows)
     torch.cuda.synchronize()
     with metrics.trace(os.path.join(directory, "hw_off")) as off_window:
         off_out, off_dispatches = lanes()
@@ -4182,7 +4251,9 @@ def _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, director
     prof = {"phase": "serving_traced_profile", "dispatches_on": on_dispatches,
             "dispatches_off": off_dispatches, "profiled_windows": len(windows),
             "serving_dispatch_spans": len(on_spans), "mismatched": mismatched,
-            "per_dispatch": per_dispatch,
+            "per_dispatch": per_dispatch, "order_faults": order_faults,
+            "unwaited_windows": unwaited, "planted_late_kernel_caught": planted_caught,
+            "planted_unsynced_window_caught": planted_unwaited_caught,
             "busy_share_median": statistics.median(busy) if busy else None,
             "busy_share_min": min(busy) if busy else None,
             "busy_share_max": max(busy) if busy else None, **unprofiled,
@@ -4197,8 +4268,9 @@ def _serving_traced(server, stop, graphs, seeds, cache, fresh_samplers, director
             "seconds": time.perf_counter() - start}
     emit(prof)
     if (on_dispatches < 10 or len(windows) != on_dispatches or len(on_spans) != on_dispatches
-            or mismatched or sync_on != sync_off or on_dispatches != off_dispatches
-            or not prof["lanes_bitwise_on_vs_off"]):
+            or mismatched or not planted_caught or not planted_unwaited_caught
+            or sync_on != sync_off
+            or on_dispatches != off_dispatches or not prof["lanes_bitwise_on_vs_off"]):
         raise RuntimeError(f"serving_traced_profile check failed: {prof}")
     return {"traced": row, "profile": prof, "launches": launches}
 
@@ -5194,6 +5266,250 @@ def phase_serving_flux(pm, main_s_per_it: float | None = None) -> dict:
     return {"serving_flux": launches}
 
 
+# -- parallel axes: sequence parallelism, FSDP and tensor parallelism -------------------
+
+PARALLEL_SHARDS = 4  # the sequence axis: four shards, every one on cuda:0
+PARALLEL_REL_TOL = 5e-2  # a sharded bf16 forward or latent against the unsharded one
+PARALLEL_MESH = 2  # the FSDP and TP meshes: two positions on cuda:0
+# K1 at the head slices Ulysses hands it over 4 shards, as ``graph_k1_shapes`` rows:
+# (full q shape, full k shape, iterations, iterations of the plain version, dtype,
+# heads a slice). Each is the strided view q[:, :, :heads] of contiguous full tensors.
+PARALLEL_K1_FLUX = {
+    "flux_ulysses_4608_h6": ((1, 4608, 24, 128), (1, 4608, 24, 128), 20, 3, "bfloat16", 6)}
+PARALLEL_K1_WAN = {
+    "wan13_ulysses_self_32760_h3": ((2, 32760, 12, 128), (2, 32760, 12, 128), 5, 1,
+                                    "bfloat16", 3),
+    "wan13_ulysses_cross_32760x512_h3": ((2, 32760, 12, 128), (2, 512, 12, 128), 10, 1,
+                                         "bfloat16", 3),
+}
+PARALLEL_K1_SEED = 18
+
+
+def _timed_forward(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_parallel_axes(pm) -> dict:
+    """The main path's FLUX-dev (1024², batch 1, bf16) over the parallel axes, every
+    mesh position on ``cuda:0``: K1 at Ulysses' head slice; ``STEPS`` steps of
+    ``run_sampler`` inside ``sequence_parallel`` over a 4-shard ``seq`` mesh with
+    Ulysses (exactly 57 × 4 ``sm90`` a forward) against the same steps without the
+    context, in turns; one forward under the ring (no K1 launch: its f32 online
+    softmax is plain torch), against the unsharded forward; one forward from
+    ``place_params_fsdp`` on a 2-position data mesh (bitwise the unsharded one) and
+    one from ``place_params_tp`` on a (1, 2) data × model mesh (within
+    ``PARALLEL_REL_TOL``), with peak device memory and bytes a position holds;
+    ``sharded_byte_math`` at 2, 4 and 8; ``parallelize`` with ``fsdp`` on the
+    one-card chain; and the guard: a ``PipelineRunner`` and a streamed model called
+    under a context raise. Returns K1's launches by path."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch import ParallelConfig, parallelize
+    from comfyui_parallelanything_tpu_torch.models.flux import build_flux, flux_dev_config
+    from comfyui_parallelanything_tpu_torch.ops.attention import sequence_parallel
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.parallel.mesh import (
+        build_mesh,
+        place_params_fsdp,
+        place_params_tp,
+        sharded_byte_math,
+    )
+    from comfyui_parallelanything_tpu_torch.parallel.pipeline import build_pipeline_runner
+    from comfyui_parallelanything_tpu_torch.parallel.sharding import fsdp_replicas, tp_replicas
+    from comfyui_parallelanything_tpu_torch.sampling.runner import run_sampler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    emit({"phase": "parallel_axes", "k1_shapes": graph_k1_shapes(fa, PARALLEL_K1_FLUX, PARALLEL_K1_SEED)})
+    cfg = pm.model_config
+    per_forward = cfg.depth + cfg.depth_single_blocks
+    x, ctx, y = _flux_inputs(cfg, 1, 18)
+    seq = build_mesh([dev] * PARALLEL_SHARDS, {"seq": PARALLEL_SHARDS})
+
+    def run(method=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if method is None:
+            out = run_sampler(pm, x, ctx, sampler="flow_euler", steps=STEPS, guidance=3.5, y=y)
+        else:
+            with sequence_parallel(seq, method=method):
+                out = run_sampler(pm, x, ctx, sampler="flow_euler", steps=STEPS,
+                                  guidance=3.5, y=y)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / STEPS
+
+    run("ulysses")  # warm-up: the head-slice shapes' first calls
+    plain, s_plain = run()
+    fa.reset_launches()
+    uly, s_uly = run("ulysses")
+    launches_uly = _launched(fa)
+    uly2, s_uly2 = run("ulysses")
+    plain2, s_plain2 = run()
+    want_uly = {"sm90": per_forward * PARALLEL_SHARDS * STEPS}
+    row = {"phase": "parallel_axes_ulysses", "model": "flux-dev", "shards": PARALLEL_SHARDS,
+           "steps": STEPS, "s_per_it": [s_uly, s_uly2], "plain_s_per_it": [s_plain, s_plain2],
+           "k1_launches_by_variant": launches_uly, "k1_launches_expected": want_uly,
+           "rel_l2_vs_unsharded": rel_l2(uly, plain), "bitwise": bool(torch.equal(uly, plain)),
+           "repeat_bitwise": bool(torch.equal(uly, uly2)) and bool(torch.equal(plain, plain2)),
+           "finite": bool(torch.isfinite(uly).all().item()), "tol": PARALLEL_REL_TOL}
+    emit(row)
+    if (launches_uly != want_uly or not row["finite"]
+            or not row["rel_l2_vs_unsharded"] <= PARALLEL_REL_TOL):
+        raise RuntimeError(f"parallel_axes (Ulysses): {row}")
+    del uly, uly2, plain, plain2
+
+    module = pm._module
+    t = torch.full((1,), 0.5, device=dev)
+    g = torch.full((1,), 3.5, device=dev)
+
+    def forward(m):
+        return lambda: m(x, t, ctx, y=y, guidance=g)
+
+    want, unsharded_s = _timed_forward(forward(module))
+    with sequence_parallel(seq, method="ulysses"):
+        _, uly_s = _timed_forward(forward(module))
+    fa.reset_launches()
+    with sequence_parallel(seq, method="ring"):
+        _timed_forward(forward(module))  # warm-up
+        ring, ring_s = _timed_forward(forward(module))
+    launches_ring = _launched(fa)
+    ring_row = {"phase": "parallel_axes_ring", "shards": PARALLEL_SHARDS,
+                "rel_l2_vs_unsharded": rel_l2(ring, want),
+                "max_abs_err": (ring.float() - want.float()).abs().max().item(),
+                "forward_s": ring_s, "ulysses_forward_s": uly_s,
+                "unsharded_forward_s": unsharded_s, "k1_launches_by_variant": launches_ring,
+                "finite": bool(torch.isfinite(ring).all().item()), "tol": PARALLEL_REL_TOL}
+    emit(ring_row)
+    if launches_ring or not ring_row["finite"] or \
+            not ring_row["rel_l2_vs_unsharded"] <= PARALLEL_REL_TOL:
+        raise RuntimeError(f"parallel_axes (ring): {ring_row}")
+    del ring
+
+    sharded = {}
+    for kind in ("fsdp", "tp"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if kind == "fsdp":
+            mesh = build_mesh([dev] * PARALLEL_MESH, {"data": PARALLEL_MESH})
+            placed = place_params_fsdp(module, mesh)
+            skel = fsdp_replicas(module, placed)[0]
+        else:
+            mesh = build_mesh([dev] * PARALLEL_MESH, {"data": 1, "model": PARALLEL_MESH})
+            placed = place_params_tp(module, mesh)
+            skel = tp_replicas(module, placed)[0]
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        _timed_forward(forward(skel))  # warm-up
+        fa.reset_launches()
+        out, fwd_s = _timed_forward(forward(skel))
+        sharded[kind] = {
+            "mesh": mesh.shape, "place_s": place_s, "forward_s": fwd_s,
+            "sharded_weights": sum(e.sharded for e in placed.entries.values()),
+            "weights": len(placed.entries),
+            "position_bytes": [placed.position_bytes(p) for p in mesh.positions()],
+            "placed_bytes": torch.cuda.memory_allocated(dev) - base,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "rel_l2_vs_unsharded": rel_l2(out, want),
+            "max_abs_err": (out.float() - want.float()).abs().max().item(),
+            "bitwise": bool(torch.equal(out, want)),
+            "k1_launches_by_variant": _launched(fa)}
+        del skel, placed, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    byte_math = {}
+    for n in (2, 4, 8):
+        per_device, total = sharded_byte_math(module, build_mesh([dev] * n), "data")
+        byte_math[n] = {"per_device_bytes": per_device, "total_bytes": total}
+    one = parallelize(module, [("cuda:0", 100)], ParallelConfig(weight_sharding="fsdp"))
+    one_out, one_s = _timed_forward(lambda: one(x, t, ctx, y=y, guidance=g))
+    one_row = {"mesh": one._groups[0].mesh.shape, "forward_s": one_s,
+               "bitwise": bool(torch.equal(one_out, want))}
+    one.cleanup()
+    del one, one_out
+
+    # The guard: the stage runners refuse a context (a stage holds one device).
+    small = flux_dev_config(hidden_size=64, num_heads=4, depth=1, depth_single_blocks=1,
+                            mlp_ratio=2.0, axes_dim=(4, 6, 6))
+    tiny = build_flux(small, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    tx, tctx, ty = _flux_inputs(small, 1, 3)
+    guard = {}
+    runner = build_pipeline_runner(tiny.pipeline_spec, tiny.module, [dev, dev], [0.5, 0.5])
+    streamed = parallelize(tiny, [("cuda:0", 100)],
+                           ParallelConfig(weight_sharding="stream", hbm_budget_bytes=1 << 20))
+    for name, fn in (("PipelineRunner", runner), ("StreamingRunner", streamed)):
+        with sequence_parallel(seq, method="ulysses"):
+            try:
+                fn(tx, t, tctx, y=ty, guidance=g)
+                guard[name] = "ran"
+            except ValueError as e:
+                guard[name] = f"ValueError: {e}"
+    streamed.cleanup()
+    del tiny, runner, streamed
+    res = {"phase": "parallel_axes_sharded", "model": "flux-dev", **sharded,
+           "sharded_byte_math": byte_math, "parallelize_fsdp_one_card": one_row,
+           "guard": guard, "tol": PARALLEL_REL_TOL, "seconds": time.perf_counter() - start}
+    emit(res)
+    f, tp = sharded["fsdp"], sharded["tp"]
+    want_k1 = {"sm90": per_forward}
+    if (not f["bitwise"] or not tp["rel_l2_vs_unsharded"] <= PARALLEL_REL_TOL
+            or not f["sharded_weights"] or not tp["sharded_weights"]
+            or f["k1_launches_by_variant"] != want_k1 or tp["k1_launches_by_variant"] != want_k1
+            or not one_row["bitwise"] or any(not v.startswith("ValueError") for v in guard.values())
+            or not byte_math[8]["per_device_bytes"] < byte_math[8]["total_bytes"] / 8 * 1.05):
+        raise RuntimeError(f"parallel_axes (fsdp / tp / guard): {res}")
+    return {"parallel_axes_ulysses": launches_uly, "parallel_axes_ring": launches_ring,
+            "parallel_axes_fsdp": f["k1_launches_by_variant"],
+            "parallel_axes_tp": tp["k1_launches_by_variant"]}
+
+
+def parallel_axes_wan(pm, x, t, ctx) -> dict:
+    """Wan2.1-T2V-1.3B's DiT (the ``wan`` phase's, CFG's batch 2 at 480×832×81: 32760
+    tokens) over a 4-shard ``seq`` mesh on ``cuda:0``: K1 at Ulysses' head slices of
+    the self- and the text cross-attention, then one forward under Ulysses (exactly
+    4 × (30 + 30) ``sm90``) against the unsharded forward. The ring does not run here:
+    its f32 logits per block pair are 6.4 GB and the forward takes seconds."""
+    import torch
+
+    from comfyui_parallelanything_tpu_torch.ops.attention import sequence_parallel
+    from comfyui_parallelanything_tpu_torch.ops.kernels import flash_attention as fa
+    from comfyui_parallelanything_tpu_torch.parallel.mesh import build_mesh
+
+    start = time.perf_counter()
+    shapes = graph_k1_shapes(fa, PARALLEL_K1_WAN, PARALLEL_K1_SEED)
+    dev = torch.device("cuda", 0)
+    seq = build_mesh([dev] * PARALLEL_SHARDS, {"seq": PARALLEL_SHARDS})
+    want, plain_s = _timed_forward(lambda: pm(x, t, ctx))
+    fa.reset_launches()
+    with sequence_parallel(seq, method="ulysses"):
+        out, uly_s = _timed_forward(lambda: pm(x, t, ctx))
+    launches = _launched(fa)
+    expected = {"sm90": WAN13_SM90_PER_FORWARD * PARALLEL_SHARDS}
+    row = {"phase": "parallel_axes_wan", "model": "wan2.1-t2v-1.3b", "shape": list(x.shape),
+           "shards": PARALLEL_SHARDS, "k1_shapes": shapes, "forward_s": uly_s,
+           "unsharded_forward_s": plain_s, "k1_launches_by_variant": launches,
+           "k1_launches_expected": expected, "rel_l2_vs_unsharded": rel_l2(out, want),
+           "bitwise": bool(torch.equal(out, want)),
+           "finite": bool(torch.isfinite(out).all().item()), "tol": PARALLEL_REL_TOL,
+           "seconds": time.perf_counter() - start}
+    emit(row)
+    if launches != expected or not row["finite"] or \
+            not row["rel_l2_vs_unsharded"] <= PARALLEL_REL_TOL:
+        raise RuntimeError(f"parallel_axes (Wan Ulysses): {row}")
+    return {"parallel_axes_wan": launches}
+
+
 WAN_PROMPT = "a red fox running through fresh snow at dawn, cinematic, highly detailed"
 WAN_NEGATIVE = "blurry, static, low quality, watermark"
 WAN_SIZE = dict(height=480, width=832, frames=81)  # latent 21×60×104: 32760 tokens
@@ -5360,6 +5676,7 @@ def phase_wan() -> tuple:
     t = torch.tensor([0.9, 0.9], device=dev)
     forward = _wan_forward_vs_plain(pm, "wan_vs_plain_attention", x, t, ctx,
                                     {"sm90": WAN13_SM90_PER_FORWARD})
+    axes = parallel_axes_wan(pm, x, t, ctx)
     z = torch.randn((1, *_wan_latent(), 16), generator=gen, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     out_k = vae.decode(z).float()
@@ -5397,7 +5714,7 @@ def phase_wan() -> tuple:
     torch.cuda.empty_cache()
     emit({"phase": "wan_seconds", "seconds": time.perf_counter() - start})
     return ({"wan": row["k1_launches_by_variant"], "wan_vs_plain": forward,
-             "wan_captured": captured["k1_replayed_launches"]}, (vae, t5, t5_tok))
+             "wan_captured": captured["k1_replayed_launches"], **axes}, (vae, t5, t5_tok))
 
 
 def phase_wan_i2v(vae, t5, t5_tok) -> dict:
@@ -5496,6 +5813,7 @@ def main() -> int:
     pipe_launches = phase_pipeline(pm)
     main_captured = phase_main_path_captured(pm)
     serving_flux_launches = phase_serving_flux(pm, main_ref["s_per_it"])
+    axes_launches = phase_parallel_axes(pm)
     placement_launches = phase_pipeline_placement(pm)
     stream_launches = phase_stream(pm, main_ref)
     del main_ref
@@ -5544,7 +5862,8 @@ def main() -> int:
              **controlnet_launches,
              **sd3_launches, **placement_launches, **stream_launches, **checkpoint_launches,
              **graph_launches, **stock_launches, **serving_launches, **serving_flux_launches,
-             **numerics_launches, **overlay_launches, **wan_launches, **wan_i2v_launches}
+             **numerics_launches, **overlay_launches, **wan_launches, **wan_i2v_launches,
+             **axes_launches}
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     sources = {"sm90": "flash_attention_sm90.cuh", "wide": "flash_attention_wide.cuh",
                "mma": "flash_attention.cu", "d512": "flash_attention.cu",

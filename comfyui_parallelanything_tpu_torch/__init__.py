@@ -18,7 +18,9 @@ from .devices.memory import free_memory_bytes, total_memory_bytes
 from .host import WorkflowCache, WorkflowError, run_workflow
 from .nodes import NODE_CLASS_MAPPINGS, NODE_DISPLAY_NAME_MAPPINGS
 from .parallel.chain import DeviceChain, DeviceLink
+from .parallel.mesh import build_mesh, mesh_axis_names
 from .parallel.orchestrator import ParallelConfig, ParallelModel, parallelize
+from .parallel.sequence import sequence_parallel_attention
 from .parallel.split import (
     batch_size_of,
     blend_memory_weights,
@@ -35,30 +37,13 @@ from .models.generic import derive_pipeline_spec, wrap_module
 from .pipelines import FluxPipeline, Sd3Pipeline, StableDiffusionPipeline, WanVideoPipeline
 from .utils.metrics import StepTimer, trace
 
-_ITEM_7 = "ROADMAP Queue 1 item 7 (fsdp / tp, sequence parallelism, multihost)"
-
 # Names of a JAX package's ``__all__`` that the port's counterpart does not export,
 # by subpackage ("" is the top level), each with its reason. Nothing here is
 # defined by the port under the JAX name (``ops.attention`` is a module).
 NOT_EXPORTED: dict[str, dict[str, str]] = {
     "": {
-        "build_mesh": _ITEM_7,
-        "mesh_axis_names": _ITEM_7,
-        "sequence_parallel_attention": _ITEM_7,
         "wrap_flax_module": "wraps a flax module; the port's counterpart for an "
                             "nn.Module is wrap_module",
-    },
-    "parallel": {
-        "build_mesh": _ITEM_7,
-        "mesh_axis_names": _ITEM_7,
-        "fsdp_spec": _ITEM_7,
-        "place_params": _ITEM_7,
-        "place_params_fsdp": _ITEM_7,
-        "sequence_parallel_attention": _ITEM_7,
-        "initialize_distributed": _ITEM_7,
-        "is_multihost": _ITEM_7,
-        "hybrid_mesh": _ITEM_7,
-        "host_local_batch": _ITEM_7,
     },
     "ops": {
         "attention": "the name is the port's ops.attention module, which its callers "
@@ -114,9 +99,12 @@ __all__ = [
     "split_tree",
     "split_kwargs",
     "concat_results",
+    "build_mesh",
+    "mesh_axis_names",
     "parallelize",
     "ParallelConfig",
     "ParallelModel",
+    "sequence_parallel_attention",
     "StableDiffusionPipeline",
     "FluxPipeline",
     "WanVideoPipeline",

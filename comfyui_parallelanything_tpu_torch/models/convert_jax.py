@@ -42,10 +42,22 @@ conversion is a rename plus layout changes:
   ``encoder.down_0_block_0.conv1.conv.weight``): 3D Conv kernels
   (kt, kh, kw, in, out) → (out, in, kt, kh, kw), RMS norm scales renamed to
   ``weight``.
+- ``from_jax_moe_params`` — ``ops.moe.MoEFFN``: every leaf keeps its name and
+  layout (``gate`` (D, E), ``w_in`` (E, D, F), ``b_in``, ``w_out``, ``b_out``).
+
+The way back, for the sharding policy (``parallel/mesh.py``): ``jax_layouts(module)``
+gives each parameter's ``Layout``, the shape its JAX leaf has and the view between
+the two. The JAX policy picks a weight's axis from the flax shape, so the port
+shards the same logical axis: a ``Linear`` is the flax (in, out) kernel, or
+(in, *features) where the layer carries the DenseGeneral's ``jax_out_shape`` (FLUX's
+and MMDiT's fused qkv (in, 3, H, D), the UNet's q/k/v (C, H, D)) or
+``jax_in_shape`` (the UNet's o (H, D, C)); a Conv is (*kernel, in, out); every
+other parameter keeps its shape (a qkv bias is its features, (3, H, D)).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from collections.abc import Mapping
 
@@ -177,3 +189,67 @@ def _video_vae_leaf(leaf: str, arr: np.ndarray):
 def from_jax_video_vae_params(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``VideoAutoencoderKL`` tree → ``video_vae.VideoAutoencoderKL`` state dict."""
     return _convert(tree, _video_vae_leaf)
+
+
+def from_jax_moe_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``MoEFFN`` tree → ``ops.moe.MoEFFN`` state dict: the same names and
+    layouts (the expert tensors are batched einsum operands on both sides)."""
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in _flatten(tree).items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A port parameter against its JAX leaf: ``jax_shape`` and the view between the
+    two. ``kind`` is ``"same"`` (a reshape), ``"dense"`` (a ``Linear`` weight: the
+    transpose, then a reshape to (*in, *out); ``n_in`` input axes) or ``"conv"`` (a
+    Conv weight (out, in, *kernel) against (*kernel, in, out))."""
+
+    kind: str
+    jax_shape: tuple[int, ...]
+    n_in: int = 0
+
+    def to_jax(self, t: torch.Tensor) -> torch.Tensor:
+        """The JAX-layout view of a port tensor (a view; no copy)."""
+        if self.kind == "dense":
+            return t.t().reshape(self.jax_shape)
+        if self.kind == "conv":
+            k = t.ndim - 2
+            return t.permute(*range(2, 2 + k), 1, 0)
+        return t.reshape(self.jax_shape)
+
+    def from_jax(self, a: torch.Tensor, shape) -> torch.Tensor:
+        """The port-layout tensor of ``shape`` from its JAX-layout value."""
+        if self.kind == "dense":
+            return a.reshape(shape[1], shape[0]).t()
+        if self.kind == "conv":
+            k = a.ndim - 2
+            return a.permute(k + 1, k, *range(k))
+        return a.reshape(shape)
+
+
+_CONVS = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Conv3d)
+
+
+def layout_of(owner: torch.nn.Module | None, leaf: str, shape) -> Layout:
+    """The ``Layout`` of parameter ``leaf`` (of ``shape``) held by module ``owner``."""
+    shape = tuple(shape)
+    if isinstance(owner, torch.nn.Linear):
+        out_shape = tuple(getattr(owner, "jax_out_shape", (owner.out_features,)))
+        if leaf == "weight":
+            in_shape = tuple(getattr(owner, "jax_in_shape", (owner.in_features,)))
+            return Layout("dense", in_shape + out_shape, len(in_shape))
+        if leaf == "bias":
+            return Layout("same", out_shape)
+    if isinstance(owner, _CONVS) and leaf == "weight":
+        return Layout("conv", (*shape[2:], shape[1], shape[0]))
+    return Layout("same", shape)
+
+
+def jax_layouts(module: torch.nn.Module) -> dict[str, Layout]:
+    """Every parameter of ``module`` by its state-dict name, with its ``Layout``."""
+    out = {}
+    for name, p in module.named_parameters():
+        owner_path, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_path) if owner_path else module
+        out[name] = layout_of(owner, leaf, p.shape)
+    return out

@@ -127,6 +127,8 @@ class DoubleBlock(nn.Module):
             setattr(self, f"{s}_attn_qkv", nn.Linear(hidden, 3 * hidden, dtype=dt))
             # int8 scales shared over q/k/v and heads, as the reference's
             getattr(self, f"{s}_attn_qkv").int8_row_groups = 3 * cfg.num_heads
+            # The JAX DenseGeneral's features: what its sharding policy reads.
+            getattr(self, f"{s}_attn_qkv").jax_out_shape = (3, cfg.num_heads, cfg.head_dim)
             setattr(self, f"{s}_attn_norm", QKNorm(cfg.head_dim))
             setattr(self, f"{s}_attn_proj", nn.Linear(hidden, hidden, dtype=dt))
             setattr(self, f"{s}_mlp_in", nn.Linear(hidden, mlp_dim, dtype=dt))

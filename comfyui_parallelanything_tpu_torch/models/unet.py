@@ -218,7 +218,10 @@ class TransformerBlock(nn.Module):
             setattr(self, f"{n}_v", nn.Linear(kv_in, inner, bias=False, dtype=dt))
             for p in "qkv":  # int8 scales shared across heads, as the reference's
                 getattr(self, f"{n}_{p}").int8_row_groups = self.heads
+                # The JAX DenseGeneral's features: what its sharding policy reads.
+                getattr(self, f"{n}_{p}").jax_out_shape = (self.heads, self.head_dim)
             setattr(self, f"{n}_o", nn.Linear(inner, channels, dtype=dt))
+            getattr(self, f"{n}_o").jax_in_shape = (self.heads, self.head_dim)
         self.LayerNorm_0 = LayerNorm(channels, out_dtype=dt)
         self.LayerNorm_1 = LayerNorm(channels, out_dtype=dt)
         self.LayerNorm_2 = LayerNorm(channels, out_dtype=dt)

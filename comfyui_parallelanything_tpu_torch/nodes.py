@@ -230,9 +230,9 @@ class ParallelAnything:
 
 class ParallelAnythingAdvanced(ParallelAnything):
     """The orchestrator node with the beyond-reference knobs: weight sharding,
-    tensor parallelism, pipeline microbatches and auto-reactivation. ``fsdp`` and
-    ``tensor_parallel > 1`` raise ``NotImplementedError`` in ``parallelize`` until
-    ROADMAP Queue 1 item 7."""
+    tensor parallelism, pipeline microbatches and auto-reactivation, passed through
+    to ``ParallelConfig`` (``fsdp`` shards each large weight over the chain,
+    ``tensor_parallel > 1`` splits the Linear/Conv2d layers over a model axis)."""
 
     DESCRIPTION = (ParallelAnything.DESCRIPTION + " Advanced: FSDP weight sharding and "
                    "tensor parallelism for models larger than a single device.")

@@ -15,9 +15,16 @@ q/k/v ("BSHD") and return (B, S, H, D).
   kernel cannot take. The rule is the kernel's own ``kernel_takes`` (which
   ``kernel_variant`` applies first), checked before the launch. There is no
   measured table yet that could send a CUDA shape the kernel takes elsewhere.
+
+``sequence_parallel(mesh, axis, method)`` routes every ``attention`` call made in
+its context (on this thread) over the mesh's sequence axis
+(``parallel/sequence.py``: ring or Ulysses); ``attention_local`` never does.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -28,6 +35,27 @@ _BACKEND_NAMES = ("auto", "xla", "xla_chunked", "pallas")
 _BACKEND = "auto"
 
 _RESOLVED: set[str] = set()
+
+_SEQ_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, axis: str = "seq", method: str = "ring"):
+    """Route every ``attention`` call in this context over ``mesh``'s ``axis``:
+    ``method="ring"`` or ``"ulysses"`` (``parallel/sequence.py``). Sequence lengths
+    must divide the axis size, and for Ulysses the head count too."""
+    prev = getattr(_SEQ_CTX, "cfg", None)
+    _SEQ_CTX.cfg = (mesh, axis, method)
+    try:
+        yield
+    finally:
+        _SEQ_CTX.cfg = prev
+
+
+def sequence_ctx_key() -> tuple | None:
+    """The active ``sequence_parallel`` context as a hashable (mesh, axis, method),
+    or None: what a cache of anything run under it must be keyed on."""
+    return getattr(_SEQ_CTX, "cfg", None)
 
 # Above this many f32 logits elements (B*H*S_q*S_k; 2**27 ≈ 512 MB) the
 # materializing path is routed to the chunked one.
@@ -91,5 +119,14 @@ def attention_local(q, k, v, scale: float | None = None) -> torch.Tensor:
 
 
 def attention(q, k, v, scale: float | None = None) -> torch.Tensor:
-    """Scaled dot-product attention on (B, S, H, D) inputs."""
+    """Scaled dot-product attention on (B, S, H, D) inputs; over a sequence mesh
+    inside a ``sequence_parallel`` context."""
+    seq_cfg = getattr(_SEQ_CTX, "cfg", None)
+    if seq_cfg is not None:
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        from ..parallel.sequence import sharded_attention_inline
+
+        mesh, axis, method = seq_cfg
+        return sharded_attention_inline(q, k, v, mesh, axis, method, scale)
     return attention_local(q, k, v, scale)

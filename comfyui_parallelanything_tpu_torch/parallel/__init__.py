@@ -11,12 +11,14 @@ from .split import (
     split_tree,
     weighted_batch_split,
 )
+from .mesh import build_mesh, fsdp_spec, mesh_axis_names, place_params, place_params_fsdp
+from .sequence import sequence_parallel_attention
 from .pipeline import PipelineRunner, build_pipeline_runner
 from .streaming import StreamingRunner, build_streaming_runner
+from .multihost import host_local_batch, hybrid_mesh, initialize_distributed, is_multihost
 
-# The JAX package's mesh, sequence-parallel and multihost names wait for ROADMAP
-# Queue 1 item 7 (``NOT_EXPORTED`` in the package's ``__init__``).
 __all__ = [
+    "sequence_parallel_attention",
     "PipelineRunner",
     "build_pipeline_runner",
     "StreamingRunner",
@@ -33,4 +35,13 @@ __all__ = [
     "split_tree",
     "split_kwargs",
     "concat_results",
+    "fsdp_spec",
+    "place_params",
+    "place_params_fsdp",
+    "initialize_distributed",
+    "is_multihost",
+    "hybrid_mesh",
+    "host_local_batch",
+    "build_mesh",
+    "mesh_axis_names",
 ]

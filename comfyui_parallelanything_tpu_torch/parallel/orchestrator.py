@@ -10,10 +10,14 @@ the weights. ``ParallelModel`` routes each call by the JAX package's hand ladder
 - ``pipeline_microbatches = k > 1`` and ``batch >= k`` on more than one device,
   for a model with a pipeline spec → the batch padded to k equal microbatches,
   each run through the pipeline runner, the padding sliced off;
+- ``tensor_parallel > 1`` → data parallel at every batch, batch 1 included
+  (the weights fit only sharded: no pipeline, no lead-device copy);
 - ``batch == 1`` on more than one device → pipeline block placement
   (``parallel/pipeline.py``, built on the first such call over every device in
   chain order with the chain's blended weights); a model without a pipeline spec
-  runs single-device;
+  runs single-device. Under an active ``sequence_parallel`` context
+  (``ops/attention.py``) the pipeline is skipped for single-device, and so is the
+  microbatch pipeline: a stage holds one device, the context a mesh;
 - no ``workload_split``, one device, or ``batch < devices`` without
   ``pad_small_batches`` → single device (the lead replica);
 - otherwise → data parallel. Within a platform group the batch is padded to a
@@ -49,15 +53,28 @@ equal devices), 0.7 user to 0.3 measure each time. An OOM while placing a replic
 drops the last device of the last group, then that group, then raises; the
 survivors' weights are renormalised.
 
+Sharded weights (JAX ``_group_mesh`` / ``_place_for``): ``weight_sharding="fsdp"``
+gives each platform group a 1-D ``data`` mesh over its devices and shards every
+large weight over it (``parallel/mesh.py``); each device runs a skeleton that
+gathers a module's weights just before the module runs
+(``parallel/sharding.py``). ``tensor_parallel = tp > 1`` gives a (data, model)
+mesh of ``n // tp`` rows of ``tp`` devices (``ValueError`` when tp does not divide
+a group's devices, or with fsdp) and shards over ``model``: each row's skeleton
+runs its Linear and Conv2d layers split over the row. Under either, ``single()``
+and a step-OOM demotion run the first skeleton with the whole batch, never a lead
+copy, and keep the shards; the setup-OOM ladder drops devices until tp divides
+the survivors.
+
 ``traceable()`` is the whole-loop compiled sampler's handle
 (``sampling/compiled.py``): ``None`` for a heterogeneous chain, whose host-side
-scatter cannot live in one captured graph. A homogeneous chain's captured loop
-runs data parallel at every batch, batch 1 included, as the JAX ``traceable()``
-gives it; a chain with a host stage runs the eager loop, which takes the pipeline.
+scatter cannot live in one captured graph, and under an active
+``sequence_parallel`` context. A homogeneous chain's captured loop runs data
+parallel at every batch, batch 1 included, as the JAX ``traceable()`` gives it
+(over the skeletons, for sharded weights); a chain with a host stage runs the
+eager loop, which takes the pipeline.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: the auto-parallel planner (so the stage carve is always the
-weight-proportional one), ``weight_sharding="fsdp"`` and ``tensor_parallel > 1``.
+Not ported yet: the auto-parallel planner (``NotImplementedError`` naming ROADMAP
+Queue 1 item 8), so the stage carve is always the weight-proportional one.
 """
 
 from __future__ import annotations
@@ -78,6 +95,7 @@ from ..devices.memory import free_memory_bytes, usable_hbm_bytes
 from ..models.loader import params_nbytes
 from ..utils import roofline
 from .chain import DeviceChain, DeviceLink
+from .mesh import AXIS_DATA, AXIS_MODEL, Mesh, ShardedParams, build_mesh
 from .split import (
     batch_size_of,
     blend_memory_weights,
@@ -130,8 +148,11 @@ class ParallelConfig:
         until ``reactivate()`` or ``rebalance()``)
     ``pipeline_microbatches`` — k > 1 streams a batch >= k through the pipeline
         stages as k microbatches (0 or 1: off)
-    ``weight_sharding``     — ``"replicate"``, or ``"stream"`` (weight streaming;
-        ``"fsdp"`` raises ``NotImplementedError``, as does ``tensor_parallel > 1``)
+    ``weight_sharding``     — ``"replicate"``, ``"fsdp"`` (each large weight sharded
+        over the data axis, gathered per module) or ``"stream"`` (weight streaming)
+    ``tensor_parallel``     — the model axis's size; > 1 shards weights over it and
+        splits the Linear/Conv2d layers (must divide each group's devices; not
+        with fsdp or stream)
     ``hbm_budget_bytes``    — the device budget the weights-don't-fit decision and
         the stream's stage carve use; None reads ``devices.memory.usable_hbm_bytes``
         (pass it on the host, which reports no memory)
@@ -155,6 +176,38 @@ class ParallelConfig:
     stream_stages: int | None = None
 
 
+def _sharded(config: ParallelConfig) -> bool:
+    return config.weight_sharding == "fsdp" or config.tensor_parallel > 1
+
+
+def _group_mesh(devices: Sequence[torch.device], config: ParallelConfig) -> Mesh:
+    """1-D data mesh, or (data, model) when ``tensor_parallel > 1``."""
+    n = len(devices)
+    tp = max(1, int(config.tensor_parallel))
+    if tp == 1:
+        return build_mesh(devices, {AXIS_DATA: n})
+    if config.weight_sharding == "fsdp":
+        raise ValueError("tensor_parallel does not compose with weight_sharding='fsdp'")
+    if n % tp:
+        raise ValueError(f"tensor_parallel={tp} does not divide the group's {n} device(s)")
+    return build_mesh(devices, {AXIS_DATA: n // tp, AXIS_MODEL: tp})
+
+
+def _place_for(config: ParallelConfig, module: torch.nn.Module, mesh: Mesh
+               ) -> tuple[ShardedParams, list[torch.nn.Module], str]:
+    """The sharded placement (JAX ``_place_for``): the placed weights, one skeleton
+    per data-axis index, and a description."""
+    from .mesh import place_params_fsdp, place_params_tp
+    from .sharding import fsdp_replicas, tp_replicas
+
+    if config.weight_sharding == "fsdp":
+        placed = place_params_fsdp(module, mesh)
+        return placed, fsdp_replicas(module, placed), "fsdp-sharded parameters"
+    placed = place_params_tp(module, mesh)
+    return (placed, tp_replicas(module, placed),
+            f"tensor-parallel parameters (model axis x{config.tensor_parallel})")
+
+
 @dataclasses.dataclass
 class _PlatformGroup:
     """Consecutive chain links on one platform, with one replica per device.
@@ -162,7 +215,9 @@ class _PlatformGroup:
     ``device_strs``, ``device_weights`` and ``user_weights`` (the pre-blend
     weights ``rebalance`` re-blends from) stay index-aligned with ``devices``, so
     dropping a device on a placement OOM also drops its share. ``replicas`` holds
-    the placed replicas of the first ``len(replicas)`` devices."""
+    the placed replicas of the first ``len(replicas)`` devices; with sharded
+    weights, ``mesh`` and ``placed`` hold the group's mesh and weights and
+    ``replicas`` one skeleton per data-axis index."""
 
     platform: str
     devices: list[torch.device]
@@ -170,16 +225,27 @@ class _PlatformGroup:
     device_weights: list[float]
     user_weights: list[float] = dataclasses.field(default_factory=list)
     replicas: list[torch.nn.Module] = dataclasses.field(default_factory=list)
+    mesh: Mesh | None = None
+    placed: ShardedParams | None = None
 
     @property
     def weight(self) -> float:
         return float(sum(self.device_weights))
+
+    @property
+    def run_devices(self) -> list[torch.device]:
+        """The devices the replicas run on: every device, or each data-axis
+        index's first device under a mesh."""
+        return self.mesh.axis_devices(AXIS_DATA) if self.mesh is not None else self.devices
 
     def drop_last_device(self) -> str:
         self.devices.pop()
         self.device_weights.pop()
         if self.user_weights:
             self.user_weights.pop()
+        if self.mesh is not None:
+            self.mesh = self.placed = None
+            self.replicas = []
         del self.replicas[len(self.devices):]
         return self.device_strs.pop()
 
@@ -187,6 +253,17 @@ class _PlatformGroup:
         """Place a replica on every device of the group that has none yet."""
         while len(self.replicas) < len(self.devices):
             self.replicas.append(_place(module, self.devices[len(self.replicas)]))
+
+    def place_for(self, module: torch.nn.Module, config: ParallelConfig) -> None:
+        """The placement ``config`` asks for: a replica per device, or the group's
+        mesh, sharded weights and skeletons (once)."""
+        if not _sharded(config):
+            self.place(module)
+        elif self.placed is None:
+            mesh = _group_mesh(self.devices, config)
+            self.placed, self.replicas, desc = _place_for(config, module, mesh)
+            self.mesh = mesh
+            logger.info("placement %s x%d: %s", self.platform, len(self.devices), desc)
 
 
 def _module_on(module: torch.nn.Module, device: torch.device) -> bool:
@@ -300,7 +377,19 @@ class ParallelModel:
         """Every placed replica, in chain order."""
         return [r for g in self._groups for r in g.replicas]
 
+    @property
+    def is_sharded(self) -> bool:
+        """True when the weights are placed sharded (fsdp or tensor parallel)."""
+        return _sharded(self.config)
+
+    def _data_width(self) -> int:
+        """The data axis's total size over the groups: the unit batch routing
+        compares against (the device count, but for tensor parallelism)."""
+        return sum(len(g.run_devices) for g in self._groups)
+
     def __call__(self, x, timesteps, context=None, **kwargs):
+        from ..ops.attention import sequence_ctx_key
+
         if self._stream:
             # Every batch size and every route: a fallback would place the whole
             # model on one device, which is what cannot fit.
@@ -322,18 +411,25 @@ class ParallelModel:
                 self._steps_demoted += 1
                 return self.single(x, timesteps, context, **kwargs)
         batch = batch_size_of(x)
-        n = self.n_devices
+        n = self._data_width()
+        seq_ctx = sequence_ctx_key() is not None
         try:
+            if self.config.tensor_parallel > 1 and self.config.workload_split:
+                # The weights fit only sharded: every batch, batch 1 included, runs
+                # on the skeletons, never a pipeline stage or a lead copy.
+                return self._data_parallel(batch, x, timesteps, context, kwargs)
             mb = self.config.pipeline_microbatches
-            if mb > 1 and self.config.workload_split and batch >= mb and n > 1:
+            if mb > 1 and self.config.workload_split and batch >= mb and n > 1 \
+                    and not seq_ctx:
                 runner = self._get_pipeline_runner()
                 if runner is not None:
                     return self._pipeline_microbatch(runner, mb, batch, x, timesteps,
                                                      context, kwargs)
             if batch == 1 and self.config.workload_split and n > 1:
                 # Pipeline block placement (reference 1295-1305); a model with no
-                # stages runs single-device (1156-1166).
-                runner = self._get_pipeline_runner()
+                # stages runs single-device (1156-1166), and so does every model
+                # under a sequence_parallel context (a stage holds one device).
+                runner = None if seq_ctx else self._get_pipeline_runner()
                 if runner is not None:
                     return runner(x, timesteps, context, **kwargs)
                 return self.single(x, timesteps, context, **kwargs)
@@ -358,11 +454,15 @@ class ParallelModel:
 
     def single(self, x, timesteps, context=None, **kwargs):
         """The whole batch on the lead device's replica (streamed, for a streaming
-        model)."""
+        model). With sharded weights: on the first skeleton, whose weights stay
+        sharded (a lead copy is what cannot fit)."""
         if self._stream:
             return self._stream_call(x, timesteps, context, kwargs)
-        lead = self.lead_device
-        module = self._lead_replica()
+        g = self._groups[0]
+        if g.placed is not None and g.replicas:
+            lead, module = g.run_devices[0], g.replicas[0]
+        else:
+            lead, module = self.lead_device, self._lead_replica()
         with torch.no_grad():
             return module(_to(x, lead), _to(timesteps, lead), _to(context, lead),
                           **_to(kwargs, lead))
@@ -372,12 +472,13 @@ class ParallelModel:
         """One group's share, padded to a multiple of its device count and cut into
         one equal chunk per replica, each already on its device. Returns the
         per-replica (module, x, t, context, kwargs) and the padded size."""
-        n = len(g.devices)
+        devices = g.run_devices
+        n = len(devices)
         padded = batch + ((-batch) % n)
         xs, ts, cs, kws = (_chunk_tree(v, batch, padded, n)
                            for v in (x, timesteps, context, dict(kwargs)))
         work = [(m, _to(xi, d), _to(ti, d), _to(ci, d), _to(ki, d))
-                for d, m, xi, ti, ci, ki in zip(g.devices, g.replicas, xs, ts, cs, kws)]
+                for d, m, xi, ti, ci, ki in zip(devices, g.replicas, xs, ts, cs, kws)]
         return work, padded
 
     def _data_parallel(self, batch, x, timesteps, context, kwargs):
@@ -470,9 +571,10 @@ class ParallelModel:
             from .pipeline import build_pipeline_runner
 
             devices = [d for g in self._groups for d in g.devices]
+            # A skeleton holds placeholders for its sharded weights: no resident.
             self._pipeline_runner = build_pipeline_runner(
                 self._pipeline_spec, self._module, devices, list(self.weights),
-                residents=self._replicas)
+                residents=[] if self.is_sharded else self._replicas)
             if self._pipeline_runner is None:
                 self._pipeline_spec = None
         return self._pipeline_runner
@@ -482,18 +584,24 @@ class ParallelModel:
     def traceable(self):
         """A ``TraceSpec`` for the whole-loop compiled sampler, or None for a
         heterogeneous chain (its host-side scatter cannot live in one captured
-        graph). An active data-parallel group gives every replica; a single device,
-        or a demoted chain, the lead replica. The captured loop calls the replicas
+        graph) and under an active ``sequence_parallel`` context (the captured
+        loop would not carry its mesh). An active data-parallel group gives every
+        replica; a single device, or a demoted chain, the lead replica, or for
+        sharded weights the first skeleton. The captured loop calls the replicas
         directly and so gives up step-OOM demotion."""
+        from ..ops.attention import sequence_ctx_key
         from ..sampling.compiled import TraceSpec
 
-        if self._stream or len(self._groups) != 1:
+        if self._stream or len(self._groups) != 1 or sequence_ctx_key() is not None:
             # A streaming model: one captured loop would hold every weight.
             return None
         g = self._groups[0]
-        if self.active and self.config.workload_split and len(g.devices) > 1 \
-                and len(g.replicas) == len(g.devices):
-            return TraceSpec(tuple(g.replicas), tuple(g.devices))
+        devices = g.run_devices
+        if self.active and self.config.workload_split and len(devices) > 1 \
+                and len(g.replicas) == len(devices):
+            return TraceSpec(tuple(g.replicas), tuple(devices))
+        if g.placed is not None and g.replicas:
+            return TraceSpec((g.replicas[0],), (devices[0],))
         return TraceSpec((self._lead_replica(),), (self.lead_device,))
 
     def serving_bucket_width(self, requested: int) -> int:
@@ -501,8 +609,9 @@ class ParallelModel:
         chain (``serving/scheduler.py`` asks at admission). A streaming model stays
         width 1: every step already streams the weights under a budget carved for
         one request's activations, and co-batched lanes would multiply them. A
-        heterogeneous chain is width 1 for the reason it has no captured loop: no
-        single step program exists to widen. Either keeps step-boundary scheduling
+        heterogeneous chain, and any model under a ``sequence_parallel`` context, is
+        width 1 for the reason it has no captured loop: no single step program
+        exists to widen. Either keeps step-boundary scheduling
         (cancel, metrics, ragged retire) without co-batching. Any other chain takes
         the requested width."""
         if self._stream or self.traceable() is None:
@@ -518,10 +627,13 @@ class ParallelModel:
         self._demoted = True
         self._steps_demoted = 0
         self._pipeline_runner = None
-        lead = self._groups[0].replicas[:1]
-        for g in self._groups:
-            g.replicas = []
-        self._groups[0].replicas = lead
+        if not self.is_sharded:
+            # Sharded weights are the only placement that fits: kept, and single()
+            # runs the first skeleton.
+            lead = self._groups[0].replicas[:1]
+            for g in self._groups:
+                g.replicas = []
+            self._groups[0].replicas = lead
         clear_compiled_loops()  # the captured loops hold the dropped replicas
         _release_memory(self.config.purge_cache)
 
@@ -537,7 +649,7 @@ class ParallelModel:
         before = [len(g.replicas) for g in self._groups]
         try:
             for g in self._groups:
-                g.place(self._module)
+                g.place_for(self._module, self.config)
         except Exception:
             for g, n in zip(self._groups, before):
                 del g.replicas[n:]
@@ -586,6 +698,7 @@ class ParallelModel:
         self.active = False
         for g in self._groups:
             g.replicas = []
+            g.mesh = g.placed = None
         self._pipeline_runner = None
         self._stream_runner = None
         clear_compiled_loops()
@@ -620,10 +733,8 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
     stream_mode = config.weight_sharding == "stream"
     if stream_mode and config.tensor_parallel > 1:
         raise ValueError("weight_sharding='stream' does not compose with tensor_parallel")
-    if config.weight_sharding not in ("replicate", "stream"):
-        raise _not_ported(f"weight_sharding={config.weight_sharding!r} (ROADMAP Queue 1, fsdp / tp)")
-    if config.tensor_parallel > 1:
-        raise _not_ported("tensor_parallel > 1 (ROADMAP Queue 1, fsdp / tp)")
+    if config.weight_sharding not in ("replicate", "stream", "fsdp"):
+        raise ValueError(f"unknown weight_sharding {config.weight_sharding!r}")
     if not isinstance(chain, DeviceChain):
         chain = DeviceChain.from_pairs(chain)
     # Patch nodes come before ParallelAnything (stock's order): their sampling
@@ -657,7 +768,7 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
         weights = blend_speed_weights(weights, _device_step_times(devices))
     groups = _group_links(chain, devices, weights, user_weights)
 
-    if not stream_mode and pipeline_spec is not None:
+    if not stream_mode and not _sharded(config) and pipeline_spec is not None:
         # Weights that do not fit the lead's budget cannot be placed: the
         # setup-OOM ladder would drop device after device and still fail. Stream
         # them through the lead instead.
@@ -669,17 +780,22 @@ def parallelize(model, chain: DeviceChain | Sequence[tuple[str, float]],
                            nbytes / 2**30, budget / 2**30)
             stream_mode = True
 
+    tp = max(1, int(config.tensor_parallel))
     while not stream_mode:
         try:
             for g in groups:
-                g.place(module)
+                g.place_for(module, config)
             break
         except Exception as e:
             if not is_out_of_memory(e):
                 raise
             g = groups[-1]
-            if len(g.devices) > 1:
-                logger.warning("setup-oom: dropped %s, retrying", g.drop_last_device())
+            if len(g.devices) > tp:
+                # Drop trailing devices until tp divides the survivors (one for tp 1).
+                dropped = [g.drop_last_device()]
+                while len(g.devices) % tp:
+                    dropped.append(g.drop_last_device())
+                logger.warning("setup-oom: dropped %s, retrying", dropped)
             elif len(groups) > 1:
                 groups.pop()
                 logger.warning("setup-oom: dropped platform group %s, retrying", g.platform)

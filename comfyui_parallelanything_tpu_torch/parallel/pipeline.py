@@ -21,9 +21,9 @@ Hops: device → host is a blocking copy, so a host stage never reads its inputs
 before they have landed; host → device and device → device are issued
 ``non_blocking`` (a pageable host source is staged before the call returns).
 
-The JAX runner refuses to run inside an active sequence-parallel context
-(``sequence_ctx_key``); sequence parallelism is not ported yet, so the port has
-no such guard.
+Like the JAX runner, a call inside an active ``sequence_parallel`` context
+(``ops/attention.sequence_ctx_key``) raises ``ValueError``: a stage holds one
+device, the context's attention a mesh.
 """
 
 from __future__ import annotations
@@ -148,6 +148,18 @@ class PipelineRunner:
                 for k, v in carry.items()}
 
     def __call__(self, x, timesteps, context=None, **kwargs):
+        from ..ops.attention import sequence_ctx_key
+
+        if sequence_ctx_key() is not None:
+            # A stage holds one device; the context's attention holds a mesh. The
+            # orchestrator runs batch 1 single-device under a context: reaching
+            # here means the runner was called directly.
+            raise ValueError(
+                "pipeline block placement does not compose with an active "
+                "sequence_parallel context; run the model through the "
+                "orchestrator (which falls back to single-device) or exit "
+                "the context"
+            )
         lead = self.lead
         with torch.no_grad():
             carry = self._spec.prepare(self._prepare, _to(x, lead), _to(timesteps, lead),

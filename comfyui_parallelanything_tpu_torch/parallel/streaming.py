@@ -62,8 +62,9 @@ stage's copy raise an out-of-memory error, so the orchestrator's ``stream-recarv
 rung runs.
 
 The orchestrator routes here when the weights do not fit the device budget, or for
-``weight_sharding="stream"``. Not ported yet: the JAX runner's ``pa_hbm_stream_*``
-gauges (ROADMAP Queue 1 item 9d) and its sequence-parallel guard (item 7).
+``weight_sharding="stream"``. Under an active ``sequence_parallel`` context a call
+raises ``ValueError``, as the JAX runner's. Not ported yet: the JAX runner's
+``pa_hbm_stream_*`` gauges (ROADMAP Queue 1 item 9d).
 """
 
 from __future__ import annotations
@@ -346,6 +347,14 @@ class StreamingRunner:
     # -- the double-buffered schedule ---------------------------------------------
 
     def __call__(self, x, timesteps, context=None, **kwargs):
+        from ..ops.attention import sequence_ctx_key
+
+        if sequence_ctx_key() is not None:
+            raise ValueError(
+                "weight streaming does not compose with an active "
+                "sequence_parallel context (stage programs are pinned to one "
+                "device); exit the context or run a resident placement"
+            )
         with tracing.annotate("stream-run"):
             return self._run(x, timesteps, context, kwargs)
 

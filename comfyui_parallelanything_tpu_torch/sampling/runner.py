@@ -120,7 +120,8 @@ def _compiled_spec(model, callback):
     spec = trace_spec_of(model)
     if spec is None:
         logger.info("compile_loop: the model cannot run as one captured loop (a "
-                    "heterogeneous chain or a per-step expert switch); eager path")
+                    "heterogeneous chain, a per-step expert switch or a "
+                    "sequence_parallel context); eager path")
     return spec
 
 

@@ -4,7 +4,9 @@ against the same models on the CPU, a small FLUX streamed from pinned host memor
 against the same model resident, the whole-loop compiled sampler's captured
 graphs against the eager loop (beside a busy serving dispatcher too, and a capture
 that breaks and falls back), the numerics sentinel on a captured loop and a serving
-lane kept bitwise beside a quarantined one, a
+lane kept bitwise beside a quarantined one, Ulysses and the ring over a 4-shard
+sequence mesh on the card, a small FLUX with FSDP and tensor-parallel weights on a
+2-position mesh, a
 ``cuda:0`` + ``cpu`` chain, the example graphs
 (native and stock names) and the CLIP vision tower on the card against the CPU.
 Every test here needs a CUDA device and skips without one.
@@ -1048,3 +1050,56 @@ def test_vision_tower_on_the_card_matches_the_cpu(cuda_device):
     for name, a, b in zip(("embeds", "last", "penultimate"), got, want):
         assert a.device.type == "cuda"
         assert chip_smoke.rel_l2(a.cpu(), b) < 1e-4, name
+
+
+def test_ulysses_through_k1_and_the_ring_match_plain_attention(cuda_device):
+    # Four sequence shards on the one card: Ulysses launches K1 (sm90) once per head
+    # slice, a strided view; the ring launches none (its softmax is plain torch).
+    from comfyui_parallelanything_tpu_torch.parallel.mesh import build_mesh
+    from comfyui_parallelanything_tpu_torch.parallel.sequence import (
+        sequence_parallel_attention,
+    )
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(1, 512, 8, 128, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    mesh = build_mesh([cuda_device] * 4, {"seq": 4})
+    fa.reset_launches()
+    got = sequence_parallel_attention(q, k, v, mesh, method="ulysses")
+    torch.cuda.synchronize()
+    assert fa.launches_by_variant["sm90"] == fa.launches == 4
+    assert chip_smoke.kernel_error(got, q, k, v)["ok"]
+    ring = sequence_parallel_attention(q, k, v, mesh, method="ring")
+    torch.cuda.synchronize()
+    assert fa.launches == 4
+    assert chip_smoke.kernel_error(ring, q, k, v)["ok"]
+
+
+def test_fsdp_and_tp_small_flux_match_the_replicated_forward(cuda_device):
+    from comfyui_parallelanything_tpu_torch import ParallelConfig
+    from comfyui_parallelanything_tpu_torch.parallel.mesh import (
+        build_mesh,
+        place_params_fsdp,
+        place_params_tp,
+    )
+    from comfyui_parallelanything_tpu_torch.parallel.sharding import fsdp_replicas, tp_replicas
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    model = flux.build_flux(flux.flux_dev_config(**SMALL), device=cuda_device, generator=g)
+    x = torch.randn(2, 16, 16, 4, generator=g, device=cuda_device)
+    ctx = torch.randn(2, 8, 64, generator=g, device=cuda_device)
+    y = torch.randn(2, 32, generator=g, device=cuda_device)
+    t = torch.tensor([0.9, 0.4], device=cuda_device)
+    gd = torch.full((2,), 3.5, device=cuda_device)
+    with torch.no_grad():
+        want = model.module(x, t, ctx, y=y, guidance=gd)
+        placed = place_params_fsdp(model.module, build_mesh([cuda_device] * 2))
+        fsdp = fsdp_replicas(model.module, placed)[1](x, t, ctx, y=y, guidance=gd)
+        placed = place_params_tp(model.module, build_mesh([cuda_device] * 2,
+                                                          {"data": 1, "model": 2}))
+        tp = tp_replicas(model.module, placed)[0](x, t, ctx, y=y, guidance=gd)
+    assert torch.equal(fsdp, want)
+    assert chip_smoke.rel_l2(tp, want) <= chip_smoke.PARALLEL_REL_TOL
+    pm = parallelize(model, [("cuda:0", 100)], ParallelConfig(weight_sharding="fsdp"))
+    assert torch.equal(pm(x, t, ctx, y=y, guidance=gd), want)
+    pm.cleanup()

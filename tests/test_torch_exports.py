@@ -44,3 +44,24 @@ def test_version_and_subpackages_without_a_port():
     psubs = {m.name for m in pkgutil.iter_modules(ppkg.__path__) if m.ispkg}
     assert jsubs - psubs == set(ppkg.NOT_PORTED_SUBPACKAGES)
     assert set(ppkg.NOT_EXPORTED) <= set(SUBPACKAGES)
+
+
+# The mesh, sequence-parallel and multihost names the port exports since it ported
+# them (they were on ``NOT_EXPORTED``), each the port's own function.
+ITEM_7 = {"": ["build_mesh", "mesh_axis_names", "sequence_parallel_attention"],
+          "parallel": ["build_mesh", "mesh_axis_names", "fsdp_spec", "place_params",
+                       "place_params_fsdp", "sequence_parallel_attention",
+                       "initialize_distributed", "is_multihost", "hybrid_mesh",
+                       "host_local_batch"]}
+
+
+@pytest.mark.parametrize("sub", list(ITEM_7))
+def test_mesh_sequence_and_multihost_names_are_exported(sub):
+    jmod, pmod = _pair(sub)
+    listed = ppkg.NOT_EXPORTED.get(sub, {})
+    for name in ITEM_7[sub]:
+        assert name in jmod.__all__ and name in pmod.__all__ and name not in listed
+        fn = getattr(pmod, name)
+        assert callable(fn) and fn.__module__.startswith("comfyui_parallelanything_tpu_torch.")
+    assert not any("item 7" in reason for reasons in ppkg.NOT_EXPORTED.values()
+                   for reason in reasons.values())

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_quick_jax import quick_jax_compiles  # noqa: E402,F401
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
@@ -184,9 +185,15 @@ def test_routing_ladder_and_not_ported_paths(dev_pair, monkeypatch):
     single = parallelize(pm, chain4, ParallelConfig(workload_split=False))
     np.testing.assert_allclose(single(x, t, ctx, y=y).numpy(), pm(x, t, ctx, y=y).numpy(), **TOL)
     assert parallelize(pm, [("cpu", 0)]) is pm  # unusable chain: model unchanged
+    # Sharded weights (ported since the fsdp / tp slice): fsdp's batch 1 takes the
+    # pipeline as JAX's does, tensor parallelism runs its sharded program.
     for cfg in (ParallelConfig(weight_sharding="fsdp"), ParallelConfig(tensor_parallel=2)):
-        with pytest.raises(NotImplementedError):
-            parallelize(pm, chain4, cfg)
+        sharded = parallelize(pm, chain4, cfg)
+        np.testing.assert_allclose(sharded(x, t, ctx, y=y).numpy(),
+                                   pm(x, t, ctx, y=y).numpy(), **TOL)
+        assert sharded.is_sharded and (sharded._pipeline_runner is None) == (
+            cfg.tensor_parallel > 1)
+        sharded.cleanup()
     x2, t2, ctx2, y2 = (torch.from_numpy(a) for a in _inputs(2, seed=4))
     mb = parallelize(pm, chain4, ParallelConfig(pipeline_microbatches=2))
     np.testing.assert_allclose(mb(x2, t2, ctx2, y=y2).numpy(), pm(x2, t2, ctx2, y=y2).numpy(),

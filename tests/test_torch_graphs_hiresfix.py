@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_quick_jax import quick_jax_compiles  # noqa: E402,F401
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import test_torch_graphs_sd15 as g  # noqa: E402

@@ -495,3 +495,55 @@ def test_wan_vae_attention_takes_the_wide_variant(monkeypatch):
     assert dict(seen) == {("wide", (21, 6240, 1, 384), 6240): 2}
     assert ("wan_vae_mid_d384", (21, 6240, 1, 384), (21, 6240, 1, 384), "bfloat16",
             "fused_qkv", "wide") in chip_smoke.KERNEL_CASES
+
+
+def test_the_dispatch_order_check_fails_a_planted_late_kernel():
+    # chip_smoke's serving_traced_profile holds each dispatch's kernels to end before
+    # the next dispatch's first kernel starts, in the device's clock alone.
+    import chip_smoke
+
+    kernels = [[(0.0, 5.0), (5.5, 9.0)], [(10.0, 12.0), (12.5, 20.0)], [(21.0, 22.0)]]
+    assert chip_smoke.dispatch_order_faults(kernels) == []
+    late = [list(k) for k in kernels]
+    late[0].append((11.0, 11.5))  # dispatch 0's kernel after dispatch 1's first one
+    assert chip_smoke.dispatch_order_faults(late) == [0]
+    late[1][-1] = (12.5, 21.5)
+    assert chip_smoke.dispatch_order_faults(late) == [0, 1]
+    assert chip_smoke.dispatch_order_faults([[], *kernels[1:]]) == []
+
+
+def test_the_dispatch_wait_check_fails_a_window_without_a_synchronise():
+    # chip_smoke's serving_traced_profile holds each dispatch window to issue a
+    # synchronising call after its last kernel launch, in the host's clock alone.
+    import chip_smoke
+
+    def window(ts, dur, tid=1):
+        return {"cat": "user_annotation", "name": "serving-dispatch", "ts": ts, "dur": dur,
+                "tid": tid}
+
+    def call(name, ts, corr, tid=1):
+        return {"cat": "cuda_runtime", "name": name, "ts": ts, "dur": 1.0, "tid": tid,
+                "args": {"correlation": corr}}
+
+    def kernel(ts, corr):
+        return {"cat": "kernel", "name": "k", "ts": ts, "dur": 2.0,
+                "args": {"correlation": corr}}
+
+    windows = [window(0.0, 100.0), window(200.0, 100.0)]
+    events = [*windows,
+              call("cudaLaunchKernel", 10.0, 1), kernel(12.0, 1),
+              call("cudaLaunchKernel", 20.0, 2), kernel(22.0, 2),
+              call("cudaDeviceSynchronize", 30.0, 3),
+              call("cudaLaunchKernel", 210.0, 4), kernel(212.0, 4),
+              call("cudaMemcpy", 220.0, 5)]
+    assert chip_smoke.unwaited_windows(events, windows) == []
+    # Window 0's synchronise taken out: its span no longer waits for its kernels.
+    no_sync = [e for e in events if e.get("name") != "cudaDeviceSynchronize"]
+    assert chip_smoke.unwaited_windows(no_sync, windows) == [0]
+    # A synchronise before the last launch does not wait for that launch.
+    early = [*events, call("cudaLaunchKernel", 40.0, 6), kernel(42.0, 6)]
+    assert chip_smoke.unwaited_windows(early, windows) == [0]
+    # A synchronise on another thread, or after the window, does not count.
+    other = [*no_sync, call("cudaDeviceSynchronize", 30.0, 7, tid=2),
+             call("cudaDeviceSynchronize", 150.0, 8)]
+    assert chip_smoke.unwaited_windows(other, windows) == [0]

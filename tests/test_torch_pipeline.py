@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_quick_jax import quick_jax_compiles  # noqa: E402,F401
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402

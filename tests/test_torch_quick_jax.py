@@ -2,9 +2,11 @@
 
 A parity file runs each JAX reference program once or twice, so on the CPU the
 time goes to compiling it: XLA's optimisation passes take about half of it. The
-Wan and video-VAE parity files import ``quick_jax_compiles``, which turns those
-passes off (``jax_disable_most_optimizations``) for their module and restores the
-setting after. The programs compute the same functions; only how XLA schedules
+parity files whose time is the JAX side's compiles import ``quick_jax_compiles``
+(the Wan, video-VAE, FLUX, UNet, MMDiT, ControlNet, VAE, sampler, pipeline, graph,
+node, loader and parallel-axes files among them), which turns those passes off
+(``jax_disable_most_optimizations``) for their module and restores the setting
+after. The programs compute the same functions; only how XLA schedules
 and fuses them changes.
 """
 
